@@ -1,0 +1,23 @@
+"""PyTorch + CUDA port of the memory-optimized FFT engine (``repro``).
+
+The package mirrors ``repro``'s layout so each module's counterpart is easy
+to find:
+
+  core.limits      regime thresholds; shared-memory budget from torch.cuda
+  core.faults      typed error taxonomy + fault-injection registry
+  core.twiddle     float64 host LUT tables (DFT matrices, twiddle grids)
+  core.plan        the pass-program planner (pure metadata, pass for pass
+                   the reference's)
+  core.fft_torch   plain split-plane torch FFT math (the CPU route)
+  core.fft         FFTSpec / plan() / PlannedFFT over a backend registry
+  kernels.build    nvcc → shared library → ctypes, at first use
+  kernels.*        the hand-written sm_90a CUDA kernels, each beside its
+                   plain PyTorch version
+  kernels.ops      the pass-program executor with device-resident LUTs
+
+It imports torch and numpy only — never jax, never ``repro``.
+"""
+
+from repro_torch import core, kernels
+
+__all__ = ["core", "kernels"]

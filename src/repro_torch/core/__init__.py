@@ -1,0 +1,30 @@
+"""Planner, LUT tables, error taxonomy and the plan-and-execute API.
+
+  limits      regime thresholds and the shared-memory budget
+  faults      typed errors and the fault-injection registry
+  twiddle     float64 host LUT tables (the paper's texture-memory stage)
+  plan        the HBM-round-trip pass program (pure metadata)
+  fft_torch   plain split-plane torch FFT math (CPU route, kernel oracle)
+  fft         FFTSpec → plan() → PlannedFFT over a backend registry
+"""
+
+from repro_torch.core import faults, fft, fft_torch, limits, plan, twiddle
+from repro_torch.core.faults import KernelError, PlanError, ReproError
+from repro_torch.core.fft import FFTSpec, PlannedFFT
+from repro_torch.core.plan import FFTPlan, plan_fft
+
+__all__ = [
+    "faults",
+    "fft",
+    "fft_torch",
+    "limits",
+    "plan",
+    "twiddle",
+    "KernelError",
+    "PlanError",
+    "ReproError",
+    "FFTSpec",
+    "PlannedFFT",
+    "FFTPlan",
+    "plan_fft",
+]

@@ -1,0 +1,55 @@
+"""The port and chip_smoke.py never import JAX or the JAX package, and the
+port never calls the library FFT."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+GUARD = """
+import sys
+sys.path[:0] = [{repo!r}, {src!r}]
+import chip_smoke
+import repro_torch
+import repro_torch.core.fft, repro_torch.kernels.ops, repro_torch.kernels.build
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("clean")
+"""
+
+
+def test_port_and_smoke_import_no_jax_and_no_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", GUARD.format(repo=REPO, src=os.path.join(REPO, "src"))],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def _py_files():
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(root, name)
+
+
+IMPORT_REF = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def test_source_scan():
+    files = list(_py_files()) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 10
+    for path in files:
+        text = open(path, encoding="utf-8").read()
+        assert not IMPORT_REF.search(text), path
+        assert "jnp." not in text and "jax." not in text, path
+        assert not re.search(r"\brepro\.", text), path  # repro_torch. is fine
+        if path.startswith(PORT):
+            assert "torch.fft" not in text, path
+            assert "cufft" not in text.lower(), path
+            assert "torch.compile" not in text, path
