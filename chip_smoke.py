@@ -15,10 +15,12 @@ package), in phases, and fails on the first check that does not hold:
 3. main path — ``plan(FFTSpec(n))`` forward and ``ifft`` at full-size
    remote-sensing shapes: sample rows against ``np.fft`` in complex128 at
    1e-3·max|ref|, ``ifft(fft(x)) ≈ x``, exactly ``len(plan.passes)`` kernel
-   launches and no plain call per planned call, and the time per call
-   beside one ``torch.fft.fft`` call (the library yardstick);
+   launches and no plain call in every planned call (checked and timed), the
+   time per call beside one ``torch.fft.fft`` call (the library yardstick),
+   and the device memory one forward call holds beyond its input;
 4. offsets — two planned calls with just over 2^31 elements per plane,
-   sample rows against ``np.fft``: the kernels' 64-bit addressing.
+   sample rows against ``np.fft``: the kernels' 64-bit addressing, and the
+   device memory each call holds (planes in and out, scratch slab).
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -118,11 +120,14 @@ def planes(gen, *shape):
 
 
 def transform_flops(kind: str, f: int, n1: int, n2: int) -> int:
-    """fp32 flops of one length-f transform as the kernels compute it: 8 per
-    complex multiply-add of the GEMMs, 6 per complex twiddle multiply."""
+    """fp32 flops that one length-f transform needs: 6 per complex
+    multiply-add of the DFT products (three real GEMMs, the Karatsuba form of
+    the reference and of the plain versions) plus 4 per point of their pre-
+    and post-adds, and 6 per complex twiddle multiply.  The CUDA tiles spend
+    8 per multiply-add (4 FMAs); that is their design, not the work."""
     if kind == "direct":
-        return 8 * f * f
-    return 8 * f * (n1 + n2) + 6 * f
+        return 6 * f * f + 4 * f
+    return 6 * f * (n1 + n2) + 4 * f + 6 * f + 4 * f
 
 
 def lut_bytes(kind: str, f: int, n1: int, n2: int) -> int:
@@ -241,24 +246,46 @@ def kernel_phase(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def check_launches(label: str, before: dict, after: dict, expect: dict) -> None:
+    """Every counter moved by exactly ``expect`` (kernel → launches) from
+    ``before`` to ``after``; plain versions and other kernels by 0."""
+    for key in after:
+        delta = after[key] - before[key]
+        want = 0 if key.endswith("_plain") else expect.get(key, 0)
+        check(delta == want, f"{label}: {key} moved by {delta}, expected {want}")
+
+
+def launches_per_call(planned, calls: int = 1) -> dict:
+    expect = {}
+    for k in planned.kernels:
+        expect[k] = expect.get(k, 0) + calls
+    return expect
+
+
+def counted_call(label: str, planned, x):
+    """One planned call, held to exactly ``len(planned.passes)`` launches;
+    returns its output and the bytes the call held on the card beyond what
+    was allocated before it (output included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = kernels.counts()
+    y = planned(x)
+    torch.cuda.synchronize()
+    check_launches(label, before, kernels.counts(), launches_per_call(planned))
+    return y, torch.cuda.max_memory_allocated() - base
+
+
 def main_path_phase(gen) -> None:
+    reps, warmup = 3, 1
     for n, b in MAIN_PATH:
         fwd = F.plan(F.FFTSpec(n))
         inv = F.plan(F.FFTSpec(n, kind="ifft"))
         check(fwd.device.type == "cuda" and fwd.backend.name == "cuda", f"n={n}: plan is not on the card")
         x = torch.complex(*planes(gen, b, n))
+        at_start = kernels.counts()
 
-        before = kernels.counts()
-        y = fwd(x)
-        torch.cuda.synchronize()
-        after = kernels.counts()
-        expect = {}
-        for k in fwd.kernels:
-            expect[k] = expect.get(k, 0) + 1
-        for key in after:
-            delta = after[key] - before[key]
-            want = 0 if key.endswith("_plain") else expect.get(key, 0)
-            check(delta == want, f"n={n}: {key} moved by {delta} in one planned call, expected {want}")
+        y, peak = counted_call(f"n={n} fft", fwd, x)
         check(tuple(y.shape) == (b, n) and y.dtype == torch.complex64, f"n={n}: output {y.shape} {y.dtype}")
         check(bool(torch.isfinite(torch.view_as_real(y)).all()), f"n={n}: non-finite output")
 
@@ -268,21 +295,27 @@ def main_path_phase(gen) -> None:
         scale = np.abs(ref).max()
         check(err <= FFT_TOL * scale, f"n={n}: fft vs np.fft {err:.3e} > {FFT_TOL}·{scale:.3e}")
 
-        z = inv(y)
-        torch.cuda.synchronize()
+        z, _ = counted_call(f"n={n} ifft", inv, y)
         rt = (z - x).abs().max().item()
         xs = x.abs().max().item()
         check(rt <= FFT_TOL * xs, f"n={n}: ifft(fft(x)) off by {rt:.3e} > {FFT_TOL}·{xs:.3e}")
         del y, z
 
-        fwd_ms = time_ms(lambda: fwd(x), reps=3)
-        inv_ms = time_ms(lambda: inv(x), reps=3)
-        lib_ms = time_ms(lambda: torch.fft.fft(x), reps=3)  # the yardstick only
+        fwd_ms = time_ms(lambda: fwd(x), reps=reps, warmup=warmup)
+        inv_ms = time_ms(lambda: inv(x), reps=reps, warmup=warmup)
+        # Every call of this shape, checked and timed, launched its plan's
+        # kernels and nothing else.
+        expect = launches_per_call(fwd, 1 + warmup + reps)
+        for k, c in launches_per_call(inv, 1 + warmup + reps).items():
+            expect[k] = expect.get(k, 0) + c
+        check_launches(f"n={n} all calls", at_start, kernels.counts(), expect)
+        lib_ms = time_ms(lambda: torch.fft.fft(x), reps=reps, warmup=warmup)  # the yardstick only
         print(
             "main_path " + json.dumps({
                 "n": n, "batch": b, "passes": len(fwd.passes), "kernels": list(fwd.kernels),
                 "fft_rel_err": float(err / scale), "roundtrip_rel_err": rt / xs,
                 "fft_ms": fwd_ms, "ifft_ms": inv_ms, "library_ms": lib_ms,
+                "input_bytes": x.numel() * x.element_size(), "fft_call_peak_bytes": peak,
             }),
             flush=True,
         )
@@ -304,8 +337,7 @@ def offsets_phase(gen) -> None:
     for n, b in BIG_OFFSETS:
         planned = F.plan(F.FFTSpec(n))
         xr, xi = planes(gen, b, n)  # planes in, planes out: 8 GB each
-        yr, yi = planned((xr, xi))
-        torch.cuda.synchronize()
+        (yr, yi), peak = counted_call(f"n={n} B={b}", planned, (xr, xi))
         sample = [0, b // 2, b - 1]
         x = (xr[sample].double() + 1j * xi[sample].double()).cpu().numpy()
         ref = np.fft.fft(x, axis=-1)
@@ -316,6 +348,7 @@ def offsets_phase(gen) -> None:
         print("offsets " + json.dumps({
             "n": n, "batch": b, "elements_per_plane": b * n, "kernels": list(planned.kernels),
             "fft_rel_err": float(err / scale),
+            "input_bytes": 8 * b * n, "call_peak_bytes": peak,
         }), flush=True)
         del xr, xi, yr, yi
         torch.cuda.empty_cache()

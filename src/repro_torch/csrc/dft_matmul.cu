@@ -6,14 +6,17 @@
 // SGEMM: one 64 x 64 output tile per block, W streamed through shared memory
 // in 16-deep K-stripes and served from L2 (it is read by every row tile).
 //
-// Bound on the H100: arithmetic.  8.B.N^2 fp32 flops over 16.B.N bytes of
-// signal is N/2 = 512 flop/B at N = 1024, far above the card's
+// Bound on the H100: arithmetic.  The work needs 6.B.N^2 fp32 flops (three
+// real GEMMs, the Karatsuba form of the reference) over 16.B.N bytes of
+// signal: 3N/8 = 384 flop/B at N = 1024, far above the card's
 // 67 TFLOP/s / 3.35 TB/s = 20 flop/B ridge, so the kernel is limited by the
-// CUDA cores' FMA rate.  Its design keeps the FMA pipes fed (4x4 complex
-// register micro-tiles: 8 shared loads feed 64 FMAs per K step; coalesced
-// stripes) and stays off the tensor cores: TF32 keeps ~3 digits and would
-// miss the 1e-3 gate at N = 1024 (3xTF32 wgmma is later work).  Its time
-// against the bound is in PERF.md.
+// CUDA cores' FMA rate.  It spends 4 FMAs (8 flops) per complex
+// multiply-add, a third more than the work needs, for fewer shared loads
+// per FMA and no cancellation.  Its design keeps the FMA pipes fed (4x4
+// complex register micro-tiles: 8 shared loads feed 64 FMAs per K step;
+// coalesced stripes) and stays off the tensor cores: TF32 keeps ~3 digits
+// and would miss the 1e-3 gate at N = 1024 (3xTF32 wgmma is later work).
+// Its time against the bound is in PERF.md.
 #include "tile.cuh"
 
 using namespace repro;

@@ -6,8 +6,11 @@
 // phasor e.  Each block transforms a chunk of C = 2^lgc signals with
 // four_step_tile (tile.cuh); the LUTs W1, T, W2 are read through L2.
 //
-// Bound on the H100: arithmetic.  8.n.(n1 + n2) + 6n fp32 flops per signal
-// over 16n bytes is (n1 + n2)/2 ~ 32..256 flop/B, above the 20 flop/B ridge.
+// Bound on the H100: arithmetic.  The work needs 6.n.(n1 + n2) + 14n fp32
+// flops per signal (three real GEMMs per complex product, their pre- and
+// post-adds, the twiddle) over 16n bytes: 3(n1 + n2)/8 ~ 24..192 flop/B,
+// above the 20 flop/B ridge.  The tiles spend 8 flops (4 FMAs) per complex
+// multiply-add.
 //
 // Where the intermediate B lives.  On the TPU all of a signal sat in VMEM.
 // A block here has 227 KB: the n1 x n2 intermediate of C signals fits up to
@@ -16,7 +19,9 @@
 // scratch slab as large as the output, each block owning its chunk's slice:
 // GEMM 1 writes it, GEMM 2 reads it back after a block barrier.  That costs
 // up to 16n extra bytes per signal (a write and a read, partly absorbed by
-// the 50 MB L2), which the arithmetic bound hides.  A cluster spreading the
+// the 50 MB L2), which the arithmetic bound hides, and 8n bytes of device
+// memory per signal while the call runs: half again the 16n of its planes
+// in and out, so a third off the largest batch the card takes.  A cluster spreading the
 // intermediate over distributed shared memory is the alternative left for
 // the PR that makes this kernel fast.
 #include "tile.cuh"

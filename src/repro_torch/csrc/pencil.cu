@@ -19,8 +19,9 @@
 // columns (rows) — 8 floats = one 32-byte sector per plane — so the strided
 // reads of the columns use whole sectors.
 //
-// Bound on the H100: arithmetic, as the leaves (8.f or 8.(n1 + n2) flops
-// per element over 16 bytes, plus 8 bytes of twiddle for the columns).
+// Bound on the H100: arithmetic, as the leaves (the work needs 6.f or
+// 6.(n1 + n2) flops per element over 16 bytes, plus 8 bytes of twiddle for
+// the columns; the tiles spend 8 per complex multiply-add).
 // The four-step intermediate of a chunk lives in shared memory when it fits
 // (f.C <= 16384) and in a wrapper-owned global scratch slab otherwise (see
 // fft4step.cu for the extra bytes).

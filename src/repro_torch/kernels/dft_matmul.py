@@ -2,7 +2,7 @@
 
 CUDA kernel ``csrc/dft_matmul.cu``, replacing the TPU kernel
 ``dft_matmul_call`` (``src/repro/kernels/dft_matmul.py:67``).  On the H100
-the leaf is bound by fp32 arithmetic (8·B·N² flops over 16·B·N bytes); the
+the leaf is bound by fp32 arithmetic (6·B·N² flops over 16·B·N bytes); the
 kernel is a tiled complex SGEMM on the CUDA cores whose 8 MB DFT matrix
 (N = 1024) streams through shared memory in K-stripes from L2 — it cannot
 sit in a block's 227 KB as it sat in VMEM.

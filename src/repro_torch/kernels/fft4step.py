@@ -4,7 +4,7 @@ CUDA kernel ``csrc/fft4step.cu``, replacing the TPU kernel ``fft4step_call``
 (``src/repro/kernels/fft4step.py:114``): ``A = W1·X``, ``B = A ⊙ T``,
 ``C = B·W2`` per signal, written in natural or k1-major order, times an
 optional per-position phasor.  On the H100 it is bound by fp32 arithmetic
-(8·n·(n1+n2) flops over 16·n bytes).  One block transforms a chunk of
+(6·n·(n1+n2) flops over 16·n bytes).  One block transforms a chunk of
 signals; the n1 × n2 intermediate lives in shared memory while it fits
 (n ≤ 16384) and in a global scratch slab the wrapper allocates beyond —
 the reference's planner is kept, ``FUSED_MAX`` is not lowered.
@@ -122,7 +122,11 @@ def chunk_log2(count: int, want: int) -> int:
 
 def scratch_planes(like, n: int, lgc: int):
     """A global scratch slab for the four-step intermediate, or (None, None)
-    when a chunk of 2^lgc length-n signals keeps it in shared memory."""
+    when a chunk of 2^lgc length-n signals keeps it in shared memory.
+
+    The slab is as large as the output, so while the call runs it holds half
+    again the device memory of its planes in and out.
+    """
     fn = build.function("repro_four_step_smem_bytes", (build.I64, build.I64), build.I64)
     if fn(n, lgc) <= limits.memory_budget():
         return None, None

@@ -9,6 +9,18 @@ and each wrapper's launch path (``_launch*``) is driven on CPU tensors
 through that library and held against the kernel's plain version.  It
 checks no timing, no warp behaviour and nothing of ``nvcc``; the card
 tests (``test_torch_cuda.py``) and ``chip_smoke.py`` do.
+
+The shim supports what the sources use now and nothing more: ``__global__``,
+``__device__``, ``__host__``, ``__forceinline__``, ``__launch_bounds__``,
+static ``__shared__`` arrays, one ``extern __shared__ float2 smem[]``,
+``__syncthreads``, ``float2``/``make_float2``, ``threadIdx``/``blockIdx``
+on a 1-D grid, ``<<<grid, block, smem, stream>>>`` launches,
+``cudaFuncSetAttribute`` for dynamic shared memory and ``cudaGetLastError``.
+Warp shuffles and votes, atomics, ``cp.async``/TMA, ``wgmma``/``mma``
+intrinsics, thread-block clusters and inline PTX are not in it.  When a
+kernel moves past that list, its cases here are retired in favour of its
+``cuda``-marked card test, as the kernel's PR says; the shim does not grow
+to model the hardware.
 """
 
 import ctypes
