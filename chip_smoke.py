@@ -7,11 +7,11 @@ package), in phases, and fails on the first check that does not hold:
 
 1. device — the card's name and power limit, and the build of every kernel
    from ``src/repro_torch/csrc`` (its wall time);
-2. kernels — each of the four CUDA kernels at main-path shapes against its
-   plain PyTorch version on the same inputs (max|Δ| ≤ 1e-4·max|plain|),
-   with its time, the plain version's, its bound (the larger of bytes over
-   HBM bandwidth and flops over the FP32 peak) and, where one library call
-   computes the same function, that call's time;
+2. kernels — each of the seven CUDA kernels at the shapes the main paths
+   give it, against its plain PyTorch version on the same inputs
+   (max|Δ| ≤ 1e-4·max|plain|), with its time, the plain version's, its bound
+   (the larger of bytes over HBM bandwidth and flops over the FP32 peak)
+   and, where one library call computes the same function, that call's time;
 3. main path — ``plan(FFTSpec(n))`` forward and ``ifft`` at full-size
    remote-sensing shapes: sample rows against ``np.fft`` in complex128 at
    1e-3·max|ref|, ``ifft(fft(x)) ≈ x``, exactly ``len(plan.passes)`` kernel
@@ -20,16 +20,24 @@ package), in phases, and fails on the first check that does not hold:
    and the device memory one forward call holds beyond its input;
 4. offsets — two planned calls with just over 2^31 elements per plane,
    sample rows against ``np.fft``: the kernels' 64-bit addressing, and the
-   device memory each call holds (planes in and out, scratch slab).
+   device memory each call holds (planes in and out, scratch slab);
+5. real and 2-D path — ``rfft``/``irfft``, ``fft2``/``ifft2`` (whole and
+   strip-mined columns), ``rfft2``/``irfft2`` and ``fft`` down ``axis=-2``
+   at 0.5–2 GB each, held as phase 3 holds its calls (sample rows or
+   columns against ``np.fft`` in complex128, the inverse back to the input,
+   exact launches), timed beside the matching ``torch.fft`` call.
 
-It then prints the per-kernel JSON line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-and prints no result.
+Phases 3 and 5 each set the launch counts to 0 before they start and read
+them when they end; every kernel of a path must have launched in it.  The
+script then prints the per-kernel JSON line, the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -72,6 +80,17 @@ SOURCES = {
     "fft4step": ("src/repro_torch/csrc/fft4step.cu", "src/repro/kernels/fft4step.py:114"),
     "cols_pass": ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:102"),
     "rows_natural": ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:178"),
+    "cols_natural": ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:234"),
+    "rfft_recomb": ("src/repro_torch/csrc/recomb.cu", "src/repro/kernels/pencil.py:313"),
+    "irfft_recomb": ("src/repro_torch/csrc/recomb.cu", "src/repro/kernels/pencil.py:324"),
+}
+
+#: The kernels each planned path must launch: phase 3 (1-D complex) and
+#: phase 5 (real and 2-D).
+PATH_KERNELS = {
+    "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
+    "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
+               "irfft_recomb"),
 }
 
 
@@ -238,6 +257,108 @@ def kernel_phase(gen) -> dict:
             rows["rows_natural"] = row
         del x, xv
         torch.cuda.empty_cache()
+    rows.update(real2d_kernels(gen, dev))
+    return rows
+
+
+def recomb_flops(points: int) -> int:
+    """fp32 flops of the recombination: per output element 4 sums and 4
+    halvings of E and O, 6 for w·O and 2 for the final add."""
+    return 16 * points
+
+
+def real2d_kernels(gen, dev) -> dict:
+    """The new kernels of the real and 2-D path at the shapes phase 5 gives
+    them (and cols_natural's four-step form, which no phase-5 shape reaches
+    at a size that fits the time limit)."""
+    rows = {}
+    # rfft2 of a 16384 x 16384 image: 16384 rows of m = 8192 packed bins.
+    b, m = 16384, 8192
+    z = planes(gen, b, m)
+    w = ops.recomb_luts(dev, 2 * m, False)
+    rows["rfft_recomb"] = measure_kernel(
+        "rfft_recomb", f"B={b} m={m}",
+        lambda: pencil.rfft_recomb_call(*z, *w),
+        lambda: pencil.rfft_recomb_plain(*z, *w),
+        nbytes=8 * b * m + 8 * b * (m + 1) + 8 * (m + 1), flops=recomb_flops(b * (m + 1)),
+    )
+    del z
+    x = planes(gen, b, m + 1)
+    w = ops.recomb_luts(dev, 2 * m, True)
+    rows["irfft_recomb"] = measure_kernel(
+        "irfft_recomb", f"B={b} m={m}",
+        lambda: pencil.irfft_recomb_call(*x, *w),
+        lambda: pencil.irfft_recomb_plain(*x, *w),
+        nbytes=8 * b * (m + 1) + 8 * b * m + 8 * (m + 1), flops=recomb_flops(b * m),
+    )
+    del x
+
+    # The strip-mined columns of a (131072, 2048) image: the strided factor
+    # with its twiddle broadcast over the width, then the digit-transposing
+    # last factor.
+    n, n2 = 2048, 1 << 17
+    strided, last = plan_lib.plan_fft2(n, n2).passes[1:]
+    _, stride, f = strided.view_in
+    x = planes(gen, 1, f, stride * n)
+    luts = ops._transform_luts(dev, strided, False)
+    tw = ops._pass_twiddle_luts(dev, *strided.twiddle_after, False)
+    kw = dict(kind=strided.kind, n1=strided.n1, n2=strided.n2, tw_every=n)
+    measure_kernel(
+        "cols_pass", f"fft2 {n2}x{n} strided factor (R=1, f={f}, s={stride}x{n}) "
+        f"{strided.kind} tw_every={n}",
+        lambda: pencil.cols_pass_call(*x, luts, tw, **kw),
+        lambda: pencil.cols_pass_plain(*x, luts, tw, **kw),
+        nbytes=16 * n * n2 + 8 * f * stride + lut_bytes(strided.kind, f, 0, 0),
+        flops=stride * n * transform_flops(strided.kind, f, 0, 0) + 6 * n * n2,
+    )
+    del x
+    pencils, _, f = last.view_in
+    x = planes(gen, 1, pencils, f, n)
+    luts = ops._transform_luts(dev, last, False)
+    kw = dict(kind=last.kind, n1=last.n1, n2=last.n2)
+    rows["cols_natural"] = measure_kernel(
+        "cols_natural", f"fft2 {n2}x{n} last factor (B=1, P={pencils}, f={f}, w={n}) {last.kind}",
+        lambda: pencil.cols_natural_call(*x, luts, **kw),
+        lambda: pencil.cols_natural_plain(*x, luts, **kw),
+        nbytes=16 * n * n2 + lut_bytes(last.kind, f, 0, 0),
+        flops=pencils * n * transform_flops(last.kind, f, 0, 0),
+    )
+    del x
+    pp, f, w = 2048, 2048, 32
+    n1, n2_ = plan_lib.balanced_split(f)
+    x = planes(gen, 1, pp, f, w)
+    luts = ops._fused_luts(dev, n1, n2_, False)
+    kw = dict(kind="fused4", n1=n1, n2=n2_)
+    measure_kernel(
+        "cols_natural", f"(B=1, P={pp}, f={f}, w={w}) fused4",
+        lambda: pencil.cols_natural_call(*x, luts, **kw),
+        lambda: pencil.cols_natural_plain(*x, luts, **kw),
+        nbytes=16 * pp * f * w + lut_bytes("fused4", f, n1, n2_),
+        flops=pp * w * transform_flops("fused4", f, n1, n2_),
+    )
+    del x
+
+    # rfft2's column pass over the m + 1 = 8193 bins of a 16384 x 16384
+    # image: a ragged width in the fused column kernel, beside the width
+    # 8192 that has no ragged chunk.
+    r, f = 1, 16384
+    n1, n2_ = plan_lib.balanced_split(f)
+    luts = ops._fused_luts(dev, n1, n2_, False)
+    kw = dict(kind="fused4", n1=n1, n2=n2_)
+    for s_ in (8193, 8192):
+        x = planes(gen, r, f, s_)
+        xc = torch.complex(*x)
+        measure_kernel(
+            "cols_pass", f"rfft2 columns (R={r}, f={f}, s={s_}) fused4"
+            + (" ragged" if s_ % pencil.CHUNK else ""),
+            lambda: pencil.cols_pass_call(*x, luts, **kw),
+            lambda: pencil.cols_pass_plain(*x, luts, **kw),
+            nbytes=16 * r * f * s_ + lut_bytes("fused4", f, n1, n2_),
+            flops=r * s_ * transform_flops("fused4", f, n1, n2_),
+            library=lambda: torch.fft.fft(xc, dim=-2),
+        )
+        del x, xc
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -354,6 +475,137 @@ def offsets_phase(gen) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the real and 2-D path
+# ---------------------------------------------------------------------------
+
+#: (forward spec, inverse spec, input shape): 0.5–2 GB each.  rfft at 16384
+#: points is one SAR range line block; 2^21 takes the two-pass inner
+#: program; the 16384² image is one spotlight scene; the 131072-line image
+#: strip-mines its columns; axis=-2 is the azimuth pass of a range block.
+REAL_2D = (
+    (F.FFTSpec(16384, kind="rfft"), F.FFTSpec(16384, kind="irfft"), (8192, 16384)),
+    (F.FFTSpec(1 << 21, kind="rfft"), F.FFTSpec(1 << 21, kind="irfft"), (64, 1 << 21)),
+    (F.FFTSpec(16384, kind="fft2", n2=16384), F.FFTSpec(16384, kind="ifft2", n2=16384),
+     (1, 16384, 16384)),
+    (F.FFTSpec(2048, kind="fft2", n2=1 << 17), F.FFTSpec(2048, kind="ifft2", n2=1 << 17),
+     (1, 1 << 17, 2048)),
+    (F.FFTSpec(16384, kind="rfft2", n2=16384), F.FFTSpec(16384, kind="irfft2", n2=16384),
+     (1, 16384, 16384)),
+    (F.FFTSpec(16384, axis=-2), F.FFTSpec(16384, kind="ifft", axis=-2), (16384, 4096)),
+)
+
+
+def as_complex(y):
+    return torch.complex(*y) if isinstance(y, tuple) else y
+
+
+def row_dft(x, ks, n: int) -> np.ndarray:
+    """Σ_j x[r, j]·e^{−2πi·j·k/n} for each row r and sample frequency k, in
+    complex128 on the card: the rows' DFT at ``ks`` only, (rows, len(ks))."""
+    j = torch.arange(n, device=x.device, dtype=torch.int64)
+    phase = torch.outer(j, torch.tensor(ks, device=x.device, dtype=torch.int64)) % n
+    ang = phase.to(torch.float64) * (-2 * math.pi / n)
+    w = torch.polar(torch.ones_like(ang), ang)
+    out = [x[r:r + 1024].to(torch.complex128) @ w for r in range(0, x.shape[0], 1024)]
+    return torch.cat(out).cpu().numpy()
+
+
+def sample_check(spec, x, y) -> float:
+    """The forward output at sample rows (1-D) or columns (2-D, axis=-2)
+    against np.fft in complex128; returns max|Δ| / max|ref|."""
+    if spec.kind == "rfft":
+        rows = [0, x.shape[0] - 1]
+        ref = np.fft.rfft(x[rows].double().cpu().numpy(), axis=-1)
+        got = as_complex(y)[rows]
+    elif spec.axis == -2:
+        cols = [0, 1, x.shape[-1] - 1]
+        ref = np.fft.fft(x[:, cols].cpu().numpy().astype(np.complex128), axis=0)
+        got = y[:, cols]
+    else:
+        # Column k of fft2/rfft2 is the column FFT of the rows' DFT at k.
+        n = spec.n
+        ks = [0, 1, 3 * n // 8 + 1, n // 2] + ([n - 1] if spec.kind == "fft2" else [])
+        ref = np.fft.fft(row_dft(x[0], ks, n), axis=0)
+        got = as_complex(y)[0][:, ks]
+    err = np.abs(got.cpu().numpy().astype(np.complex128) - ref).max()
+    return float(err / np.abs(ref).max())
+
+
+def real2d_phase(gen) -> None:
+    reps, warmup = 3, 1
+    library = {
+        "rfft": lambda x: torch.fft.rfft(x),
+        "irfft": lambda y, n: torch.fft.irfft(y, n=n),
+        "fft2": lambda x: torch.fft.fft2(x),
+        "ifft2": lambda y, n: torch.fft.ifft2(y),
+        "rfft2": lambda x: torch.fft.rfft2(x),
+        "irfft2": lambda y, n: torch.fft.irfft2(y, s=(y.shape[-2], n)),
+        "fft": lambda x: torch.fft.fft(x, dim=-2),
+        "ifft": lambda y, n: torch.fft.ifft(y, dim=-2),
+    }
+    for fspec, ispec, shape in REAL_2D:
+        fwd, inv = F.plan(fspec), F.plan(ispec)
+        label = f"{fspec.kind} {'x'.join(map(str, shape))}" + (" axis=-2" if fspec.axis == -2 else "")
+        check(fwd.device.type == "cuda" and inv.device.type == "cuda", f"{label}: plan is not on the card")
+        if fspec.kind.startswith("r"):
+            x = torch.randn(*shape, device="cuda", generator=gen)
+        else:
+            x = torch.complex(*planes(gen, *shape))
+        at_start = kernels.counts()
+
+        y, peak = counted_call(f"{label} forward", fwd, x)
+        yc = as_complex(y)
+        check(bool(torch.isfinite(torch.view_as_real(yc)).all()), f"{label}: non-finite output")
+        err = sample_check(fspec, x, y)
+        check(err <= FFT_TOL, f"{label}: vs np.fft {err:.3e} > {FFT_TOL}·max|ref|")
+        z, _ = counted_call(f"{label} inverse", inv, y)
+        rt = (z - x).abs().max().item()
+        xs = x.abs().max().item()
+        check(tuple(z.shape) == tuple(x.shape), f"{label}: inverse gives {tuple(z.shape)}")
+        check(rt <= FFT_TOL * xs, f"{label}: inverse off by {rt:.3e} > {FFT_TOL}·{xs:.3e}")
+        del z
+
+        fwd_ms = time_ms(lambda: fwd(x), reps=reps, warmup=warmup)
+        inv_ms = time_ms(lambda: inv(y), reps=reps, warmup=warmup)
+        expect = launches_per_call(fwd, 1 + warmup + reps)
+        for k, c in launches_per_call(inv, 1 + warmup + reps).items():
+            expect[k] = expect.get(k, 0) + c
+        check_launches(f"{label} all calls", at_start, kernels.counts(), expect)
+        n = fspec.n
+        lib_fwd = library[fspec.kind]
+        lib_inv = library[ispec.kind]
+        lib_fwd_ms = time_ms(lambda: lib_fwd(x), reps=reps, warmup=warmup)
+        lib_inv_ms = time_ms(lambda: lib_inv(yc, n), reps=reps, warmup=warmup)
+        print(
+            "real2d " + json.dumps({
+                "call": label, "inverse": ispec.kind, "passes": len(fwd.passes),
+                "kernels": list(fwd.kernels), "inverse_kernels": list(inv.kernels),
+                "rel_err": err, "roundtrip_rel_err": rt / xs,
+                "ms": fwd_ms, "inverse_ms": inv_ms,
+                "library_ms": lib_fwd_ms, "library_inverse_ms": lib_inv_ms,
+                "input_bytes": x.numel() * x.element_size(), "call_peak_bytes": peak,
+            }),
+            flush=True,
+        )
+        del x, y, yc
+        torch.cuda.empty_cache()
+
+
+def path_launches(name: str, phase, gen) -> dict:
+    """Drive one path with the counts at 0; every kernel of the path must
+    launch in it and no plain version may run."""
+    kernels.reset_counts()
+    phase(gen)
+    launches = kernels.counts()
+    for kernel in PATH_KERNELS[name]:
+        check(launches[kernel] > 0, f"{kernel} was not launched on the {name} path")
+    for key, count in launches.items():
+        check(not key.endswith("_plain") or count == 0, f"{key} ran on the {name} path")
+    print(f"{name}_launches " + json.dumps(launches), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -378,13 +630,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     try:
         rows = kernel_phase(gen)
-        kernels.reset_counts()  # the main path's launches only
-        main_path_phase(gen)
-        launches = kernels.counts()
-        for name in SOURCES:
-            check(launches[name] > 0, f"{name} was not launched on the main path")
-            check(launches[f"{name}_plain"] == 0, f"{name}'s plain version ran on the main path")
+        main = path_launches("main_path", main_path_phase, gen)
         offsets_phase(gen)
+        real2d = path_launches("real2d", real2d_phase, gen)
+        launches = {name: main[name] + real2d[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -1,7 +1,6 @@
 """Public FFT API — plan-and-execute over a backend registry.
 
-Port of ``repro/core/fft.py`` for the planned 1-D complex power-of-two
-transform::
+Port of ``repro/core/fft.py`` for power-of-two lengths::
 
     spec    = FFTSpec(n=4096, kind="fft")
     planned = plan(spec)             # interned: plan(spec) is plan(spec)
@@ -17,14 +16,27 @@ a backend from the registry:
 ``torch``  the same pass program through each kernel's plain PyTorch
            version, on the CPU.
 
+The kinds:
+
+* ``fft`` / ``ifft`` — one plan over ``axis`` (``-1``; ``-2`` runs a one-pass
+  plan as one in-place column pass; any other axis moves to the last);
+* ``fft2`` / ``ifft2`` — ONE joint program over the last two axes: row
+  passes, then the column passes in place (strip-mined for n2 > 65536);
+* ``rfft`` / ``irfft`` — the half-length complex child plan of the even/odd
+  packing plus the Hermitian recombination pass (its ``epilogue``);
+* ``rfft2`` / ``irfft2`` — packed rows, the recombination row-wise, and an
+  ``axis=-2`` complex child over the (…, n2, n/2 + 1) half-spectrum.
+
 ``plan(spec)`` runs on the card.  Without a card it raises: it never picks
 the CPU on its own.  ``plan(spec, device="cpu")`` asks for the plain route.
 Nothing falls back from a kernel to its plain version or from the card to
 the CPU.
 
-Complex tensors and split ``(real, imag)`` float32 planes are both
-accepted, and whichever form was supplied is returned.  The other kinds
-(``rfft`` … ``irfft2``), ``axis=-2`` and non-power-of-two lengths raise
+Complex kinds take complex tensors or split ``(real, imag)`` float32 planes
+and return whichever form was supplied; ``rfft``/``rfft2`` take a real
+signal and return planes, ``irfft``/``irfft2`` take planes (or a complex
+tensor) and return the real signal, as the reference does.  Odd and other
+non-power-of-two lengths, n > 2³², ``check=`` and tuning raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
 """
 
@@ -52,15 +64,22 @@ __all__ = [
     "available_backends",
     "fft",
     "ifft",
+    "rfft",
+    "irfft",
+    "fft2",
+    "ifft2",
+    "rfft2",
+    "irfft2",
     "MAX_N",
 ]
 
 KINDS = ("fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2")
 _COMPLEX_KINDS = ("fft", "ifft")
+_REAL_KINDS = ("rfft", "irfft", "rfft2", "irfft2")
 _2D_KINDS = ("fft2", "ifft2", "rfft2", "irfft2")
 
-#: Largest length a two-pass program covers; longer pow2 lengths need the
-#: digit-reversal reorder pass.
+#: Largest complex transform a two-pass program covers; longer pow2 lengths
+#: need the digit-reversal reorder pass.
 MAX_N = plan_lib.FUSED_MAX**2
 
 
@@ -114,9 +133,10 @@ class FFTSpec:
 class Backend:
     """A registered executor of a plan's pass program.
 
-    ``fn(xr, xi, *, inverse, planned)`` transforms the last axis of split
-    float32 planes on ``planned.device``; ``device_types`` are the torch
-    device types it runs on.
+    ``fn(xr, xi, *, inverse, planned, axis)`` runs ``planned.fft_plan`` over
+    ``axis`` (-1, or -2 for a 1-D plan down the columns) of split float32
+    planes on ``planned.device``; ``device_types`` are the torch device
+    types it runs on.
     """
 
     name: str
@@ -181,6 +201,13 @@ def _join(yr, yi, was_complex: bool) -> ArrayOrPlanes:
     return torch.complex(yr, yi) if was_complex else (yr, yi)
 
 
+def _real(x, device: torch.device, kind: str) -> torch.Tensor:
+    """A real signal as a float32 tensor on ``device``."""
+    if isinstance(x, (tuple, list)) or (torch.is_tensor(x) and x.is_complex()):
+        raise PlanError(f"{kind} transforms a real signal; got a complex input")
+    return _plane(x, device)
+
+
 # ---------------------------------------------------------------------------
 # PlannedFFT
 # ---------------------------------------------------------------------------
@@ -191,17 +218,24 @@ class PlannedFFT:
 
     Carries the :class:`FFTSpec`, the :class:`Backend`, the
     :class:`~repro_torch.core.plan.FFTPlan` and the device-resident LUTs of
-    its passes.  Calling it runs the transform; instances are interned by
-    :func:`plan`, so ``plan(spec) is plan(spec)``.
+    its passes.  The real-packing kinds carry no plan of their own: they
+    hold child handles for their complex transforms and an ``epilogue``
+    :class:`~repro_torch.core.plan.Pass` — the Hermitian recombination, one
+    kernel launch — with its phasor LUT in ``luts``.  Calling it runs the
+    transform; instances are interned by :func:`plan`, so
+    ``plan(spec) is plan(spec)``.
     """
 
-    def __init__(self, spec: FFTSpec, backend: Backend, fft_plan: plan_lib.FFTPlan,
-                 device: torch.device, luts: tuple):
+    def __init__(self, spec: FFTSpec, backend: Backend, fft_plan: Optional[plan_lib.FFTPlan],
+                 device: torch.device, luts: tuple = (), *, children: tuple = (),
+                 epilogue: Optional[plan_lib.Pass] = None):
         self.spec = spec
         self.backend = backend
         self.fft_plan = fft_plan
         self.device = device
         self.luts = luts
+        self.children = children
+        self.epilogue = epilogue
 
     def __hash__(self):
         return hash((self.spec, self.backend.name, str(self.device)))
@@ -217,33 +251,196 @@ class PlannedFFT:
     def __repr__(self):
         return f"PlannedFFT({self.spec}, backend={self.backend.name!r}, device={str(self.device)!r})"
 
+    # -- introspection -----------------------------------------------------
+
+    def _stages(self) -> tuple:
+        """Children and the epilogue pass in the order they run."""
+        ep = (self.epilogue,) if self.epilogue is not None else ()
+        kind = self.spec.kind
+        if kind == "irfft":
+            return ep + self.children
+        if kind == "rfft2":
+            inner, cols = self.children
+            return (inner,) + ep + (cols,)
+        if kind == "irfft2":
+            inner, cols = self.children
+            return (cols,) + ep + (inner,)
+        return self.children + ep
+
     @property
     def passes(self) -> tuple:
-        """The linearized pass program, in execution order."""
-        return self.fft_plan.passes
+        """The linearized pass program, in execution order (the children's
+        passes for the real-packing kinds, with the recombination epilogue
+        slotted where it runs)."""
+        if self.fft_plan is not None:
+            return self.fft_plan.passes
+        return tuple(
+            p for st in self._stages()
+            for p in (st.passes if isinstance(st, PlannedFFT) else (st,))
+        )
 
     @property
     def hbm_round_trips(self) -> int:
-        return self.fft_plan.hbm_round_trips
+        if self.fft_plan is not None:
+            return self.fft_plan.hbm_round_trips
+        trips = sum(c.hbm_round_trips for c in self.children)
+        return trips + (1 if self.epilogue is not None else 0)
 
     @property
     def kernels(self) -> tuple:
         """The kernel each pass launches (its ``COUNTS`` key), in order."""
         from repro_torch.kernels import ops
 
-        return tuple(ops.pass_kernel(p) for p in self.passes)
+        if self.fft_plan is not None:
+            return ops.plan_kernels(self.fft_plan, axis=-2 if self.spec.axis == -2 else -1)
+        return tuple(
+            k for st in self._stages()
+            for k in (st.kernels if isinstance(st, PlannedFFT) else (st.kind,))
+        )
 
     def describe(self) -> str:
         spec = self.spec
-        head = f"{spec.kind} N={spec.n} backend={self.backend.name} device={self.device}: "
-        calls = ", ".join(f"pass {i} {k}" for i, k in enumerate(self.kernels))
-        return head + plan_lib.describe_program(self.fft_plan) + f"; kernels: {calls}"
+        size = f"N={spec.n2}x{spec.n}" if spec.n2 is not None else f"N={spec.n}"
+        head = f"{spec.kind} {size} backend={self.backend.name} device={self.device}: "
+        calls = "; kernels: " + ", ".join(f"pass {i} {k}" for i, k in enumerate(self.kernels))
+        if self.fft_plan is not None:
+            return head + plan_lib.describe_program(self.fft_plan) + calls
+        text = head + " | ".join(plan_lib.describe_program(c.fft_plan) for c in self.children)
+        if self.epilogue is not None:
+            text += f"; epilogue pass: {self.epilogue.kind} n={self.epilogue.n}"
+        return text + calls
+
+    # -- execution ---------------------------------------------------------
+
+    def _run(self, xr, xi, inverse: bool, axis: int = -1) -> Planes:
+        return self.backend.fn(xr, xi, inverse=inverse, planned=self, axis=axis)
+
+    def _check_image(self, xr) -> None:
+        n, n2 = self.spec.n, self.spec.n2
+        if xr.ndim < 2 or tuple(xr.shape[-2:]) != (n2, n):
+            raise PlanError(
+                f"{self.spec.kind} planned for (..., {n2}, {n}) images, got shape {tuple(xr.shape)}"
+            )
+
+    def _last_axis(self, ndim: int) -> int | None:
+        """The axis to move to the last place, or None when it is there."""
+        ax = self.spec.axis + ndim if self.spec.axis < 0 else self.spec.axis
+        if not 0 <= ax < ndim:
+            raise PlanError(f"axis {self.spec.axis} out of range for a {ndim}-D input")
+        return None if ax == ndim - 1 else ax
 
     def apply_planes(self, xr: torch.Tensor, xi: torch.Tensor) -> Planes:
-        """Run the planned transform on split float32 planes."""
-        return self.backend.fn(xr, xi, inverse=self.spec.kind == "ifft", planned=self)
+        """Run a complex plan (``fft`` … ``ifft2``) on split float32 planes.
 
-    def __call__(self, x: ArrayOrPlanes) -> ArrayOrPlanes:
+        ``axis=-2`` runs down the columns (one in-place column pass for a
+        one-pass plan); another non-last axis is moved to the last and
+        back."""
+        kind = self.spec.kind
+        if kind in ("fft2", "ifft2"):
+            self._check_image(xr)
+            return self._run(xr, xi, inverse=kind == "ifft2")
+        if kind not in _COMPLEX_KINDS:
+            raise PlanError(f"apply_planes on {kind!r} plan; use __call__")
+        inverse = kind == "ifft"
+        if self.spec.axis == -2:
+            if xr.ndim < 2:
+                raise PlanError(f"axis=-2 needs an input of 2 or more dims, got {tuple(xr.shape)}")
+            return self._run(xr, xi, inverse, axis=-2)
+        ax = self._last_axis(xr.ndim)
+        if ax is None:
+            return self._run(xr, xi, inverse)
+        yr, yi = self._run(xr.movedim(ax, -1), xi.movedim(ax, -1), inverse)
+        return yr.movedim(-1, ax), yi.movedim(-1, ax)
+
+    def _recomb(self, ar, ai) -> Planes:
+        """The epilogue pass over the last axis, row-wise over any leading
+        dims: the packed (…, m) spectrum → the (…, m + 1) bins (rfft
+        kinds), or back (irfft kinds).  The pencil wrapper launches its
+        kernel on the card and takes the plain version on the CPU."""
+        from repro_torch.core import faults
+        from repro_torch.kernels import pencil
+
+        faults.maybe_fail("kernel.launch", backend=ar.device.type, pass_kind=self.epilogue.kind)
+        lead, width = ar.shape[:-1], ar.shape[-1]
+        b = int(np.prod(lead)) if lead else 1
+        call = pencil.rfft_recomb_call if self.epilogue.kind == "rfft_recomb" else pencil.irfft_recomb_call
+        yr, yi = call(ar.contiguous().view(b, width), ai.contiguous().view(b, width), *self.luts)
+        return yr.view(*lead, yr.shape[-1]), yi.view(*lead, yi.shape[-1])
+
+    @staticmethod
+    def _pack(x) -> Planes:
+        """Even samples to the real plane, odd to the imaginary."""
+        return x[..., 0::2].contiguous(), x[..., 1::2].contiguous()
+
+    @staticmethod
+    def _interleave(zr, zi) -> torch.Tensor:
+        return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], 2 * zr.shape[-1])
+
+    def _rfft(self, x) -> Planes:
+        n = self.spec.n
+        x = _real(x, self.device, "rfft")
+        ax = self._last_axis(x.ndim)
+        if ax is not None:
+            x = x.movedim(ax, -1)
+        if x.shape[-1] != n:
+            raise PlanError(f"rfft planned for n={n}, got axis length {x.shape[-1]}")
+        (inner,) = self.children
+        zr, zi = inner.apply_planes(*self._pack(x))
+        xr, xi = self._recomb(zr, zi)
+        if ax is not None:
+            xr, xi = xr.movedim(-1, ax), xi.movedim(-1, ax)
+        return xr, xi
+
+    def _irfft(self, x) -> torch.Tensor:
+        n = self.spec.n
+        xr, xi, _ = _split(x, self.device)
+        ax = self._last_axis(xr.ndim)
+        if ax is not None:
+            xr, xi = xr.movedim(ax, -1), xi.movedim(ax, -1)
+        if xr.shape[-1] != n // 2 + 1:
+            raise PlanError(f"irfft expects n//2+1={n // 2 + 1} bins, got {xr.shape[-1]}")
+        (inner,) = self.children
+        zr, zi = inner.apply_planes(*self._recomb(xr, xi))
+        out = self._interleave(zr, zi)
+        return out.movedim(-1, ax) if ax is not None else out
+
+    def _rfft2(self, x) -> Planes:
+        """Packed row transform, the recombination row-wise, then the
+        complex column pass over the (…, n2, n/2 + 1) half-spectrum (numpy's
+        ``rfft2`` layout)."""
+        x = _real(x, self.device, "rfft2")
+        self._check_image(x)
+        inner, cols = self.children
+        zr, zi = inner.apply_planes(*self._pack(x))
+        return cols.apply_planes(*self._recomb(zr, zi))
+
+    def _irfft2(self, x) -> torch.Tensor:
+        """Inverse of :meth:`_rfft2`: column ifft over the half-spectrum,
+        the inverse recombination row-wise, the packed row ifft, the sample
+        interleave."""
+        n, n2 = self.spec.n, self.spec.n2
+        xr, xi, _ = _split(x, self.device)
+        if xr.ndim < 2 or tuple(xr.shape[-2:]) != (n2, n // 2 + 1):
+            raise PlanError(f"irfft2 expects (..., {n2}, {n // 2 + 1}) bins, got {tuple(xr.shape)}")
+        inner, cols = self.children
+        xr, xi = cols.apply_planes(xr, xi)
+        zr, zi = inner.apply_planes(*self._recomb(xr, xi))
+        return self._interleave(zr, zi)
+
+    def __call__(self, x, check: Optional[str] = None):
+        if check is not None:
+            raise NotImplementedError(
+                f"check={check!r}: the numerics guards are not ported yet: ROADMAP A4"
+            )
+        kind = self.spec.kind
+        if kind == "rfft":
+            return self._rfft(x)
+        if kind == "irfft":
+            return self._irfft(x)
+        if kind == "rfft2":
+            return self._rfft2(x)
+        if kind == "irfft2":
+            return self._irfft2(x)
         xr, xi, was_c = _split(x, self.device)
         yr, yi = self.apply_planes(xr, xi)
         return _join(yr, yi, was_c)
@@ -272,34 +469,35 @@ def _resolve_device(device) -> torch.device:
 
 
 def _check_slice(spec: FFTSpec) -> None:
-    """Raise for what this slice of the port does not execute yet."""
-    if spec.kind in ("rfft", "irfft"):
-        raise NotImplementedError(f"{spec.kind} is not ported yet: ROADMAP A4 (real FFT, kernel B5)")
-    if spec.kind in _2D_KINDS:
-        raise NotImplementedError(f"{spec.kind} is not ported yet: ROADMAP A5 (2-D programs)")
-    if spec.axis != -1:
-        raise NotImplementedError(f"axis={spec.axis} is not ported yet: ROADMAP A3 (axis=-2)")
+    """Raise for what the port does not execute yet."""
     if not _is_pow2(spec.n):
         raise NotImplementedError(
-            f"n={spec.n} is not a power of two: ROADMAP A6 (Bluestein lengths)"
+            f"n={spec.n} is not a power of two (odd and other lengths run through "
+            "Bluestein leaves): ROADMAP A6"
         )
-    if spec.n > MAX_N:
+    # The complex transforms the plan runs: the half-length packing of the
+    # real kinds, and the column length of the 2-D kinds.
+    longest = max(spec.n // 2 if spec.kind in _REAL_KINDS else spec.n, spec.n2 or 1)
+    if longest > MAX_N:
         raise NotImplementedError(
-            f"n={spec.n} > 2^32 needs the reorder pass: ROADMAP A3"
+            f"a {longest}-point transform > 2^32 needs the reorder pass: ROADMAP A3"
         )
     if spec.precision != "float32":
         raise NotImplementedError(f"precision {spec.precision!r}: only float32 is ported")
 
 
-def plan(spec: FFTSpec | int, *, device=None) -> PlannedFFT:
+def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None) -> PlannedFFT:
     """Resolve ``spec`` into an interned :class:`PlannedFFT`.
 
     ``device=None`` means the current CUDA device and raises when there is
     none; ``device="cpu"`` runs the plain route.  The device picks the
-    backend.
+    backend.  ``tune`` other than None/"off" (the fixed heuristics) is not
+    ported.
     """
     if isinstance(spec, int):
         spec = FFTSpec(n=spec)
+    if tune not in (None, "off"):
+        raise NotImplementedError(f"tune={tune!r}: the autotuner is not ported yet: ROADMAP A8")
     _check_slice(spec)
     dev = _resolve_device(device)
     return _plan_cached(spec, str(dev))
@@ -311,9 +509,34 @@ def _plan_cached(spec: FFTSpec, device: str) -> PlannedFFT:
 
     dev = torch.device(device)
     entry = _backend_for(dev)
-    fft_plan = plan_lib.plan_fft(spec.n)
-    luts = ops.plan_luts(fft_plan, spec.kind == "ifft", dev)
-    return PlannedFFT(spec, entry, fft_plan, dev, luts)
+    kind = spec.kind
+    if kind in _COMPLEX_KINDS:
+        fft_plan = plan_lib.plan_fft(spec.n)
+        return PlannedFFT(spec, entry, fft_plan, dev, ops.plan_luts(fft_plan, kind == "ifft", dev))
+    if kind in ("fft2", "ifft2"):
+        # ONE joint program: rows, then the columns in place (strip-mined
+        # beyond the fused regime); every n2 <= 2^32 compiles jointly.
+        fft_plan = plan_lib.plan_fft2(spec.n, spec.n2)
+        return PlannedFFT(spec, entry, fft_plan, dev, ops.plan_luts(fft_plan, kind == "ifft2", dev))
+
+    inverse = kind in ("irfft", "irfft2")
+
+    def child(n: int, axis: int = -1) -> PlannedFFT:
+        return _plan_cached(FFTSpec(n=n, kind="ifft" if inverse else "fft", axis=axis), device)
+
+    m = spec.n // 2
+    bins = (1, 1, m + 1)
+    epilogue = plan_lib.Pass(
+        kind="irfft_recomb" if inverse else "rfft_recomb",
+        n=spec.n,
+        view_in=bins if inverse else (1, 1, m),
+        view_out=(1, 1, m) if inverse else bins,
+        order="natural",
+    )
+    luts = ops.recomb_luts(ops.device_key(dev), spec.n, inverse)
+    # rfft2 / irfft2: the column child runs in place over the m + 1 bins.
+    children = (child(m),) if kind in ("rfft", "irfft") else (child(m), child(spec.n2, axis=-2))
+    return PlannedFFT(spec, entry, None, dev, luts, children=children, epilogue=epilogue)
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +544,12 @@ def _plan_cached(spec: FFTSpec, device: str) -> PlannedFFT:
 # ---------------------------------------------------------------------------
 
 
-def _pass_program(xr, xi, *, inverse, planned):
+def _pass_program(xr, xi, *, inverse, planned, axis=-1):
     """Execute the plan's passes; each kernel wrapper launches its CUDA
     kernel on a CUDA tensor and takes its plain version on a CPU one."""
     from repro_torch.kernels import ops
 
-    return ops.execute_plan(xr, xi, planned.fft_plan, inverse=inverse)
+    return ops.execute_plan(xr, xi, planned.fft_plan, inverse=inverse, axis=axis)
 
 
 register_backend("torch", _pass_program, {"cpu"})
@@ -343,17 +566,51 @@ def _device_of(x):
     return a.device if torch.is_tensor(a) else None
 
 
-def _length(x) -> int:
+def _shape(x) -> tuple:
     a = x[0] if isinstance(x, (tuple, list)) else x
-    return int(a.shape[-1])
+    return tuple(a.shape) if torch.is_tensor(a) else np.shape(a)
 
 
-def fft(x: ArrayOrPlanes) -> ArrayOrPlanes:
-    """Complex FFT over the last axis via a cached plan, on the input
-    tensor's device (host arrays go to the card)."""
-    return plan(FFTSpec(n=_length(x), kind="fft"), device=_device_of(x))(x)
+def fft(x: ArrayOrPlanes, *, axis: int = -1) -> ArrayOrPlanes:
+    """Complex FFT over ``axis`` via a cached plan, on the input tensor's
+    device (host arrays go to the card)."""
+    return plan(FFTSpec(n=int(_shape(x)[axis]), kind="fft", axis=axis), device=_device_of(x))(x)
 
 
-def ifft(x: ArrayOrPlanes) -> ArrayOrPlanes:
+def ifft(x: ArrayOrPlanes, *, axis: int = -1) -> ArrayOrPlanes:
     """Inverse of :func:`fft`."""
-    return plan(FFTSpec(n=_length(x), kind="ifft"), device=_device_of(x))(x)
+    return plan(FFTSpec(n=int(_shape(x)[axis]), kind="ifft", axis=axis), device=_device_of(x))(x)
+
+
+def rfft(x, *, axis: int = -1) -> Planes:
+    """Real FFT: the n//2 + 1 bins over ``axis`` as split planes."""
+    return plan(FFTSpec(n=int(_shape(x)[axis]), kind="rfft", axis=axis), device=_device_of(x))(x)
+
+
+def irfft(x, n: int, *, axis: int = -1) -> torch.Tensor:
+    """Inverse of :func:`rfft`; the length-``n`` real signal."""
+    return plan(FFTSpec(n=n, kind="irfft", axis=axis), device=_device_of(x))(x)
+
+
+def fft2(x: ArrayOrPlanes) -> ArrayOrPlanes:
+    """2-D FFT over the last two axes: one joint rows + columns program."""
+    shape = _shape(x)
+    return plan(FFTSpec(n=int(shape[-1]), kind="fft2", n2=int(shape[-2])), device=_device_of(x))(x)
+
+
+def ifft2(x: ArrayOrPlanes) -> ArrayOrPlanes:
+    """Inverse of :func:`fft2`."""
+    shape = _shape(x)
+    return plan(FFTSpec(n=int(shape[-1]), kind="ifft2", n2=int(shape[-2])), device=_device_of(x))(x)
+
+
+def rfft2(x) -> Planes:
+    """Real 2-D FFT of an (..., n2, n) image: (..., n2, n//2 + 1) bins as
+    split planes (numpy's ``rfft2`` layout)."""
+    shape = _shape(x)
+    return plan(FFTSpec(n=int(shape[-1]), kind="rfft2", n2=int(shape[-2])), device=_device_of(x))(x)
+
+
+def irfft2(x, n: int, n2: int) -> torch.Tensor:
+    """Inverse of :func:`rfft2`; the real (..., n2, n) image."""
+    return plan(FFTSpec(n=n, kind="irfft2", n2=n2), device=_device_of(x))(x)

@@ -8,7 +8,9 @@ whatever device the tensors live on:
 * :func:`cmatmul` — the 3-GEMM Karatsuba complex product;
 * :func:`direct_dft` — the whole-transform DFT matmul (N ≤ DIRECT_MAX);
 * :func:`four_step_fft` — Bailey's four-step with the planner's
-  factorisation policy, recursing through split levels.
+  factorisation policy, recursing through split levels;
+* :func:`rfft_recomb` / :func:`irfft_recomb` — the Hermitian even/odd
+  recombination of the real-FFT packing (flip and roll, no gather).
 
 It shares no code with the kernels' plain versions (``kernels/*.py``) beyond
 :func:`cmul` and the LUT tables, which makes it their independent oracle in
@@ -27,12 +29,44 @@ from repro_torch.core import twiddle as tw
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
-__all__ = ["cmul", "cmatmul", "direct_dft", "four_step_fft"]
+__all__ = ["cmul", "cmatmul", "direct_dft", "four_step_fft", "rfft_recomb", "irfft_recomb"]
 
 
 def cmul(ar, ai, br, bi) -> Planes:
     """Elementwise complex multiply on split planes."""
     return ar * br - ai * bi, ar * bi + ai * br
+
+
+def rfft_recomb(zr, zi, wr, wi) -> Planes:
+    """Hermitian recombination of the rfft even/odd packing (forward).
+
+    X[k] = E[k] + w[k]·O[k] for k < m and X[m] = E[0] − O[0], with E and O
+    taken from the packed m-point spectrum Z through the Z[(m − k) mod m]
+    reversal (flip and roll).  ``wr/wi``: the e^{−2πik/n} phasors, length
+    ≥ m.  Last axis, any leading dims.
+    """
+    zr_f = torch.roll(torch.flip(zr, (-1,)), 1, -1)  # Z[(m - k) % m]
+    zi_f = torch.roll(torch.flip(zi, (-1,)), 1, -1)
+    m = zr.shape[-1]
+    er, ei = (zr + zr_f) * 0.5, (zi - zi_f) * 0.5
+    or_, oi = (zi + zi_f) * 0.5, (zr_f - zr) * 0.5
+    tr, ti = cmul(or_, oi, wr[..., :m], wi[..., :m])
+    xr = torch.cat([er + tr, er[..., 0:1] - or_[..., 0:1]], dim=-1)
+    xi = torch.cat([ei + ti, ei[..., 0:1] - oi[..., 0:1]], dim=-1)
+    return xr, xi
+
+
+def irfft_recomb(xr, xi, wr, wi) -> Planes:
+    """Inverse of :func:`rfft_recomb`: m+1 bins → the packed m-point
+    spectrum.  ``wr/wi``: the e^{+2πik/n} phasors, length ≥ m."""
+    m = xr.shape[-1] - 1
+    xr_k, xi_k = xr[..., :m], xi[..., :m]
+    xr_f = torch.flip(xr[..., 1:], (-1,))  # X[m - k], k ∈ [0, m)
+    xi_f = torch.flip(xi[..., 1:], (-1,))
+    er, ei = (xr_k + xr_f) * 0.5, (xi_k - xi_f) * 0.5
+    dr, di = (xr_k - xr_f) * 0.5, (xi_k + xi_f) * 0.5
+    or_, oi = cmul(dr, di, wr[..., :m], wi[..., :m])
+    return er - oi, ei + or_
 
 
 def cmatmul(ar, ai, br, bi) -> Planes:

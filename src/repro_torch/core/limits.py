@@ -66,22 +66,25 @@ GPU_SMEM_BUDGETS = (
 GPU_SMEM_DEFAULT = 48 * 1024
 
 
-def memory_budget(device_kind: str | None = None) -> int:
+def memory_budget(device_kind=None) -> int:
     """Fast-tier working-set budget (bytes).
 
-    ``device_kind=None`` resolves the current CUDA device through
-    ``torch.cuda``: its ``shared_memory_per_block_optin`` property where
-    torch exposes it, else the :data:`GPU_SMEM_BUDGETS` row matching its
-    name.  Without a CUDA device — and for the names ``"cpu"``, ``""`` and
-    any TPU name — the reference's ``VMEM_BUDGET`` applies, as the
-    reference resolves a CPU host.
+    ``device_kind`` is a device name, a CUDA ``torch.device`` (that card), or
+    None (the current CUDA device).  A card resolves through ``torch.cuda``:
+    its ``shared_memory_per_block_optin`` property where torch exposes it,
+    else the :data:`GPU_SMEM_BUDGETS` row matching its name.  Without a CUDA
+    device — and for the names ``"cpu"``, ``""`` and any TPU name — the
+    reference's ``VMEM_BUDGET`` applies, as the reference resolves a CPU
+    host.
     """
-    if device_kind is None:
+    if device_kind is None or not isinstance(device_kind, str):
         import torch
 
-        if not torch.cuda.is_available():
+        device = torch.device("cuda" if device_kind is None else device_kind)
+        if device.type != "cuda" or not torch.cuda.is_available():
             return VMEM_BUDGET
-        props = torch.cuda.get_device_properties(torch.cuda.current_device())
+        index = torch.cuda.current_device() if device.index is None else device.index
+        props = torch.cuda.get_device_properties(index)
         optin = getattr(props, "shared_memory_per_block_optin", None)
         if optin:
             return int(optin)

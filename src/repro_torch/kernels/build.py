@@ -47,6 +47,7 @@ __all__ = [
     "library",
     "function",
     "check",
+    "on_device",
     "stream_ptr",
     "ptr",
     "check_planes",
@@ -199,6 +200,21 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = library().repro_error_string(rc).decode()
         raise KernelError(f"{name} launch failed: {msg} (cudaError {rc})", site="kernel.launch")
+
+
+def on_device(launch):
+    """Run a ``_launch*`` function with its first tensor's card as the CUDA
+    runtime's current device.  The ``ctypes`` launchers (and
+    ``cudaFuncSetAttribute``) act on the current device, which need not be
+    the tensor's: on a host with several cards the kernel would otherwise
+    run on one card with another's pointers."""
+
+    @functools.wraps(launch)
+    def run(x, *args, **kwargs):
+        with torch.cuda.device(x.device):
+            return launch(x, *args, **kwargs)
+
+    return run
 
 
 def stream_ptr(t) -> int:

@@ -66,6 +66,7 @@ def dft_matmul_call(xr, xi, wr, wi, *, twiddle=None):
     return _launch(xr, xi, wr, wi, er, ei)
 
 
+@build.on_device
 def _launch(xr, xi, wr, wi, er, ei):
     b, n = xr.shape
     yr = torch.empty_like(xr)

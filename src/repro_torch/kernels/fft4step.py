@@ -120,19 +120,27 @@ def chunk_log2(count: int, want: int) -> int:
     return c.bit_length() - 1
 
 
-def scratch_planes(like, n: int, lgc: int):
+def scratch_planes(like, n: int, lgc: int, signals: int | None = None):
     """A global scratch slab for the four-step intermediate, or (None, None)
-    when a chunk of 2^lgc length-n signals keeps it in shared memory.
+    when a chunk of 2^lgc length-n signals keeps it in shared memory of
+    ``like``'s card.
 
-    The slab is as large as the output, so while the call runs it holds half
-    again the device memory of its planes in and out.
+    The slab holds ``signals`` length-n signals (default: as many as
+    ``like`` has — a launch whose last chunk is ragged covers more), so
+    while the call runs it holds half again the device memory of its planes
+    in and out.
     """
     fn = build.function("repro_four_step_smem_bytes", (build.I64, build.I64), build.I64)
-    if fn(n, lgc) <= limits.memory_budget():
+    if fn(n, lgc) <= limits.memory_budget(like.device):
         return None, None
-    return torch.empty_like(like), torch.empty_like(like)
+    numel = like.numel() if signals is None else signals * n
+    return (
+        torch.empty(numel, dtype=like.dtype, device=like.device),
+        torch.empty(numel, dtype=like.dtype, device=like.device),
+    )
 
 
+@build.on_device
 def _launch(xr, xi, w1r, w1i, twr, twi, w2r, w2i, er, ei, natural_order):
     b, n = xr.shape
     n1, n2 = w1r.shape[0], w2r.shape[0]

@@ -23,6 +23,7 @@ kernel moves past that list, its cases here are retired in favour of its
 to model the hardware.
 """
 
+import contextlib
 import ctypes
 import os
 import re
@@ -73,15 +74,26 @@ def emu_lib(tmp_path_factory):
     return handle
 
 
+class DeviceLog(list):
+    """Stands in for ``torch.cuda.device`` (which takes CUDA devices only):
+    records the device each launch enters."""
+
+    def __call__(self, device):
+        self.append(device)
+        return contextlib.nullcontext()
+
+
 @pytest.fixture
 def emulated(emu_lib, monkeypatch):
     """Route the wrappers' launch paths to the emulated library, with the
-    H100's shared memory."""
+    H100's shared memory; yields the log of devices the launches entered."""
     build.function.cache_clear()
+    log = DeviceLog()
     monkeypatch.setattr(build, "library", lambda: emu_lib)
     monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(limits, "memory_budget", lambda device_kind=None: H100_SMEM)
-    yield
+    monkeypatch.setattr(torch.cuda, "device", log)
+    yield log
     build.function.cache_clear()
 
 
@@ -161,6 +173,87 @@ def test_rows_natural_source(budget, b, p, f, kind):
     luts = _planes(5, f, f) if kind == "direct" else _fused(f)
     _close(pencil._launch_rows(*x, luts, kind, n1, n2),
            pencil.rows_natural_plain(*x, luts, kind=kind, n1=n1, n2=n2))
+
+
+@BUDGETS
+@pytest.mark.parametrize("r,f,s,kind,tw_every", [
+    (2, 256, 32, "direct", 8), (1, 100, 12, "direct", 4),
+    (2, 2048, 32, "fused4", 16), (1, 4096, 16, "fused4", 4), (1, 2048, 8, "fused4", 2),
+])
+def test_cols_pass_tw_every_source(budget, r, f, s, kind, tw_every):
+    """The width-broadcast twiddle of a strip-mined column factor; chunks
+    never straddle two twiddle columns (tw_every < 8 cuts the chunk)."""
+    x = _planes(f, r, f, s)
+    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+    luts = _planes(3, f, f) if kind == "direct" else _fused(f)
+    tw = _planes(4, f, s // tw_every)
+    _close(pencil._launch_cols(*x, luts, tw, kind, n1, n2, tw_every),
+           pencil.cols_pass_plain(*x, luts, tw, kind=kind, n1=n1, n2=n2, tw_every=tw_every))
+
+
+@BUDGETS
+@pytest.mark.parametrize("r,f,s,with_twiddle", [
+    (1, 2048, 13, True), (2, 2048, 3, False), (1, 4096, 9, True), (2, 2048, 1, True),
+])
+def test_cols_pass_ragged_width_source(budget, r, f, s, with_twiddle):
+    """An odd width in the fused column kernel: the last chunk is masked,
+    and nothing past the width is read or written."""
+    x = _planes(f, r, f, s)
+    n1, n2 = plan_lib.balanced_split(f)
+    luts = _fused(f)
+    tw = _planes(4, f, s) if with_twiddle else None
+    _close(pencil._launch_cols(*x, luts, tw, "fused4", n1, n2),
+           pencil.cols_pass_plain(*x, luts, tw, kind="fused4", n1=n1, n2=n2))
+
+
+@BUDGETS
+@pytest.mark.parametrize("b,p,f,w,kind", [
+    (2, 4, 256, 8, "direct"), (1, 3, 100, 70, "direct"), (1, 4, 2048, 8, "fused4"),
+    (2, 2, 2048, 16, "fused4"), (1, 2, 4096, 5, "fused4"),
+])
+def test_cols_natural_source(budget, b, p, f, w, kind):
+    x = _planes(f, b, p, f, w)
+    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+    luts = _planes(5, f, f) if kind == "direct" else _fused(f)
+    _close(pencil._launch_cols_natural(*x, luts, kind, n1, n2),
+           pencil.cols_natural_plain(*x, luts, kind=kind, n1=n1, n2=n2))
+
+
+@pytest.mark.parametrize("b,m", [(3, 1), (2, 8), (2, 300), (1, 1024)])
+def test_recomb_source(emulated, b, m):
+    n = 2 * m
+    z = _planes(m, b, m)
+    fwd = ops.recomb_luts("cpu", n, False)
+    _close(pencil._launch_recomb(*z, *fwd, "rfft_recomb", m, m + 1),
+           pencil.rfft_recomb_plain(*z, *fwd))
+    x = _planes(m + 1, b, m + 1)
+    inv = ops.recomb_luts("cpu", n, True)
+    _close(pencil._launch_recomb(*x, *inv, "irfft_recomb", m, m),
+           pencil.irfft_recomb_plain(*x, *inv))
+
+
+def test_every_launch_enters_the_tensor_device(emulated):
+    """Each ``_launch*`` runs under its tensor's device, so the ctypes
+    launchers (which act on the runtime's current device) hit that card."""
+    x = _planes(0, 2, 16)
+    w = _planes(1, 16, 16)
+    calls = [
+        (dft_matmul._launch, (*x, *w, None, None)),
+        (fft4step._launch, (*_planes(2, 1, 2048), *_fused(2048), None, None, True)),
+        (pencil._launch_cols, (*_planes(3, 1, 16, 2), w, None, "direct", 0, 0)),
+        (pencil._launch_rows, (*_planes(4, 1, 2, 16), w, "direct", 0, 0)),
+        (pencil._launch_cols_natural, (*_planes(5, 1, 2, 16, 2), w, "direct", 0, 0)),
+        (pencil._launch_recomb, (*x, *ops.recomb_luts("cpu", 32, False), "rfft_recomb", 16, 17)),
+        (pencil._launch_recomb, (*_planes(6, 2, 17), *ops.recomb_luts("cpu", 32, True),
+                                 "irfft_recomb", 16, 16)),
+    ]
+    launchers = {getattr(mod, name) for mod in (dft_matmul, fft4step, pencil)
+                 for name in vars(mod) if name.startswith("_launch")}
+    assert launchers == {fn for fn, _ in calls}
+    for fn, args in calls:
+        del emulated[:]
+        fn(*args)
+        assert emulated == [torch.device("cpu")]
 
 
 def test_refused_launch_raises(emulated):

@@ -79,18 +79,28 @@ def test_plans_are_interned_and_describe_their_kernels():
 @pytest.mark.parametrize(
     "spec,item",
     [
-        (F.FFTSpec(16, kind="rfft"), "A4"),
-        (F.FFTSpec(16, kind="irfft"), "A4"),
-        (F.FFTSpec(16, kind="fft2", n2=8), "A5"),
-        (F.FFTSpec(16, kind="irfft2", n2=8), "A5"),
-        (F.FFTSpec(16, axis=-2), "A3"),
+        (F.FFTSpec(15, kind="rfft"), "A6"),
+        (F.FFTSpec(15, kind="irfft"), "A6"),
+        (F.FFTSpec(12, kind="fft2", n2=8), "A6"),
+        (F.FFTSpec(16, kind="irfft2", n2=1 << 33), "A3"),
+        (F.FFTSpec(1 << 34, kind="rfft"), "A3"),
         (F.FFTSpec(1000), "A6"),
         (F.FFTSpec(1 << 33), "A3"),
+        (F.FFTSpec(1000, axis=-2), "A6"),
     ],
 )
 def test_unported_specs_raise(spec, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         F.plan(spec, device="cpu")
+
+
+def test_numerics_guards_and_tuning_raise():
+    planned = F.plan(F.FFTSpec(16, kind="rfft"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        planned(torch.zeros(2, 16), check="nan")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        F.plan(F.FFTSpec(16), device="cpu", tune="measure")
+    assert F.plan(F.FFTSpec(16), device="cpu", tune="off") is F.plan(F.FFTSpec(16), device="cpu")
 
 
 def test_plan_without_a_device_needs_the_card(monkeypatch):

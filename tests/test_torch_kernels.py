@@ -117,6 +117,49 @@ def test_rows_natural(kind, f, n1, n2):
     _close(mine, ref)
 
 
+@pytest.mark.parametrize("kind,f,n1,n2", [("direct", 256, 0, 0), ("fused4", 2048, 64, 32)])
+@pytest.mark.parametrize("tw_every", [8, 16])
+def test_cols_pass_tw_every(kind, f, n1, n2, tw_every):
+    """The width-broadcast twiddle of a strip-mined column factor: one
+    (f, s / tw_every) grid column per run of tw_every image columns."""
+    r, s = 2, 64
+    x = _planes(f + tw_every, (r, f, s))
+    luts = _pass_luts(kind, f, n1, n2)
+    tw = ref_tw.pass_twiddle(f, s // tw_every)
+    mine = _counted("cols_pass", lambda: pencil.cols_pass_call(
+        *_t(*x), _t(*luts), _t(*tw), kind=kind, n1=n1, n2=n2, tw_every=tw_every))
+    ref = ref_pencil.cols_pass_call(*_j(*x), _j(*luts), _j(*tw), kind=kind, n1=n1, n2=n2,
+                                    chunk=8, interpret=True, tw_every=tw_every)
+    _close(mine, ref)
+
+
+@pytest.mark.parametrize("kind,f,n1,n2", [("direct", 256, 0, 0), ("fused4", 2048, 64, 32)])
+def test_cols_natural(kind, f, n1, n2):
+    b, p, w = 2, 4, 16
+    x = _planes(f + 3, (b, p, f, w))
+    luts = _pass_luts(kind, f, n1, n2)
+    mine = _counted("cols_natural", lambda: pencil.cols_natural_call(
+        *_t(*x), _t(*luts), kind=kind, n1=n1, n2=n2))
+    ref = ref_pencil.cols_natural_call(*_j(*x), _j(*luts), kind=kind, n1=n1, n2=n2,
+                                       chunk=8, interpret=True)
+    _close(mine, ref)
+
+
+@pytest.mark.parametrize("m", [1, 8, 1024])
+def test_recomb(m):
+    n, b = 2 * m, 3
+    z = _planes(m, (b, m))
+    w = ref_tw.rfft_recomb_twiddle(n)
+    mine = _counted("rfft_recomb", lambda: pencil.rfft_recomb_call(*_t(*z, *w)))
+    ref = ref_pencil.rfft_recomb_call(*_j(*z, *w), interpret=True)
+    _close(mine, ref)
+    x = _planes(m + 1, (b, m + 1))
+    w = ref_tw.rfft_recomb_twiddle(n, inverse=True)
+    mine = _counted("irfft_recomb", lambda: pencil.irfft_recomb_call(*_t(*x, *w)))
+    ref = ref_pencil.irfft_recomb_call(*_j(*x, *w), interpret=True)
+    _close(mine, ref)
+
+
 def test_wrappers_validate_operands():
     xr, xi = _t(*_planes(0, (2, 16)))
     wr, wi = _t(*ref_tw.dft_matrix(16))
@@ -132,6 +175,11 @@ def test_wrappers_validate_operands():
         pencil.rows_natural_call(xr.view(1, 2, 16), xi.view(1, 2, 16), (wr, wi), kind="bogus")
     with pytest.raises(PlanError, match="LUT"):
         pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), (wr,), kind="direct")
+    with pytest.raises(PlanError, match="tw_every"):
+        pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), (wr, wi), kind="direct",
+                              tw_every=3)
+    with pytest.raises(PlanError, match="shape"):
+        pencil.rfft_recomb_call(xr, xi, wr[0], wi[0])  # the LUT must hold m + 1 phasors
 
 
 @pytest.mark.parametrize("n1,n2", [(4, 2), (8, 8), (32, 16)])
