@@ -7,11 +7,15 @@ package), in phases, and fails on the first check that does not hold:
 
 1. device — the card's name and power limit, and the build of every kernel
    from ``src/repro_torch/csrc`` (its wall time);
-2. kernels — each of the seven CUDA kernels at the shapes the main paths
+2. kernels — each of the ten CUDA kernels at the shapes the main paths
    give it, against its plain PyTorch version on the same inputs
    (max|Δ| ≤ 1e-4·max|plain|), with its time, the plain version's, its bound
-   (the larger of bytes over HBM bandwidth and flops over the FP32 peak)
-   and, where one library call computes the same function, that call's time;
+   (the larger of bytes over HBM bandwidth and flops over the FP32 peak),
+   where one library call computes the same function that call's time, and
+   the registers and local (spill) bytes per thread of each of its
+   ``__global__`` functions (``cudaFuncGetAttributes``), held to the column
+   kernels' bound of 128 registers and to no more local bytes than the
+   recorded build had;
 3. main path — ``plan(FFTSpec(n))`` forward and ``ifft`` at full-size
    remote-sensing shapes: sample rows against ``np.fft`` in complex128 at
    1e-3·max|ref|, ``ifft(fft(x)) ≈ x``, exactly ``len(plan.passes)`` kernel
@@ -25,9 +29,13 @@ package), in phases, and fails on the first check that does not hold:
    strip-mined columns), ``rfft2``/``irfft2`` and ``fft`` down ``axis=-2``
    at 0.5–2 GB each, held as phase 3 holds its calls (sample rows or
    columns against ``np.fft`` in complex128, the inverse back to the input,
-   exact launches), timed beside the matching ``torch.fft`` call.
+   exact launches), timed beside the matching ``torch.fft`` call;
+6. arbitrary lengths — ``fft``/``ifft``, ``rfft``/``irfft`` (odd and even),
+   ``fft2``/``ifft2`` and ``fft`` down ``axis=-2`` at non-power-of-two
+   SAR lengths (500 … 100003) through the Bluestein kernels, fused and
+   split regime, held as phase 5 holds its calls.
 
-Phases 3 and 5 each set the launch counts to 0 before they start and read
+Phases 3, 5 and 6 each set the launch counts to 0 before they start and read
 them when they end; every kernel of a path must have launched in it.  The
 script then prints the per-kernel JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -52,7 +60,7 @@ import torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
-from repro_torch.kernels import build, dft_matmul, fft4step, ops, pencil  # noqa: E402
+from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): FP32 on
 #: the CUDA cores and HBM3 bandwidth.
@@ -83,7 +91,28 @@ SOURCES = {
     "cols_natural": ("src/repro_torch/csrc/pencil.cu", "src/repro/kernels/pencil.py:234"),
     "rfft_recomb": ("src/repro_torch/csrc/recomb.cu", "src/repro/kernels/pencil.py:313"),
     "irfft_recomb": ("src/repro_torch/csrc/recomb.cu", "src/repro/kernels/pencil.py:324"),
+    "bluestein_fwd": ("src/repro_torch/csrc/bluestein.cu", "src/repro/kernels/bluestein.py:85"),
+    "bluestein_inv": ("src/repro_torch/csrc/bluestein.cu", "src/repro/kernels/bluestein.py:142"),
+    "bluestein_elem": ("src/repro_torch/csrc/bluestein.cu", "src/repro/kernels/bluestein.py:197"),
 }
+
+#: The ``__global__`` functions each kernel launches.
+FUNCTIONS = {
+    "dft_matmul": ("dft_matmul_kernel",),
+    "fft4step": ("fft4step_kernel",),
+    "cols_pass": ("cols_direct_kernel", "cols_direct_kernel<TwDiv>", "cols_fused_kernel",
+                  "cols_fused_kernel<DIV>"),
+    "rows_natural": ("rows_direct_kernel", "rows_fused_kernel"),
+    "cols_natural": ("cols_direct_kernel", "cols_fused_kernel"),
+    "rfft_recomb": ("rfft_recomb_kernel",),
+    "irfft_recomb": ("irfft_recomb_kernel",),
+    "bluestein_fwd": ("bluestein_fwd_direct_kernel", "bluestein_fwd_fused_kernel"),
+    "bluestein_inv": ("bluestein_inv_direct_kernel", "bluestein_inv_fused_kernel"),
+    "bluestein_elem": ("bluestein_elem_kernel",),
+}
+
+#: This build's ``build.kernel_attributes()``, read once the library loads.
+ATTRS: dict = {}
 
 #: The kernels each planned path must launch: phase 3 (1-D complex) and
 #: phase 5 (real and 2-D).
@@ -91,6 +120,8 @@ PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
                "irfft_recomb"),
+    "bluestein": ("bluestein_fwd", "bluestein_inv", "bluestein_elem", "cols_pass",
+                  "rows_natural", "cols_natural", "rfft_recomb", "irfft_recomb"),
 }
 
 
@@ -176,9 +207,46 @@ def measure_kernel(name, label, call, plain, nbytes, flops, library=None):
         "name": name, "shape": label, "max_abs_err": err, "rel_err": err / scale,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
+        "registers": {f: ATTRS[f]["registers"] for f in FUNCTIONS[name]},
+        "local_bytes": {f: ATTRS[f]["local_bytes"] for f in FUNCTIONS[name]},
     }
     print("kernel " + json.dumps(row), flush=True)
     return row
+
+
+def pencil_pair(gen, dev, n: int, b: int) -> tuple:
+    """The column and row pass of n's two-pass program over (B, n) planes;
+    returns their rows."""
+    cols, rows_p = plan_lib.plan_fft(n).passes
+    x = planes(gen, b, n)
+    # Column pass: (B, f0, s) view, inter-factor twiddle epilogue.
+    _, s, f = cols.view_in
+    luts = ops._transform_luts(dev, cols, False)
+    tw = ops._pass_twiddle_luts(dev, *cols.twiddle_after, False)
+    xv = (x[0].view(b, f, s), x[1].view(b, f, s))
+    kw = dict(kind=cols.kind, n1=cols.n1, n2=cols.n2)
+    cols_row = measure_kernel(
+        "cols_pass", f"n={n} B={b} (R={b}, f={f}, s={s}) {cols.kind}",
+        lambda: pencil.cols_pass_call(*xv, luts, tw, **kw),
+        lambda: pencil.cols_pass_plain(*xv, luts, tw, **kw),
+        nbytes=16 * b * n + 8 * f * s + lut_bytes(cols.kind, f, cols.n1, cols.n2),
+        flops=b * s * transform_flops(cols.kind, f, cols.n1, cols.n2) + 6 * b * n,
+    )
+    # Row pass: (B, p, f) → (B, f, p) transposed write.
+    p_, _, f = rows_p.view_in
+    luts = ops._transform_luts(dev, rows_p, False)
+    xv = (x[0].view(b, p_, f), x[1].view(b, p_, f))
+    kw = dict(kind=rows_p.kind, n1=rows_p.n1, n2=rows_p.n2)
+    rows_row = measure_kernel(
+        "rows_natural", f"n={n} B={b} (B={b}, p={p_}, f={f}) {rows_p.kind}",
+        lambda: pencil.rows_natural_call(*xv, luts, **kw),
+        lambda: pencil.rows_natural_plain(*xv, luts, **kw),
+        nbytes=16 * b * n + lut_bytes(rows_p.kind, f, rows_p.n1, rows_p.n2),
+        flops=b * p_ * transform_flops(rows_p.kind, f, rows_p.n1, rows_p.n2),
+    )
+    del x, xv
+    torch.cuda.empty_cache()
+    return cols_row, rows_row
 
 
 def kernel_phase(gen) -> dict:
@@ -219,45 +287,16 @@ def kernel_phase(gen) -> dict:
                 rows["fft4step"] = row
         del x, xc
 
-    # 3./4. the pencil passes of each two-pass main-path program.
-    for n, b in MAIN_PATH:
-        fft_plan = plan_lib.plan_fft(n)
-        if len(fft_plan.passes) != 2:
+    # 3./4. the pencil passes of each two-pass main-path program, and of
+    # the pad length 2^18 that phase 6's split regime runs for n = 100003.
+    for n, b in MAIN_PATH + ((1 << 18, 64),):
+        if len(plan_lib.plan_fft(n).passes) != 2:
             continue
-        x = planes(gen, b, n)
-        cols, rows_p = fft_plan.passes
-        # Column pass: (B, f0, s) view, inter-factor twiddle epilogue.
-        _, s, f = cols.view_in
-        luts = ops._transform_luts(dev, cols, False)
-        tw = ops._pass_twiddle_luts(dev, *cols.twiddle_after, False)
-        xv = (x[0].view(b, f, s), x[1].view(b, f, s))
-        kw = dict(kind=cols.kind, n1=cols.n1, n2=cols.n2)
-        row = measure_kernel(
-            "cols_pass", f"n={n} B={b} (R={b}, f={f}, s={s}) {cols.kind}",
-            lambda: pencil.cols_pass_call(*xv, luts, tw, **kw),
-            lambda: pencil.cols_pass_plain(*xv, luts, tw, **kw),
-            nbytes=16 * b * n + 8 * f * s + lut_bytes(cols.kind, f, cols.n1, cols.n2),
-            flops=b * s * transform_flops(cols.kind, f, cols.n1, cols.n2) + 6 * b * n,
-        )
+        pair = pencil_pair(gen, dev, n, b)
         if n == 1 << 22:
-            rows["cols_pass"] = row
-        # Row pass: (B, p, f) → (B, f, p) transposed write.
-        p_, _, f = rows_p.view_in
-        luts = ops._transform_luts(dev, rows_p, False)
-        xv = (x[0].view(b, p_, f), x[1].view(b, p_, f))
-        kw = dict(kind=rows_p.kind, n1=rows_p.n1, n2=rows_p.n2)
-        row = measure_kernel(
-            "rows_natural", f"n={n} B={b} (B={b}, p={p_}, f={f}) {rows_p.kind}",
-            lambda: pencil.rows_natural_call(*xv, luts, **kw),
-            lambda: pencil.rows_natural_plain(*xv, luts, **kw),
-            nbytes=16 * b * n + lut_bytes(rows_p.kind, f, rows_p.n1, rows_p.n2),
-            flops=b * p_ * transform_flops(rows_p.kind, f, rows_p.n1, rows_p.n2),
-        )
-        if n == 1 << 22:
-            rows["rows_natural"] = row
-        del x, xv
-        torch.cuda.empty_cache()
+            rows["cols_pass"], rows["rows_natural"] = pair
     rows.update(real2d_kernels(gen, dev))
+    rows.update(bluestein_kernels(gen, dev))
     return rows
 
 
@@ -267,37 +306,12 @@ def recomb_flops(points: int) -> int:
     return 16 * points
 
 
-def real2d_kernels(gen, dev) -> dict:
-    """The new kernels of the real and 2-D path at the shapes phase 5 gives
-    them (and cols_natural's four-step form, which no phase-5 shape reaches
-    at a size that fits the time limit)."""
-    rows = {}
-    # rfft2 of a 16384 x 16384 image: 16384 rows of m = 8192 packed bins.
-    b, m = 16384, 8192
-    z = planes(gen, b, m)
-    w = ops.recomb_luts(dev, 2 * m, False)
-    rows["rfft_recomb"] = measure_kernel(
-        "rfft_recomb", f"B={b} m={m}",
-        lambda: pencil.rfft_recomb_call(*z, *w),
-        lambda: pencil.rfft_recomb_plain(*z, *w),
-        nbytes=8 * b * m + 8 * b * (m + 1) + 8 * (m + 1), flops=recomb_flops(b * (m + 1)),
-    )
-    del z
-    x = planes(gen, b, m + 1)
-    w = ops.recomb_luts(dev, 2 * m, True)
-    rows["irfft_recomb"] = measure_kernel(
-        "irfft_recomb", f"B={b} m={m}",
-        lambda: pencil.irfft_recomb_call(*x, *w),
-        lambda: pencil.irfft_recomb_plain(*x, *w),
-        nbytes=8 * b * (m + 1) + 8 * b * m + 8 * (m + 1), flops=recomb_flops(b * m),
-    )
-    del x
-
-    # The strip-mined columns of a (131072, 2048) image: the strided factor
-    # with its twiddle broadcast over the width, then the digit-transposing
-    # last factor.
-    n, n2 = 2048, 1 << 17
-    strided, last = plan_lib.plan_fft2(n, n2).passes[1:]
+def strip_mined_columns(gen, dev, n: int, n2: int) -> dict:
+    """The two column factors of an (n2, n) image's strip-mined columns:
+    the strided factor with its twiddle broadcast over runs of n columns
+    (``tw_every = n``), then the digit-transposing last factor; returns the
+    last factor's row."""
+    strided, last = plan_lib.plan_fft2(n, n2).passes[-2:]
     _, stride, f = strided.view_in
     x = planes(gen, 1, f, stride * n)
     luts = ops._transform_luts(dev, strided, False)
@@ -316,7 +330,7 @@ def real2d_kernels(gen, dev) -> dict:
     x = planes(gen, 1, pencils, f, n)
     luts = ops._transform_luts(dev, last, False)
     kw = dict(kind=last.kind, n1=last.n1, n2=last.n2)
-    rows["cols_natural"] = measure_kernel(
+    row = measure_kernel(
         "cols_natural", f"fft2 {n2}x{n} last factor (B=1, P={pencils}, f={f}, w={n}) {last.kind}",
         lambda: pencil.cols_natural_call(*x, luts, **kw),
         lambda: pencil.cols_natural_plain(*x, luts, **kw),
@@ -324,6 +338,44 @@ def real2d_kernels(gen, dev) -> dict:
         flops=pencils * n * transform_flops(last.kind, f, 0, 0),
     )
     del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def real2d_kernels(gen, dev) -> dict:
+    """The kernels of the real and 2-D path at the shapes phases 5 and 6
+    give them (and cols_natural's four-step form, which no phase-5 shape
+    reaches at a size that fits the time limit)."""
+    rows = {}
+    # rfft2 of a 16384 x 16384 image: 16384 rows of m = 8192 packed bins;
+    # rfft of 6000-sample lines: 8192 rows of m = 3000.
+    for b, m in ((16384, 8192), (8192, 3000)):
+        z = planes(gen, b, m)
+        w = ops.recomb_luts(dev, 2 * m, False)
+        row = measure_kernel(
+            "rfft_recomb", f"B={b} m={m}",
+            lambda: pencil.rfft_recomb_call(*z, *w),
+            lambda: pencil.rfft_recomb_plain(*z, *w),
+            nbytes=8 * b * m + 8 * b * (m + 1) + 8 * (m + 1), flops=recomb_flops(b * (m + 1)),
+        )
+        rows.setdefault("rfft_recomb", row)
+        del z
+        x = planes(gen, b, m + 1)
+        w = ops.recomb_luts(dev, 2 * m, True)
+        row = measure_kernel(
+            "irfft_recomb", f"B={b} m={m}",
+            lambda: pencil.irfft_recomb_call(*x, *w),
+            lambda: pencil.irfft_recomb_plain(*x, *w),
+            nbytes=8 * b * (m + 1) + 8 * b * m + 8 * (m + 1), flops=recomb_flops(b * m),
+        )
+        rows.setdefault("irfft_recomb", row)
+        del x
+
+    # The strip-mined columns of (131072, w) images: w = 2048, and w = 500
+    # (phase 6) with its twiddle's division by the width.
+    rows["cols_natural"] = strip_mined_columns(gen, dev, 2048, 1 << 17)
+    strip_mined_columns(gen, dev, 500, 1 << 17)
+    # cols_natural's four-step form.
     pp, f, w = 2048, 2048, 32
     n1, n2_ = plan_lib.balanced_split(f)
     x = planes(gen, 1, pp, f, w)
@@ -340,16 +392,17 @@ def real2d_kernels(gen, dev) -> dict:
 
     # rfft2's column pass over the m + 1 = 8193 bins of a 16384 x 16384
     # image: a ragged width in the fused column kernel, beside the width
-    # 8192 that has no ragged chunk.
-    r, f = 1, 16384
-    n1, n2_ = plan_lib.balanced_split(f)
-    luts = ops._fused_luts(dev, n1, n2_, False)
-    kw = dict(kind="fused4", n1=n1, n2=n2_)
-    for s_ in (8193, 8192):
+    # 8192 that has no ragged chunk; and the whole columns of phase 6's
+    # (4096, 3000) image.
+    for f, s_ in ((16384, 8193), (16384, 8192), (4096, 3000)):
+        r = 1
+        n1, n2_ = plan_lib.balanced_split(f)
+        luts = ops._fused_luts(dev, n1, n2_, False)
+        kw = dict(kind="fused4", n1=n1, n2=n2_)
         x = planes(gen, r, f, s_)
         xc = torch.complex(*x)
         measure_kernel(
-            "cols_pass", f"rfft2 columns (R={r}, f={f}, s={s_}) fused4"
+            "cols_pass", f"{'rfft2' if f == 16384 else 'fft2'} columns (R={r}, f={f}, s={s_}) fused4"
             + (" ragged" if s_ % pencil.CHUNK else ""),
             lambda: pencil.cols_pass_call(*x, luts, **kw),
             lambda: pencil.cols_pass_plain(*x, luts, **kw),
@@ -360,6 +413,99 @@ def real2d_kernels(gen, dev) -> dict:
         del x, xc
     torch.cuda.empty_cache()
     return rows
+
+
+def gemm_flops(k: int, outputs: int) -> int:
+    """fp32 flops of a complex GEMM stage with depth k and ``outputs``
+    output points, counted as ``transform_flops`` counts a DFT stage: 6 per
+    complex multiply-add and 4 per output point of pre- and post-adds."""
+    return 6 * k * outputs + 4 * outputs
+
+
+def bluestein_flops(stage: str, n: int, m: int) -> int:
+    """fp32 flops one signal's fused Bluestein stage needs: the M-point
+    transform counted as ``transform_flops`` counts it, over the rows the
+    data fills (the pad rows are zero and are not counted; the kernels skip
+    them), plus 6 per phasor multiply (chirp and B̂, or the post-chirp)."""
+    inner = plan_lib._leaf_pass(m)
+    if stage == "fwd":
+        if inner.kind == "direct":
+            work = gemm_flops(n, m)  # x (n) · W[:n, :] (n × M)
+        else:  # GEMM 1 over ceil(n / n2) rows j1, twiddle, GEMM 2
+            work = gemm_flops(-(-n // inner.n2), m) + 6 * m + gemm_flops(inner.n2, m)
+        return work + 6 * n + 6 * m
+    if inner.kind == "direct":
+        work = gemm_flops(m, n)  # x (M) · W_inv[:, :n] (M × n)
+    else:  # GEMM 1 whole, twiddle, GEMM 2 over bins k2 < ceil(n / n1)
+        work = gemm_flops(inner.n1, m) + 6 * m + gemm_flops(inner.n2, inner.n1 * -(-n // inner.n1))
+    return work + 6 * n
+
+
+#: Phase 2's shapes of the fused Bluestein stages: (batch, n), every one
+#: that phase 6 gives them (the rows of its fft2 and axis=-2 calls too).
+BLUESTEIN_FUSED = ((16384, 500), (131072, 500), (8192, 3000), (4096, 3000), (2048, 12288),
+                   (8192, 4999))
+
+
+def bluestein_kernels(gen, dev) -> dict:
+    """The three Bluestein kernels at the shapes phase 6 gives them: the
+    fused stages with a direct inner transform (M = 1024), a four-step one
+    with its intermediate in shared memory (M = 8192, and M = 16384 at one
+    block per SM) and in the scratch slab (M = 32768), and the split
+    regime's elementwise stages at n = 100003 (M = 2^18)."""
+    rows = {}
+    for b, n in BLUESTEIN_FUSED:
+        fwd, inv = plan_lib.plan_fft(n).passes
+        m = fwd.n1
+        inner = plan_lib._leaf_pass(m)
+        kw = dict(n=n, m_pad=m, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
+        where = "direct" if inner.kind == "direct" else f"four-step {inner.n1}x{inner.n2}"
+        for stage, p, width in (("fwd", fwd, n), ("inv", inv, m)):
+            luts = ops._bluestein_luts(dev, p, False)
+            x = planes(gen, b, width)
+            call = getattr(bluestein, f"bluestein_{stage}_call")
+            plain = getattr(bluestein, f"bluestein_{stage}_plain")
+            row = measure_kernel(
+                f"bluestein_{stage}", f"B={b} n={n} M={m} {where}",
+                lambda: call(*x, luts, **kw), lambda: plain(*x, luts, **kw),
+                nbytes=8 * b * (n + m) + sum(4 * t.numel() for t in luts),
+                flops=b * bluestein_flops(stage, n, m),
+            )
+            if n == 3000:
+                rows[f"bluestein_{stage}"] = row
+            del x
+    b, n = 64, 100003
+    m = plan_lib.bluestein_pad(n)
+    for stage in bluestein.STAGES:
+        w_in, w_out, w_lut = bluestein._elem_widths(stage, n, m)
+        p = plan_lib.Pass(kind="bluestein", n=n, n1=m, stage=stage)
+        lut = ops._bluestein_luts(dev, p, False)
+        x = planes(gen, b, w_in)
+        kw = dict(stage=stage, n=n, m_pad=m)
+        row = measure_kernel(
+            "bluestein_elem", f"{stage} B={b} n={n} M={m}",
+            lambda: bluestein.bluestein_elem_call(*x, lut, **kw),
+            lambda: bluestein.bluestein_elem_plain(*x, lut, **kw),
+            nbytes=8 * b * (w_in + w_out) + 8 * w_lut, flops=6 * b * min(w_in, w_out),
+        )
+        if stage == "mul":
+            rows["bluestein_elem"] = row
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def register_guard() -> None:
+    """Print every ``__global__`` function's registers and local bytes per
+    thread beside the recorded build's; fail where ``build.attribute_faults``
+    finds a fault (more local bytes, a fused column kernel past 128)."""
+    for name, row in sorted(ATTRS.items()):
+        was = build.RECORDED_ATTRS.get(name)
+        print("registers " + json.dumps({
+            "function": name, **row, "recorded": None if was is None else list(was),
+        }), flush=True)
+    faults = build.attribute_faults(ATTRS)
+    check(not faults, "register guard: " + "; ".join(faults))
 
 
 # ---------------------------------------------------------------------------
@@ -518,6 +664,10 @@ def sample_check(spec, x, y) -> float:
         rows = [0, x.shape[0] - 1]
         ref = np.fft.rfft(x[rows].double().cpu().numpy(), axis=-1)
         got = as_complex(y)[rows]
+    elif spec.kind == "fft" and spec.axis == -1:
+        rows = [0, x.shape[0] - 1]
+        ref = np.fft.fft(x[rows].cpu().numpy().astype(np.complex128), axis=-1)
+        got = y[rows]
     elif spec.axis == -2:
         cols = [0, 1, x.shape[-1] - 1]
         ref = np.fft.fft(x[:, cols].cpu().numpy().astype(np.complex128), axis=0)
@@ -532,19 +682,49 @@ def sample_check(spec, x, y) -> float:
     return float(err / np.abs(ref).max())
 
 
-def real2d_phase(gen) -> None:
+#: Phase 6, arbitrary lengths at SAR sizes (0.06–1 GB each): a 500-sample
+#: range line (M = 1024, direct inner), 3000 (M = 8192, four-step in shared
+#: memory), 12288 = 3·2^12 (M = 32768, scratch slab), an azimuth aperture of
+#: 100003 (M = 2^18, the split regime's seven passes), odd and even real
+#: lines, images with Bluestein rows and whole or strip-mined columns
+#: (tw_every = 500), and an azimuth pass of 3000 down axis -2.
+ANY_LENGTH = (
+    (F.FFTSpec(500), F.FFTSpec(500, kind="ifft"), (16384, 500)),
+    (F.FFTSpec(3000), F.FFTSpec(3000, kind="ifft"), (8192, 3000)),
+    (F.FFTSpec(12288), F.FFTSpec(12288, kind="ifft"), (2048, 12288)),
+    (F.FFTSpec(100003), F.FFTSpec(100003, kind="ifft"), (64, 100003)),
+    (F.FFTSpec(4999, kind="rfft"), F.FFTSpec(4999, kind="irfft"), (8192, 4999)),
+    (F.FFTSpec(6000, kind="rfft"), F.FFTSpec(6000, kind="irfft"), (8192, 6000)),
+    (F.FFTSpec(3000, kind="fft2", n2=4096), F.FFTSpec(3000, kind="ifft2", n2=4096),
+     (1, 4096, 3000)),
+    (F.FFTSpec(500, kind="fft2", n2=1 << 17), F.FFTSpec(500, kind="ifft2", n2=1 << 17),
+     (1, 1 << 17, 500)),
+    (F.FFTSpec(3000, axis=-2), F.FFTSpec(3000, kind="ifft", axis=-2), (3000, 4096)),
+)
+
+
+def library_call(spec):
+    """The one ``torch.fft`` call computing ``spec``'s transform: the
+    yardstick only, never used by the port."""
+    n, ax = spec.n, spec.axis
+    return {
+        "fft": lambda x: torch.fft.fft(x, dim=ax),
+        "ifft": lambda x: torch.fft.ifft(x, dim=ax),
+        "rfft": lambda x: torch.fft.rfft(x, dim=ax),
+        "irfft": lambda x: torch.fft.irfft(x, n=n, dim=ax),
+        "fft2": torch.fft.fft2,
+        "ifft2": torch.fft.ifft2,
+        "rfft2": torch.fft.rfft2,
+        "irfft2": lambda x: torch.fft.irfft2(x, s=(x.shape[-2], n)),
+    }[spec.kind]
+
+
+def calls_phase(gen, cases, tag: str) -> None:
+    """Each (forward, inverse, input shape) case: the forward against np.fft
+    at sample rows or columns, the inverse back to the input, exactly
+    ``len(passes)`` launches in every call, times beside ``torch.fft``."""
     reps, warmup = 3, 1
-    library = {
-        "rfft": lambda x: torch.fft.rfft(x),
-        "irfft": lambda y, n: torch.fft.irfft(y, n=n),
-        "fft2": lambda x: torch.fft.fft2(x),
-        "ifft2": lambda y, n: torch.fft.ifft2(y),
-        "rfft2": lambda x: torch.fft.rfft2(x),
-        "irfft2": lambda y, n: torch.fft.irfft2(y, s=(y.shape[-2], n)),
-        "fft": lambda x: torch.fft.fft(x, dim=-2),
-        "ifft": lambda y, n: torch.fft.ifft(y, dim=-2),
-    }
-    for fspec, ispec, shape in REAL_2D:
+    for fspec, ispec, shape in cases:
         fwd, inv = F.plan(fspec), F.plan(ispec)
         label = f"{fspec.kind} {'x'.join(map(str, shape))}" + (" axis=-2" if fspec.axis == -2 else "")
         check(fwd.device.type == "cuda" and inv.device.type == "cuda", f"{label}: plan is not on the card")
@@ -572,13 +752,11 @@ def real2d_phase(gen) -> None:
         for k, c in launches_per_call(inv, 1 + warmup + reps).items():
             expect[k] = expect.get(k, 0) + c
         check_launches(f"{label} all calls", at_start, kernels.counts(), expect)
-        n = fspec.n
-        lib_fwd = library[fspec.kind]
-        lib_inv = library[ispec.kind]
+        lib_fwd, lib_inv = library_call(fspec), library_call(ispec)
         lib_fwd_ms = time_ms(lambda: lib_fwd(x), reps=reps, warmup=warmup)
-        lib_inv_ms = time_ms(lambda: lib_inv(yc, n), reps=reps, warmup=warmup)
+        lib_inv_ms = time_ms(lambda: lib_inv(yc), reps=reps, warmup=warmup)
         print(
-            "real2d " + json.dumps({
+            f"{tag} " + json.dumps({
                 "call": label, "inverse": ispec.kind, "passes": len(fwd.passes),
                 "kernels": list(fwd.kernels), "inverse_kernels": list(inv.kernels),
                 "rel_err": err, "roundtrip_rel_err": rt / xs,
@@ -629,11 +807,15 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     try:
+        ATTRS.update(build.kernel_attributes())
+        register_guard()
         rows = kernel_phase(gen)
         main = path_launches("main_path", main_path_phase, gen)
         offsets_phase(gen)
-        real2d = path_launches("real2d", real2d_phase, gen)
-        launches = {name: main[name] + real2d[name] for name in SOURCES}
+        real2d = path_launches("real2d", lambda g: calls_phase(g, REAL_2D, "real2d"), gen)
+        any_length = path_launches(
+            "bluestein", lambda g: calls_phase(g, ANY_LENGTH, "any_length"), gen)
+        launches = {name: main[name] + real2d[name] + any_length[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -646,6 +828,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            "registers": r["registers"], "local_bytes": r["local_bytes"],
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

@@ -1,6 +1,6 @@
 """Public FFT API — plan-and-execute over a backend registry.
 
-Port of ``repro/core/fft.py`` for power-of-two lengths::
+Port of ``repro/core/fft.py``::
 
     spec    = FFTSpec(n=4096, kind="fft")
     planned = plan(spec)             # interned: plan(spec) is plan(spec)
@@ -23,9 +23,15 @@ The kinds:
 * ``fft2`` / ``ifft2`` — ONE joint program over the last two axes: row
   passes, then the column passes in place (strip-mined for n2 > 65536);
 * ``rfft`` / ``irfft`` — the half-length complex child plan of the even/odd
-  packing plus the Hermitian recombination pass (its ``epilogue``);
+  packing plus the Hermitian recombination pass (its ``epilogue``); an odd
+  length runs one full-length complex child instead, with no epilogue;
 * ``rfft2`` / ``irfft2`` — packed rows, the recombination row-wise, and an
   ``axis=-2`` complex child over the (…, n2, n/2 + 1) half-spectrum.
+
+Any length runs: a non-power-of-two transform (the rows of ``fft2``, the
+complex or packed child of the real kinds) is the planner's Bluestein
+chirp convolution at a power-of-two pad M ≥ 2n − 1, as in the reference;
+``rfft2``/``irfft2`` and every column length ``n2`` stay powers of two.
 
 ``plan(spec)`` runs on the card.  Without a card it raises: it never picks
 the CPU on its own.  ``plan(spec, device="cpu")`` asks for the plain route.
@@ -35,8 +41,8 @@ the CPU.
 Complex kinds take complex tensors or split ``(real, imag)`` float32 planes
 and return whichever form was supplied; ``rfft``/``rfft2`` take a real
 signal and return planes, ``irfft``/``irfft2`` take planes (or a complex
-tensor) and return the real signal, as the reference does.  Odd and other
-non-power-of-two lengths, n > 2³², ``check=`` and tuning raise
+tensor) and return the real signal, as the reference does.  Transforms
+past 2³² points (or Bluestein pads past 2³²), ``check=`` and tuning raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
 """
 
@@ -110,12 +116,21 @@ class FFTSpec:
         if self.n < 1:
             raise PlanError(f"FFT length must be >= 1, got {self.n}")
         if self.kind in ("rfft2", "irfft2") and not _is_pow2(self.n):
-            raise PlanError(f"{self.kind} requires a power-of-two row length, got n={self.n}")
+            raise PlanError(
+                f"{self.kind} requires a power-of-two row length, got n={self.n}; "
+                f"non-power-of-two lengths are supported for "
+                f"{_COMPLEX_KINDS + ('rfft', 'irfft', 'fft2', 'ifft2')} via the "
+                f"Bluestein chirp-conv route"
+            )
         if self.kind in ("rfft", "irfft", "rfft2", "irfft2") and self.n < 2:
             raise PlanError(f"{self.kind} length must be >= 2, got {self.n}")
         if self.kind in _2D_KINDS:
             if self.n2 is None or not _is_pow2(self.n2):
-                raise PlanError(f"{self.kind} needs a power-of-two n2 (column length), got {self.n2}")
+                raise PlanError(
+                    f"{self.kind} needs a power-of-two n2 (column length), got "
+                    f"{self.n2}; only the last (row) axis takes non-power-of-two "
+                    f"lengths (Bluestein route)"
+                )
             if self.axis != -1:
                 raise PlanError(f"{self.kind} always transforms the last two axes")
         elif self.n2 is not None:
@@ -304,11 +319,20 @@ class PlannedFFT:
         head = f"{spec.kind} {size} backend={self.backend.name} device={self.device}: "
         calls = "; kernels: " + ", ".join(f"pass {i} {k}" for i, k in enumerate(self.kernels))
         if self.fft_plan is not None:
-            return head + plan_lib.describe_program(self.fft_plan) + calls
+            return head + plan_lib.describe_program(self.fft_plan) + self._describe_bluestein() + calls
         text = head + " | ".join(plan_lib.describe_program(c.fft_plan) for c in self.children)
         if self.epilogue is not None:
             text += f"; epilogue pass: {self.epilogue.kind} n={self.epilogue.n}"
-        return text + calls
+        return text + self._describe_bluestein() + calls
+
+    def _describe_bluestein(self) -> str:
+        """The chirp convolution's pad and pad ratio, for a plan that runs a
+        Bluestein program (the reference's modelled flops tax needs
+        ``analysis/roofline.py``, which is not ported: ROADMAP A8)."""
+        for p in self.passes:
+            if p.kind == "bluestein":
+                return f"; bluestein: n={p.n} pad {p.n1} ({p.n1 / p.n:.2f}x)"
+        return ""
 
     # -- execution ---------------------------------------------------------
 
@@ -385,8 +409,14 @@ class PlannedFFT:
         if x.shape[-1] != n:
             raise PlanError(f"rfft planned for n={n}, got axis length {x.shape[-1]}")
         (inner,) = self.children
-        zr, zi = inner.apply_planes(*self._pack(x))
-        xr, xi = self._recomb(zr, zi)
+        if n % 2:
+            # Odd length: the full complex transform (a Bluestein child),
+            # sliced to the n//2 + 1 Hermitian bins.
+            zr, zi = inner.apply_planes(x, torch.zeros_like(x))
+            xr, xi = zr[..., : n // 2 + 1].contiguous(), zi[..., : n // 2 + 1].contiguous()
+        else:
+            zr, zi = inner.apply_planes(*self._pack(x))
+            xr, xi = self._recomb(zr, zi)
         if ax is not None:
             xr, xi = xr.movedim(-1, ax), xi.movedim(-1, ax)
         return xr, xi
@@ -400,8 +430,15 @@ class PlannedFFT:
         if xr.shape[-1] != n // 2 + 1:
             raise PlanError(f"irfft expects n//2+1={n // 2 + 1} bins, got {xr.shape[-1]}")
         (inner,) = self.children
-        zr, zi = inner.apply_planes(*self._recomb(xr, xi))
-        out = self._interleave(zr, zi)
+        if n % 2:
+            # Odd length: the Hermitian extension to the full spectrum, the
+            # complex inverse (a Bluestein child), its real part.
+            zr = torch.cat([xr, torch.flip(xr[..., 1:], (-1,))], dim=-1)
+            zi = torch.cat([xi, -torch.flip(xi[..., 1:], (-1,))], dim=-1)
+            out, _ = inner.apply_planes(zr, zi)
+        else:
+            zr, zi = inner.apply_planes(*self._recomb(xr, xi))
+            out = self._interleave(zr, zi)
         return out.movedim(-1, ax) if ax is not None else out
 
     def _rfft2(self, x) -> Planes:
@@ -470,18 +507,15 @@ def _resolve_device(device) -> torch.device:
 
 def _check_slice(spec: FFTSpec) -> None:
     """Raise for what the port does not execute yet."""
-    if not _is_pow2(spec.n):
-        raise NotImplementedError(
-            f"n={spec.n} is not a power of two (odd and other lengths run through "
-            "Bluestein leaves): ROADMAP A6"
-        )
-    # The complex transforms the plan runs: the half-length packing of the
-    # real kinds, and the column length of the 2-D kinds.
-    longest = max(spec.n // 2 if spec.kind in _REAL_KINDS else spec.n, spec.n2 or 1)
-    if longest > MAX_N:
-        raise NotImplementedError(
-            f"a {longest}-point transform > 2^32 needs the reorder pass: ROADMAP A3"
-        )
+    # The complex transforms the plan runs: the half-length packing of an
+    # even real kind (the full length of an odd one), and the column length
+    # of the 2-D kinds; a non-power-of-two one runs at its Bluestein pad.
+    rows = spec.n // 2 if spec.kind in _REAL_KINDS and spec.n % 2 == 0 else spec.n
+    for m in (rows, spec.n2 or 1):
+        size = m if _is_pow2(m) else plan_lib.bluestein_pad(m)
+        if size > MAX_N:
+            what = f"a {m}-point transform" if size == m else f"a {m}-point transform's Bluestein pad {size}"
+            raise NotImplementedError(f"{what} > 2^32 needs the reorder pass: ROADMAP A3")
     if spec.precision != "float32":
         raise NotImplementedError(f"precision {spec.precision!r}: only float32 is ported")
 
@@ -524,6 +558,11 @@ def _plan_cached(spec: FFTSpec, device: str) -> PlannedFFT:
     def child(n: int, axis: int = -1) -> PlannedFFT:
         return _plan_cached(FFTSpec(n=n, kind="ifft" if inverse else "fft", axis=axis), device)
 
+    if kind in ("rfft", "irfft") and spec.n % 2:
+        # Odd length: the even/odd packing needs an even split, so the real
+        # transform runs as one full-length complex Bluestein child (imaginary
+        # plane zero) sliced to the n//2 + 1 bins: no recombination epilogue.
+        return PlannedFFT(spec, entry, None, dev, children=(child(spec.n),))
     m = spec.n // 2
     bins = (1, 1, m + 1)
     epilogue = plan_lib.Pass(

@@ -9,6 +9,8 @@ whatever device the tensors live on:
 * :func:`direct_dft` — the whole-transform DFT matmul (N ≤ DIRECT_MAX);
 * :func:`four_step_fft` — Bailey's four-step with the planner's
   factorisation policy, recursing through split levels;
+* :func:`bluestein_fft` — any length through Bluestein's chirp
+  convolution at a power-of-two pad;
 * :func:`rfft_recomb` / :func:`irfft_recomb` — the Hermitian even/odd
   recombination of the real-FFT packing (flip and roll, no gather).
 
@@ -29,7 +31,9 @@ from repro_torch.core import twiddle as tw
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
-__all__ = ["cmul", "cmatmul", "direct_dft", "four_step_fft", "rfft_recomb", "irfft_recomb"]
+__all__ = [
+    "cmul", "cmatmul", "direct_dft", "four_step_fft", "bluestein_fft", "rfft_recomb", "irfft_recomb",
+]
 
 
 def cmul(ar, ai, br, bi) -> Planes:
@@ -153,3 +157,30 @@ def four_step_fft(xr, xi, *, inverse: bool = False) -> Planes:
         inv = np.float32(1.0 / n)
         yr, yi = yr * inv, yi * inv
     return yr, yi
+
+
+def bluestein_fft(xr, xi, *, inverse: bool = False, pad: int | None = None) -> Planes:
+    """Any-length DFT over the last axis through Bluestein's chirp
+    convolution (the reference's ``fft_xla.bluestein_fft``).
+
+    Chirp pre-multiply, zero-pad to ``M = next_pow2(2n − 1)`` (or ``pad``),
+    forward :func:`four_step_fft` at M, ⊙ the chirp spectrum B̂, inverse
+    four-step at M (1/M applied there), slice to n, chirp post-multiply
+    (1/n folded into it for ``inverse``).  The conv is forward then inverse
+    whatever the outer direction, which only picks the chirp tables.  A
+    power-of-two n goes straight to :func:`four_step_fft`.
+    """
+    n = xr.shape[-1]
+    if not n & (n - 1):
+        return four_step_fft(xr, xi, inverse=inverse)
+    m_pad = plan_lib.bluestein_pad(n) if pad is None else pad
+    ar, ai = _table(tw.bluestein_chirp(n, inverse), xr)
+    br, bi = _table(tw.bluestein_spectrum(n, m_pad, inverse), xr)
+    pr, pi = _table(tw.bluestein_postchirp(n, inverse), xr)
+    yr, yi = cmul(xr, xi, ar, ai)
+    yr = torch.nn.functional.pad(yr, (0, m_pad - n))
+    yi = torch.nn.functional.pad(yi, (0, m_pad - n))
+    fr, fi = four_step_fft(yr, yi)
+    fr, fi = cmul(fr, fi, br, bi)
+    gr, gi = four_step_fft(fr, fi, inverse=True)
+    return cmul(gr[..., :n], gi[..., :n], pr, pi)

@@ -49,3 +49,12 @@ extern "C" int repro_dft_matmul(i64 B, i64 N, const void* xr, const void* xi,
       (float*)yi);
   return (int)cudaGetLastError();
 }
+
+static const KernelEntry ATTRS[] = {
+    {"dft_matmul_kernel", (const void*)&dft_matmul_kernel},
+};
+
+extern "C" int repro_attrs_dft_matmul(int i, const char** name, i64* regs,
+                                      i64* local) {
+  return kernel_attributes(ATTRS, 1, i, name, regs, local);
+}

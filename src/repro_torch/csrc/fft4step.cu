@@ -87,3 +87,12 @@ extern "C" int repro_fft4step(i64 B, i64 n1, i64 n2, i64 lgc, i64 natural,
       (const float*)ei, (float*)yr, (float*)yi, (float*)scr_re, (float*)scr_im);
   return (int)cudaGetLastError();
 }
+
+static const KernelEntry ATTRS[] = {
+    {"fft4step_kernel", (const void*)&fft4step_kernel},
+};
+
+extern "C" int repro_attrs_fft4step(int i, const char** name, i64* regs,
+                                    i64* local) {
+  return kernel_attributes(ATTRS, 1, i, name, regs, local);
+}

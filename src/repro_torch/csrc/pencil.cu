@@ -4,11 +4,14 @@
 //            pallas_call at :149): on an (R, f, s) view, a length-f
 //            transform down the middle axis of every column, times the
 //            inter-factor twiddle T[k, c] (an (f, s) LUT, streamed once).
-//            tw_every = 2^lgw: the twiddle is an (f, s / 2^lgw) grid whose
-//            column c >> lgw serves a run of 2^lgw columns (the strided
-//            factor of a strip-mined 2-D column program, where the image
-//            width rides along as columns) -- address arithmetic, no grid
-//            at image width.  s need not be a multiple of the chunk: the
+//            tw_every = w: the twiddle is an (f, s / w) grid whose column
+//            c / w serves a run of w columns (the strided factor of a
+//            strip-mined 2-D column program, where the image width rides
+//            along as columns) -- address arithmetic, no grid at image
+//            width.  A power-of-two w is a shift (c >> log2 w); any other
+//            w divides, per element in the direct form (the TwDiv store
+//            policy) and once per tile in the four-step form, whose chunk
+//            of columns then divides w so it never straddles two runs.  s need not be a multiple of the chunk: the
 //            ragged last chunk transforms its columns one at a time (an
 //            rfft2 half-spectrum is m + 1 columns wide), with no padded
 //            copy.
@@ -49,8 +52,11 @@ __device__ __forceinline__ i64 cols_out_base(i64 r, i64 P, i64 f, i64 s) {
   return (r / P) * f * P * s + (r % P) * s;
 }
 
+// ST: PlainStore reads the twiddle through the shift view (power-of-two
+// tw_every, lgw its log2), TwDiv by division (any other tw_every).
+template <class ST>
 __global__ void __launch_bounds__(THREADS)
-    cols_direct_kernel(int f, i64 s, i64 P, int lgw, const float* wr,
+    cols_direct_kernel(int f, i64 s, i64 P, int lgw, ST st, const float* wr,
                        const float* wi, const float* xr, const float* xi,
                        const float* tr, const float* ti, float* yr,
                        float* yi) {
@@ -66,16 +72,20 @@ __global__ void __launch_bounds__(THREADS)
   // Twiddle T[k, c >> lgw] of the (f, s >> lgw) grid.
   const COut Y{yr + ob, yi + ob, stride(P * s),      stride(1),
                tr,      ti,      stride(s >> lgw), Ix{lgw, 1, 0}};
-  cgemm_tile(f, (int)s, f, (t / tn) * BM, (t % tn) * BN, Wt, X, Y, smem);
+  cgemm_tile(f, (int)s, f, (t / tn) * BM, (t % tn) * BN, Wt, X, Y, smem,
+             PlainLoad(), PlainLoad(), st);
 }
 
 // Launched with THREADS threads; the bound of 2 * THREADS holds ptxas to
 // 128 registers, so two blocks fit an SM.  Bounded by THREADS alone it took
 // 186 (one block per SM), and the column passes whose intermediate sits in
-// the scratch slab ran 1.6-1.8x slower on the H100 (PERF.md).
+// the scratch slab ran 1.6-1.8x slower on the H100 (PERF.md).  DIV: the
+// twiddle column of a tile is c / w (tw_every = w no power of two), else
+// c >> lgw.
+template <bool DIV>
 __global__ void __launch_bounds__(2 * THREADS)
     cols_fused_kernel(int n1, int lg1, int n2, int lg2, int lgc, i64 s, i64 P,
-                      int lgw, const float* w1r, const float* w1i,
+                      int lgw, i64 w, const float* w1r, const float* w1i,
                       const float* t4r, const float* t4i, const float* w2r,
                       const float* w2i, const float* xr, const float* xi,
                       const float* tr, const float* ti, float* yr, float* yi,
@@ -106,14 +116,14 @@ __global__ void __launch_bounds__(2 * THREADS)
     const i64 base = r * f * s + c;
     const i64 ob = cols_out_base(r, P, f, s) + c;
     const Sig x{xr + base, xi + base, 1, s};
-    // A tile lies inside one run of 2^lgw columns (lgc <= lgw when
-    // lgw > 0), so with lgw > 0 all its columns share twiddle column
-    // c >> lgw.
-    const i64 tc = c >> lgw;
+    // A tile lies inside one run of w columns (2^lgc divides w when
+    // w > 1), so with w > 1 all its columns share twiddle column c / w.
+    // (32-bit: the division variant takes s < 2^31.)
+    const i64 tc = DIV ? (i64)((int)c / (int)w) : c >> lgw;
     const SigOut y{yr + ob, yi + ob, 1, P * s,
                    tr != nullptr ? tr + tc : nullptr,
                    ti != nullptr ? ti + tc : nullptr,
-                   lgw == 0 ? 1 : 0, s >> lgw};
+                   DIV ? 0 : (lgw == 0 ? 1 : 0), DIV ? (i64)((int)s / (int)w) : s >> lgw};
     four_step_tile(n1, lg1, n2, lg2, lgt, w1r, w1i, t4r, t4i, w2r, w2i, x, y,
                    true, mid_re, mid_im, smem);
     __syncthreads();  // the next tile reuses the staging and the intermediate
@@ -177,24 +187,52 @@ static cudaError_t set_smem(const void* kernel, i64 smem) {
                               (int)smem);
 }
 
-static cudaError_t cols_direct(i64 R, i64 P, i64 f, i64 s, i64 lgw,
+static cudaError_t cols_direct(i64 R, i64 P, i64 f, i64 s, i64 w,
                                const void* wr, const void* wi, const void* xr,
                                const void* xi, const void* tr, const void* ti,
                                void* yr, void* yi, void* stream) {
   const i64 blocks = R * cdiv(f, BM) * cdiv(s, BN);
   if (f < 1 || f > 0x7fffffff || s < 1 || s > 0x7fffffff || P < 1 ||
-      R % P != 0 || lgw < 0 || s % (1LL << lgw) != 0 || !grid_ok(blocks))
+      R % P != 0 || w < 1 || s % w != 0 || !grid_ok(blocks))
     return cudaErrorInvalidValue;
-  cols_direct_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (int)f, s, P, (int)lgw, (const float*)wr, (const float*)wi,
-      (const float*)xr, (const float*)xi, (const float*)tr, (const float*)ti,
-      (float*)yr, (float*)yi);
+  const int lgw = log2_exact(w);
+  if (lgw >= 0)
+    cols_direct_kernel<PlainStore><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (int)f, s, P, lgw, PlainStore(), (const float*)wr, (const float*)wi,
+        (const float*)xr, (const float*)xi, (const float*)tr, (const float*)ti,
+        (float*)yr, (float*)yi);
+  else
+    cols_direct_kernel<TwDiv><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (int)f, s, P, 0, TwDiv{s / w, (int)w}, (const float*)wr, (const float*)wi,
+        (const float*)xr, (const float*)xi, (const float*)tr, (const float*)ti,
+        (float*)yr, (float*)yi);
   return cudaGetLastError();
 }
 
 
+template <bool DIV>
+static cudaError_t cols_fused_launch(i64 blocks, i64 smem, int lg1, int lg2,
+                                     i64 n1, i64 n2, i64 lgc, i64 s, i64 P,
+                                     int lgw, i64 w, const void* w1r,
+                                     const void* w1i, const void* t4r,
+                                     const void* t4i, const void* w2r,
+                                     const void* w2i, const void* xr,
+                                     const void* xi, const void* tr,
+                                     const void* ti, void* yr, void* yi,
+                                     void* scr_re, void* scr_im, void* stream) {
+  cudaError_t err = set_smem((const void*)&cols_fused_kernel<DIV>, smem);
+  if (err != cudaSuccess) return err;
+  cols_fused_kernel<DIV><<<(unsigned)blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+      (int)n1, lg1, (int)n2, lg2, (int)lgc, s, P, lgw, w, (const float*)w1r,
+      (const float*)w1i, (const float*)t4r, (const float*)t4i,
+      (const float*)w2r, (const float*)w2i, (const float*)xr, (const float*)xi,
+      (const float*)tr, (const float*)ti, (float*)yr, (float*)yi,
+      (float*)scr_re, (float*)scr_im);
+  return cudaGetLastError();
+}
+
 static cudaError_t cols_fused(i64 R, i64 P, i64 n1, i64 n2, i64 s, i64 lgc,
-                              i64 lgw, const void* w1r, const void* w1i,
+                              i64 w, const void* w1r, const void* w1i,
                               const void* t4r, const void* t4i,
                               const void* w2r, const void* w2i,
                               const void* xr, const void* xi, const void* tr,
@@ -202,7 +240,8 @@ static cudaError_t cols_fused(i64 R, i64 P, i64 n1, i64 n2, i64 s, i64 lgc,
                               void* scr_re, void* scr_im, void* stream) {
   const int lg1 = log2_exact(n1), lg2 = log2_exact(n2);
   if (lg1 < 0 || lg2 < 0 || lgc < 0 || s < 1 || P < 1 || R % P != 0 ||
-      lgw < 0 || s % (1LL << lgw) != 0 || (lgw > 0 && lgc > lgw))
+      w < 1 || s % w != 0 || (w > 1 && w % (1LL << lgc) != 0) ||
+      (log2_exact(w) < 0 && s > 0x7fffffff))
     return cudaErrorInvalidValue;
   // One block per chunk of 2^lgc columns, the last one of each group ragged
   // when s is no multiple of it; the scratch slab holds n1.n2.2^lgc floats
@@ -211,42 +250,44 @@ static cudaError_t cols_fused(i64 R, i64 P, i64 n1, i64 n2, i64 s, i64 lgc,
   if (!grid_ok(blocks)) return cudaErrorInvalidValue;
   const i64 smem =
       scr_re != nullptr ? TILE_SMEM_BYTES : four_step_smem_bytes(n1 * n2, (int)lgc);
-  cudaError_t err = set_smem((const void*)cols_fused_kernel, smem);
-  if (err != cudaSuccess) return err;
-  cols_fused_kernel<<<(unsigned)blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (int)n1, lg1, (int)n2, lg2, (int)lgc, s, P, (int)lgw, (const float*)w1r,
-      (const float*)w1i, (const float*)t4r, (const float*)t4i,
-      (const float*)w2r, (const float*)w2i, (const float*)xr, (const float*)xi,
-      (const float*)tr, (const float*)ti, (float*)yr, (float*)yi,
-      (float*)scr_re, (float*)scr_im);
-  return cudaGetLastError();
+  const int lgw = log2_exact(w);
+  if (lgw >= 0)
+    return cols_fused_launch<false>(blocks, smem, lg1, lg2, n1, n2, lgc, s, P,
+                                    lgw, w, w1r, w1i, t4r, t4i, w2r, w2i, xr,
+                                    xi, tr, ti, yr, yi, scr_re, scr_im, stream);
+  return cols_fused_launch<true>(blocks, smem, lg1, lg2, n1, n2, lgc, s, P, 0,
+                                 w, w1r, w1i, t4r, t4i, w2r, w2i, xr, xi, tr,
+                                 ti, yr, yi, scr_re, scr_im, stream);
 }
 
-extern "C" int repro_cols_pass_direct(i64 R, i64 f, i64 s, i64 lgw,
+extern "C" int repro_cols_pass_direct(i64 R, i64 f, i64 s, i64 tw_every,
                                       const void* wr, const void* wi,
                                       const void* xr, const void* xi,
                                       const void* tr, const void* ti, void* yr,
                                       void* yi, void* stream) {
-  return (int)cols_direct(R, 1, f, s, lgw, wr, wi, xr, xi, tr, ti, yr, yi, stream);
+  return (int)cols_direct(R, 1, f, s, tw_every, wr, wi, xr, xi, tr, ti, yr, yi,
+                          stream);
 }
 
 extern "C" int repro_cols_pass_fused(i64 R, i64 n1, i64 n2, i64 s, i64 lgc,
-                                     i64 lgw, const void* w1r, const void* w1i,
+                                     i64 tw_every, const void* w1r,
+                                     const void* w1i,
                                      const void* t4r, const void* t4i,
                                      const void* w2r, const void* w2i,
                                      const void* xr, const void* xi,
                                      const void* tr, const void* ti, void* yr,
                                      void* yi, void* scr_re, void* scr_im,
                                      void* stream) {
-  return (int)cols_fused(R, 1, n1, n2, s, lgc, lgw, w1r, w1i, t4r, t4i, w2r,
-                         w2i, xr, xi, tr, ti, yr, yi, scr_re, scr_im, stream);
+  return (int)cols_fused(R, 1, n1, n2, s, lgc, tw_every, w1r, w1i, t4r, t4i,
+                         w2r, w2i, xr, xi, tr, ti, yr, yi, scr_re, scr_im,
+                         stream);
 }
 
 extern "C" int repro_cols_natural_direct(i64 B, i64 P, i64 f, i64 w,
                                          const void* wr, const void* wi,
                                          const void* xr, const void* xi,
                                          void* yr, void* yi, void* stream) {
-  return (int)cols_direct(B * P, P, f, w, 0, wr, wi, xr, xi, nullptr, nullptr,
+  return (int)cols_direct(B * P, P, f, w, 1, wr, wi, xr, xi, nullptr, nullptr,
                           yr, yi, stream);
 }
 
@@ -258,7 +299,7 @@ extern "C" int repro_cols_natural_fused(i64 B, i64 P, i64 n1, i64 n2, i64 w,
                                         const void* xi, void* yr, void* yi,
                                         void* scr_re, void* scr_im,
                                         void* stream) {
-  return (int)cols_fused(B * P, P, n1, n2, w, lgc, 0, w1r, w1i, t4r, t4i, w2r,
+  return (int)cols_fused(B * P, P, n1, n2, w, lgc, 1, w1r, w1i, t4r, t4i, w2r,
                          w2i, xr, xi, nullptr, nullptr, yr, yi, scr_re,
                          scr_im, stream);
 }
@@ -298,4 +339,18 @@ extern "C" int repro_rows_natural_fused(i64 B, i64 p, i64 n1, i64 n2, i64 lgc,
       (const float*)w2r, (const float*)w2i, (const float*)xr, (const float*)xi,
       (float*)yr, (float*)yi, (float*)scr_re, (float*)scr_im);
   return (int)cudaGetLastError();
+}
+
+static const KernelEntry ATTRS[] = {
+    {"cols_direct_kernel", (const void*)&cols_direct_kernel<PlainStore>},
+    {"cols_direct_kernel<TwDiv>", (const void*)&cols_direct_kernel<TwDiv>},
+    {"cols_fused_kernel", (const void*)&cols_fused_kernel<false>},
+    {"cols_fused_kernel<DIV>", (const void*)&cols_fused_kernel<true>},
+    {"rows_direct_kernel", (const void*)&rows_direct_kernel},
+    {"rows_fused_kernel", (const void*)&rows_fused_kernel},
+};
+
+extern "C" int repro_attrs_pencil(int i, const char** name, i64* regs,
+                                  i64* local) {
+  return kernel_attributes(ATTRS, 6, i, name, regs, local);
 }

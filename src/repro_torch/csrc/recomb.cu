@@ -114,3 +114,13 @@ extern "C" int repro_irfft_recomb(i64 B, i64 m, const void* xr, const void* xi,
       (const float*)wi, (float*)zr, (float*)zi);
   return (int)cudaGetLastError();
 }
+
+static const KernelEntry ATTRS[] = {
+    {"rfft_recomb_kernel", (const void*)&rfft_recomb_kernel},
+    {"irfft_recomb_kernel", (const void*)&irfft_recomb_kernel},
+};
+
+extern "C" int repro_attrs_recomb(int i, const char** name, i64* regs,
+                                  i64* local) {
+  return kernel_attributes(ATTRS, 2, i, name, regs, local);
+}

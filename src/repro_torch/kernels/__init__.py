@@ -2,7 +2,9 @@
 
 dft_matmul  direct DFT complex GEMM (N <= 1024, one pass)
 fft4step    fused four-step (2048 <= N <= 65536, one pass)
-pencil      strided-column pass and transposed-write row pass (split regime)
+pencil      strided-column pass and transposed-write row pass (split regime),
+            the 2-D column passes and the real-FFT recombination
+bluestein   the chirp-convolution stages of any-length transforms
 ops         the pass-program executor with device-resident LUTs
 build       nvcc → one shared library → ctypes, at first use
 ref         numpy oracles (naive float64 DFT, four-step reference)
@@ -13,10 +15,10 @@ takes for a CPU tensor), and a ``COUNTS`` dict of kernel launches and plain
 calls.
 """
 
-from repro_torch.kernels import build, dft_matmul, fft4step, ops, pencil, ref
+from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref
 
 #: Every kernel module carrying a ``COUNTS`` dict.
-KERNEL_MODULES = (dft_matmul, fft4step, pencil)
+KERNEL_MODULES = (dft_matmul, fft4step, pencil, bluestein)
 
 
 def reset_counts() -> None:
@@ -35,6 +37,7 @@ def counts() -> dict:
 
 
 __all__ = [
+    "bluestein",
     "build",
     "dft_matmul",
     "fft4step",

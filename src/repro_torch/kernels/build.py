@@ -51,6 +51,10 @@ __all__ = [
     "stream_ptr",
     "ptr",
     "check_planes",
+    "kernel_attributes",
+    "RECORDED_ATTRS",
+    "COLS_MAX_REGISTERS",
+    "attribute_faults",
 ]
 
 #: Hopper with the architecture-specific features (``wgmma``, ``setmaxnreg``).
@@ -245,3 +249,71 @@ def check_planes(name: str, like, **operands) -> None:
             raise PlanError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise PlanError(f"{name}: {arg} must be contiguous")
+
+
+def kernel_attributes() -> dict:
+    """``{kernel: {"source", "registers", "local_bytes"}}`` for every
+    ``__global__`` function of the library, from ``cudaFuncGetAttributes``
+    through each source's ``repro_attrs_<source>`` entry: the registers
+    per thread and the local (spill) bytes per thread the compiler gave
+    it.  Sources without kernels have no entry."""
+    lib = library()
+    out = {}
+    for src in _sources()[0]:
+        entry = f"repro_attrs_{src.stem}"
+        if not hasattr(lib, entry):
+            continue
+        fn = function(entry, (ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                              ctypes.POINTER(I64), ctypes.POINTER(I64)))
+        i = 0
+        while True:
+            name, regs, local = ctypes.c_char_p(), I64(), I64()
+            rc = fn(i, ctypes.byref(name), ctypes.byref(regs), ctypes.byref(local))
+            if rc == -1:
+                break
+            check(rc, entry)
+            out[name.value.decode()] = {
+                "source": src.name, "registers": regs.value, "local_bytes": local.value,
+            }
+            i += 1
+    return out
+
+
+#: (registers, local bytes) per thread of every ``__global__`` function as
+#: the sm_90a build recorded in PERF.md compiled it: the register guard's
+#: one table, read by ``chip_smoke.py`` and the card tests.
+RECORDED_ATTRS = {
+    "dft_matmul_kernel": (127, 0),
+    "fft4step_kernel": (80, 0),
+    "cols_direct_kernel": (94, 0),
+    "cols_direct_kernel<TwDiv>": (94, 0),
+    "cols_fused_kernel": (127, 0),
+    "cols_fused_kernel<DIV>": (127, 0),
+    "rows_direct_kernel": (128, 0),
+    "rows_fused_kernel": (80, 8),
+    "rfft_recomb_kernel": (24, 0),
+    "irfft_recomb_kernel": (20, 0),
+    "bluestein_fwd_direct_kernel": (79, 0),
+    "bluestein_fwd_fused_kernel": (128, 0),
+    "bluestein_inv_direct_kernel": (103, 0),
+    "bluestein_inv_fused_kernel": (128, 0),
+    "bluestein_elem_kernel": (16, 0),
+}
+
+#: The fused column kernels' register bound (``__launch_bounds__(2 * THREADS)``).
+COLS_MAX_REGISTERS = 128
+
+
+def attribute_faults(attrs: dict) -> list:
+    """The register guard over :func:`kernel_attributes`' rows: one message
+    for each function with more local (spill) bytes than
+    :data:`RECORDED_ATTRS` gives it (none for a function it lacks), and for
+    each fused column kernel past :data:`COLS_MAX_REGISTERS` registers."""
+    faults = []
+    for name, row in sorted(attrs.items()):
+        local = RECORDED_ATTRS.get(name, (0, 0))[1]
+        if row["local_bytes"] > local:
+            faults.append(f"{name}: {row['local_bytes']} local bytes, the recorded build had {local}")
+        if name.startswith("cols_fused_kernel") and row["registers"] > COLS_MAX_REGISTERS:
+            faults.append(f"{name}: {row['registers']} registers > {COLS_MAX_REGISTERS}")
+    return faults

@@ -9,6 +9,12 @@ call (one HBM round trip):
   with the inter-factor twiddle in its epilogue;
 * contiguous-row pass with the natural-order transpose fused into its write
   → :func:`~repro_torch.kernels.pencil.rows_natural_call`;
+* Bluestein pass (any-length transform) →
+  :func:`~repro_torch.kernels.bluestein.bluestein_fwd_call` /
+  :func:`~repro_torch.kernels.bluestein.bluestein_inv_call` in the fused
+  regime, :func:`~repro_torch.kernels.bluestein.bluestein_elem_call` for the
+  chirp stages of the split regime, whose conv is the pad length's own
+  program with each pass's direction pinned (:attr:`Pass.inverse`);
 * column pass of a 2-D program (``axis=-2``, :func:`execute_program2d`) →
   :func:`~repro_torch.kernels.pencil.cols_pass_call` in place over the
   image's width (fused-regime columns, or the strided factor of strip-mined
@@ -27,7 +33,9 @@ LUTs are device-resident: the float64 host tables of ``core/twiddle.py``
 are uploaded once per (device, sizes, direction) and kept, with the inverse
 transform's 1/f folded into each pass's transform LUT exactly as the
 reference folds it (W for the direct leaf, W2 for the four-step leaf), so
-the factors of a program multiply to 1/n.
+the factors of a program multiply to 1/n.  A Bluestein pass carries the
+chirp tables of the outer direction and the inner transform's LUTs of its
+own (forward, then inverse with 1/M folded in).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import torch
 from repro_torch.core import faults
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import twiddle as tw
-from repro_torch.kernels import dft_matmul, fft4step, pencil
+from repro_torch.kernels import bluestein, dft_matmul, fft4step, pencil
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -108,11 +116,51 @@ def _transform_luts(device: str, p: plan_lib.Pass, inverse: bool) -> tuple:
     return _fused_luts(device, p.n1, p.n2, inverse)
 
 
+@functools.lru_cache(maxsize=64)
+def _chirp_luts(device: str, n: int, inverse: bool) -> tuple:
+    return _upload(tw.bluestein_chirp(n, inverse), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _spectrum_luts(device: str, n: int, m_pad: int, inverse: bool) -> tuple:
+    return _upload(tw.bluestein_spectrum(n, m_pad, inverse), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _postchirp_luts(device: str, n: int, inverse: bool) -> tuple:
+    return _upload(tw.bluestein_postchirp(n, inverse), device)
+
+
+def _bluestein_luts(device: str, p: plan_lib.Pass, inverse: bool) -> tuple:
+    """The LUT planes of one Bluestein pass stage, interned piecewise per
+    (device, n, M, direction): the (n,) chirp, the (M,) chirp spectrum B̂,
+    the (n,) post-chirp (1/n folded in for an outer inverse) and, for the
+    fused stages, the inner M-point transform's LUTs.  The inner conv is
+    always forward then inverse; ``inverse`` only picks the chirp tables
+    (reference ``src/repro/kernels/ops.py:99``)."""
+    n, m_pad = p.n, p.n1
+    if p.stage == "pre":
+        return _chirp_luts(device, n, inverse)
+    if p.stage == "mul":
+        return _spectrum_luts(device, n, m_pad, inverse)
+    if p.stage == "post":
+        return _postchirp_luts(device, n, inverse)
+    inner = plan_lib._leaf_pass(m_pad)
+    if p.stage == "fwd":
+        return (*_chirp_luts(device, n, inverse), *_transform_luts(device, inner, False),
+                *_spectrum_luts(device, n, m_pad, inverse))
+    if p.stage == "inv":
+        return (*_transform_luts(device, inner, True), *_postchirp_luts(device, n, inverse))
+    raise faults.PlanError(f"unknown bluestein stage {p.stage!r}")
+
+
+def _pass_inverse(p: plan_lib.Pass, inverse: bool) -> bool:
+    """The direction a pass runs: its own where it pins one (the passes of
+    a split-regime Bluestein conv), else the program's."""
+    return p.inverse if p.inverse is not None else inverse
+
+
 def _check_supported(p: plan_lib.Pass) -> None:
-    if p.kind == "bluestein":
-        raise NotImplementedError(
-            "Bluestein (non-power-of-two) passes are not ported yet: ROADMAP A6"
-        )
     if p.kind == "reorder":
         raise NotImplementedError(
             "the digit-reversal reorder pass (n > 2^32) is not ported yet: ROADMAP A3"
@@ -127,6 +175,8 @@ def _check_supported(p: plan_lib.Pass) -> None:
 def pass_kernel(p: plan_lib.Pass) -> str:
     """Name of the kernel (and ``COUNTS`` key) that executes pass ``p``."""
     _check_supported(p)
+    if p.kind == "bluestein":
+        return "bluestein_elem" if p.stage in bluestein.STAGES else f"bluestein_{p.stage}"
     pencils, stride, _f = p.view_in
     if p.axis == -2:
         # Whole columns and strided column factors transform in place; the
@@ -151,17 +201,36 @@ def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device) -> tuple:
     luts = []
     for p in fft_plan.passes:
         _check_supported(p)
-        luts.extend(_transform_luts(dev, p, inverse))
+        eff = _pass_inverse(p, inverse)
+        if p.kind == "bluestein":
+            luts.extend(_bluestein_luts(dev, p, eff))
+            continue
+        luts.extend(_transform_luts(dev, p, eff))
         if p.twiddle_after is not None:
-            luts.extend(_pass_twiddle_luts(dev, *p.twiddle_after, inverse))
+            luts.extend(_pass_twiddle_luts(dev, *p.twiddle_after, eff))
     return tuple(luts)
 
 
+def _bluestein_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
+    """One Bluestein stage over (B, width) planes: one kernel call."""
+    luts = _bluestein_luts(device_key(xr.device), p, inverse)
+    kw = dict(n=p.n, m_pad=p.n1)
+    if p.stage in bluestein.STAGES:
+        return bluestein.bluestein_elem_call(xr, xi, luts, stage=p.stage, **kw)
+    inner = plan_lib._leaf_pass(p.n1)
+    call = bluestein.bluestein_fwd_call if p.stage == "fwd" else bluestein.bluestein_inv_call
+    return call(xr, xi, luts, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2, **kw)
+
+
 def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
-    """One row-axis program pass over (B, n) split planes: exactly one
-    kernel call."""
+    """One row-axis program pass over (B, width) split planes: exactly one
+    kernel call.  A pass that pins its direction (:attr:`Pass.inverse`, the
+    inner conv of a split-regime Bluestein program) runs in it."""
     kernel = pass_kernel(p)
     faults.maybe_fail("kernel.launch", backend=xr.device.type, pass_kind=p.kind)
+    inverse = _pass_inverse(p, inverse)
+    if p.kind == "bluestein":
+        return _bluestein_pass(xr, xi, p, inverse)
     dev = device_key(xr.device)
     b, n = xr.shape
     pencils, stride, f = p.view_in
@@ -238,17 +307,20 @@ def execute_program(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = 
 def execute_program2d(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False) -> Planes:
     """Walk a mixed-axis pass program over 3-D (B, n2, n) image planes.
 
-    ``axis=-1`` passes run the 1-D machinery over the (B·n2, n) row view;
-    ``axis=-2`` passes transform the image's columns in place through
+    ``axis=-1`` passes run the 1-D machinery over the (B·n2, width) row
+    view; ``axis=-2`` passes transform the image's columns in place through
     :func:`_cols_image_pass`.  The row → column handoff is a view: a planned
-    ``fft2`` is exactly its rows' and columns' kernel calls."""
+    ``fft2`` is exactly its rows' and columns' kernel calls.  The row width
+    is read from each pass's output: a Bluestein row program changes it
+    mid-program (n → M → n)."""
     for p in passes:
         b, rows, n = xr.shape
         if p.axis == -2:
             xr, xi = _cols_image_pass(xr, xi, p, inverse)
             continue
         yr, yi = _apply_pass(xr.view(b * rows, n), xi.view(b * rows, n), p, inverse)
-        xr, xi = yr.view(b, rows, n), yi.view(b, rows, n)
+        w = yr.shape[-1]
+        xr, xi = yr.view(b, rows, w), yi.view(b, rows, w)
     return xr, xi
 
 

@@ -6,7 +6,8 @@ kernel ``cols_pass_call`` (``src/repro/kernels/pencil.py:102``): on an
 times the inter-factor twiddle ``T[k, c]`` (an (f, s) LUT streamed once).
 ``tw_every`` is the width-broadcast mode of a strip-mined 2-D column
 program: the twiddle is an (f, s / tw_every) grid whose column
-``c // tw_every`` serves a run of ``tw_every`` image columns.  ``s`` may be
+``c // tw_every`` serves a run of ``tw_every`` image columns, for any
+image width (a power of two by shift, any other by division).  ``s`` may be
 any width (an rfft2 half-spectrum is m + 1 columns): the four-step
 kernel's ragged last chunk takes its columns one at a time, with no padded
 copy.
@@ -140,12 +141,9 @@ def _check(name, kind, xr, xi, x_shape, luts, n1, n2, f, twiddle=None, tw_shape=
         raise PlanError(f"{name} runs on cuda or cpu tensors, got {xr.device}")
 
 
-def _tw_every_log2(s: int, tw_every: int) -> int:
-    if tw_every < 1 or tw_every & (tw_every - 1) or s % tw_every:
-        raise PlanError(
-            f"cols_pass: tw_every={tw_every} must be a power of two dividing the width {s}"
-        )
-    return tw_every.bit_length() - 1
+def _check_tw_every(s: int, tw_every: int) -> None:
+    if tw_every < 1 or s % tw_every:
+        raise PlanError(f"cols_pass: tw_every={tw_every} must divide the width {s}")
 
 
 def cols_pass_plain(xr, xi, luts, twiddle=None, *, kind: str, n1: int = 0, n2: int = 0,
@@ -174,7 +172,7 @@ def cols_pass_call(xr, xi, luts, twiddle=None, *, kind: str, n1: int = 0, n2: in
     ``y[r, :, c] = FFT_f(x[r, :, c]) ⊙ T[:, c // tw_every]``.  ``twiddle``
     is the (f, s / tw_every) inter-factor grid as split planes, or None."""
     r, f, s = xr.shape
-    _tw_every_log2(s, tw_every)
+    _check_tw_every(s, tw_every)
     _check("cols_pass", kind, xr, xi, (r, f, s), luts, n1, n2, f, twiddle, (f, s // tw_every))
     if xr.device.type == "cpu":
         return cols_pass_plain(xr, xi, luts, twiddle, kind=kind, n1=n1, n2=n2, tw_every=tw_every)
@@ -184,7 +182,6 @@ def cols_pass_call(xr, xi, luts, twiddle=None, *, kind: str, n1: int = 0, n2: in
 @build.on_device
 def _launch_cols(xr, xi, luts, twiddle, kind, n1, n2, tw_every=1):
     r, f, s = xr.shape
-    lgw = _tw_every_log2(s, tw_every)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tr, ti = twiddle if twiddle is not None else (None, None)
@@ -192,15 +189,18 @@ def _launch_cols(xr, xi, luts, twiddle, kind, n1, n2, tw_every=1):
     if kind == "direct":
         wr, wi = luts
         rc = build.function("repro_cols_pass_direct", _COLS_DIRECT)(
-            r, f, s, lgw, p(wr), p(wi), p(xr), p(xi), p(tr), p(ti), p(yr), p(yi),
+            r, f, s, tw_every, p(wr), p(wi), p(xr), p(xi), p(tr), p(ti), p(yr), p(yi),
             build.stream_ptr(xr),
         )
     else:
-        # A chunk must not straddle two twiddle columns.
-        lgc = column_chunk_log2(s) if lgw == 0 else min(column_chunk_log2(s), lgw)
+        # A chunk must not straddle two twiddle columns: with tw_every > 1
+        # it divides tw_every.
+        lgc = column_chunk_log2(s)
+        if tw_every > 1:
+            lgc = min(lgc, (tw_every & -tw_every).bit_length() - 1)
         sr, si = scratch_planes(xr, f, lgc, _fused_blocks(r, s, lgc) << lgc)
         rc = build.function("repro_cols_pass_fused", _COLS_FUSED)(
-            r, n1, n2, s, lgc, lgw, *map(p, luts), p(xr), p(xi), p(tr), p(ti),
+            r, n1, n2, s, lgc, tw_every, *map(p, luts), p(xr), p(xi), p(tr), p(ti),
             p(yr), p(yi), p(sr), p(si), build.stream_ptr(xr),
         )
     build.check(rc, "cols_pass")

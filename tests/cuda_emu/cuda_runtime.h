@@ -59,6 +59,15 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return (size_t)bytes > EMU_SMEM_OPTIN ? cudaErrorInvalidValue : cudaSuccess;
 }
+// A host build has no registers or local memory to report: zeros.
+struct cudaFuncAttributes {
+  int numRegs = 0;
+  size_t localSizeBytes = 0;
+};
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) {
+  *a = cudaFuncAttributes{};
+  return cudaSuccess;
+}
 
 template <class K, class... A>
 void emu_launch(K kernel, unsigned grid, int block, size_t smem, cudaStream_t,

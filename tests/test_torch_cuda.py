@@ -13,7 +13,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import fft as F
 from repro_torch.core import plan as plan_lib
-from repro_torch.kernels import dft_matmul, fft4step, ops, pencil
+from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +201,82 @@ def test_planned_axis_minus_2(dev, n, q):
     assert planned.kernels[0] == "cols_pass"
     ref = np.fft.fft(x.cpu().numpy().astype(np.complex128), axis=-2)
     assert _rel(y.cpu().numpy(), ref) <= 1e-3
+
+
+@pytest.mark.parametrize("r,f,s,kind,tw_every", [
+    (2, 512, 256 * 12, "direct", 12), (1, 2048, 64 * 500, "fused4", 500), (1, 4096, 16 * 3, "fused4", 3),
+])
+def test_cols_pass_tw_every_any_width_kernel(dev, r, f, s, kind, tw_every):
+    x = _planes(dev, r, f, s)
+    luts = ops._direct_luts(dev, f, False) if kind == "direct" else ops._fused_luts(
+        dev, *plan_lib.balanced_split(f), False)
+    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+    tw = _planes(dev, f, s // tw_every, seed=4)
+    kw = dict(kind=kind, n1=n1, n2=n2, tw_every=tw_every)
+    _close(pencil.cols_pass_call(*x, luts, tw, **kw), pencil.cols_pass_plain(*x, luts, tw, **kw))
+
+
+@pytest.mark.parametrize("b,n", [(5, 3), (33, 97), (70, 500), (4, 1000), (3, 3000), (2, 12288)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_bluestein_fused_kernels(dev, b, n, inverse):
+    """Direct inner (M <= 1024), four-step with the intermediate in shared
+    memory (M = 2048, 8192) and in the scratch slab (M = 32768)."""
+    fwd, inv = plan_lib.plan_fft(n).passes
+    m = fwd.n1
+    inner = plan_lib._leaf_pass(m)
+    kw = dict(n=n, m_pad=m, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
+    x = _planes(dev, b, n)
+    luts = ops._bluestein_luts(dev, fwd, inverse)
+    _close(bluestein.bluestein_fwd_call(*x, luts, **kw), bluestein.bluestein_fwd_plain(*x, luts, **kw))
+    y = _planes(dev, b, m, seed=1)
+    luts = ops._bluestein_luts(dev, inv, inverse)
+    _close(bluestein.bluestein_inv_call(*y, luts, **kw), bluestein.bluestein_inv_plain(*y, luts, **kw))
+
+
+@pytest.mark.parametrize("stage", bluestein.STAGES)
+def test_bluestein_elem_kernel(dev, stage):
+    n, m = 100003, 1 << 18
+    w_in, w_out, w_lut = bluestein._elem_widths(stage, n, m)
+    x = _planes(dev, 3, w_in)
+    lut = _planes(dev, w_lut, seed=2)
+    kw = dict(stage=stage, n=n, m_pad=m)
+    _close(bluestein.bluestein_elem_call(*x, lut, **kw), bluestein.bluestein_elem_plain(*x, lut, **kw))
+
+
+@pytest.mark.parametrize("spec,shape", [
+    (F.FFTSpec(500), (9, 500)), (F.FFTSpec(3000, kind="ifft"), (4, 3000)),
+    (F.FFTSpec(100003), (2, 100003)), (F.FFTSpec(100003, kind="ifft"), (2, 100003)),
+    (F.FFTSpec(4999, kind="rfft"), (3, 4999)), (F.FFTSpec(6000, kind="rfft"), (3, 6000)),
+    (F.FFTSpec(500, kind="fft2", n2=1 << 17), (1, 1 << 17, 500)),
+    (F.FFTSpec(3000, axis=-2), (3000, 5)),
+])
+def test_planned_any_length(dev, spec, shape):
+    """Every kind at a non-power-of-two length: exactly len(passes)
+    launches, the result against np.fft, the inverse back to the input."""
+    rng = np.random.default_rng(sum(shape))
+    if spec.kind == "rfft":
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        ref = np.fft.rfft(x.cpu().double().numpy())
+        back = F.plan(F.FFTSpec(spec.n, kind="irfft"))
+    else:
+        x = torch.complex(*_planes(dev, *shape))
+        x128 = x.cpu().numpy().astype(np.complex128)
+        np_fn = {"fft": np.fft.fft, "ifft": np.fft.ifft}.get(spec.kind, np.fft.fft2)
+        ref = np_fn(x128, axis=spec.axis) if spec.kind in ("fft", "ifft") else np_fn(x128)
+        inverse = {"fft": "ifft", "ifft": "fft", "fft2": "ifft2"}[spec.kind]
+        back = F.plan(F.FFTSpec(spec.n, kind=inverse, axis=spec.axis, n2=spec.n2))
+    planned = F.plan(spec)
+    y, launched, plain = _launched(lambda: planned(x))
+    assert (launched, plain) == (len(planned.passes), 0)
+    assert any(k.startswith("bluestein") for k in planned.kernels)
+    got = torch.complex(*y) if isinstance(y, tuple) else y
+    assert _rel(got.cpu().numpy().astype(np.complex128), ref) <= 1e-3
+    z, launched, plain = _launched(lambda: back(y))
+    assert (launched, plain) == (len(back.passes), 0)
+    assert (z - x).abs().max().item() <= 1e-3 * x.abs().max().item()
+
+
+def test_register_guard(dev):
+    """The fused column kernels stay within their 128-register bound and no
+    function uses more local memory than the recorded build gave it."""
+    assert build.attribute_faults(build.kernel_attributes()) == []

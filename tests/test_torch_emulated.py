@@ -14,8 +14,10 @@ The shim supports what the sources use now and nothing more: ``__global__``,
 ``__device__``, ``__host__``, ``__forceinline__``, ``__launch_bounds__``,
 static ``__shared__`` arrays, one ``extern __shared__ float2 smem[]``,
 ``__syncthreads``, ``float2``/``make_float2``, ``threadIdx``/``blockIdx``
-on a 1-D grid, ``<<<grid, block, smem, stream>>>`` launches,
-``cudaFuncSetAttribute`` for dynamic shared memory and ``cudaGetLastError``.
+on a 1-D grid, ``<<<grid, block, smem, stream>>>`` launches (of templated
+kernels too), ``cudaFuncSetAttribute`` for dynamic shared memory,
+``cudaGetLastError`` and ``cudaFuncGetAttributes`` (which reports zero
+registers and local bytes: a host build has neither).
 Warp shuffles and votes, atomics, ``cp.async``/TMA, ``wgmma``/``mma``
 intrinsics, thread-block clusters and inline PTX are not in it.  When a
 kernel moves past that list, its cases here are retired in favour of its
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.core import faults, limits
 from repro_torch.core import plan as plan_lib
-from repro_torch.kernels import build, dft_matmul, fft4step, ops, pencil
+from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 TOL = 1e-5  # emulated kernel vs plain: fp32 sums in another order
@@ -52,7 +54,8 @@ def emu_lib(tmp_path_factory):
     for src in list(build.csrc_dir().glob("*.cu")) + list(build.csrc_dir().glob("*.cuh")):
         text = src.read_text()
         text = text.replace("extern __shared__ float2 smem[];", "float2* smem = emu_dyn_smem;")
-        text = re.sub(r"(\w+)<<<(.+?)>>>\(", r"emu_launch(\1, \2, ", text)
+        # A kernel name may carry template arguments (cols_fused_kernel<true>).
+        text = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.+?)>>>\(", r"emu_launch(\1, \2, ", text)
         (out / src.name).write_text(text)
     cus = sorted(out.glob("*.cu"))
     objs = [out / (c.stem + ".o") for c in cus]
@@ -232,6 +235,86 @@ def test_recomb_source(emulated, b, m):
            pencil.irfft_recomb_plain(*x, *inv))
 
 
+@BUDGETS
+@pytest.mark.parametrize("r,f,s,kind,tw_every", [
+    (1, 256, 24, "direct", 12), (2, 100, 30, "direct", 5),
+    (1, 2048, 24, "fused4", 12), (1, 2048, 20, "fused4", 10), (1, 4096, 9, "fused4", 3),
+])
+def test_cols_pass_tw_every_any_width_source(budget, r, f, s, kind, tw_every):
+    """A width-broadcast twiddle whose run of columns is no power of two
+    (the strided factor of fft2 at a non-power-of-two row length): the
+    direct form divides per element, the four-step form once per tile,
+    with a chunk that divides tw_every."""
+    x = _planes(f, r, f, s)
+    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+    luts = _planes(3, f, f) if kind == "direct" else _fused(f)
+    tw = _planes(4, f, s // tw_every)
+    _close(pencil._launch_cols(*x, luts, tw, kind, n1, n2, tw_every),
+           pencil.cols_pass_plain(*x, luts, tw, kind=kind, n1=n1, n2=n2, tw_every=tw_every))
+
+
+def _bluestein_args(n, inverse):
+    """(inner kind, in1, in2, fwd luts, inv luts) of the fused stages at n."""
+    fwd, inv = plan_lib.plan_fft(n).passes
+    inner = plan_lib._leaf_pass(fwd.n1)
+    return (inner.kind, inner.n1, inner.n2, ops._bluestein_luts("cpu", fwd, inverse),
+            ops._bluestein_luts("cpu", inv, inverse))
+
+
+@BUDGETS
+@pytest.mark.parametrize("b,n,inverse", [(3, 97, False), (70, 97, True), (2, 1000, False),
+                                         (3, 1000, True), (1, 2029, False)])
+def test_bluestein_fused_source(budget, b, n, inverse):
+    """The fused stages, direct inner (n = 97, M = 256) and four-step inner
+    (n = 1000, M = 2048, signals chunked in pairs; n = 2029, M = 4096)."""
+    kind, in1, in2, fwd_luts, inv_luts = _bluestein_args(n, inverse)
+    m = plan_lib.bluestein_pad(n)
+    kw = dict(n=n, m_pad=m, inner_kind=kind, in1=in1, in2=in2)
+    x = _planes(n, b, n)
+    _close(bluestein._launch_fwd(*x, fwd_luts, n, m, kind, in1, in2),
+           bluestein.bluestein_fwd_plain(*x, fwd_luts, **kw))
+    y = _planes(m, b, m)
+    _close(bluestein._launch_inv(*y, inv_luts, n, m, kind, in1, in2),
+           bluestein.bluestein_inv_plain(*y, inv_luts, **kw))
+
+
+@pytest.mark.parametrize("b,n,m", [(3, 300, 1024), (2, 97, 256)])
+@pytest.mark.parametrize("stage", bluestein.STAGES)
+def test_bluestein_elem_source(emulated, b, n, m, stage):
+    w_in, w_out, w_lut = bluestein._elem_widths(stage, n, m)
+    x = _planes(w_in, b, w_in)
+    lut = _planes(w_lut, w_lut)
+    _close(bluestein._launch_elem(*x, lut, w_in, w_out),
+           bluestein.bluestein_elem_plain(*x, lut, stage=stage, n=n, m_pad=m))
+
+
+def test_kernel_attribute_entries(emulated):
+    """The register guard's C entries: every source with kernels answers
+    for each of them (the host build reports zero registers), and the
+    recorded table has a row for each function, no more."""
+    attrs = build.kernel_attributes()
+    assert set(attrs) == set(build.RECORDED_ATTRS)
+    for name, row in attrs.items():
+        assert row["source"].endswith(".cu") and row["registers"] == 0 and row["local_bytes"] == 0
+    assert build.attribute_faults(attrs) == []
+
+
+@pytest.mark.parametrize("name,registers,local,faults", [
+    ("rows_fused_kernel", 80, 8, 0),
+    ("rows_fused_kernel", 80, 16, 1),
+    ("cols_fused_kernel<DIV>", 128, 0, 0),
+    ("cols_fused_kernel<DIV>", 129, 120, 2),
+    ("rows_direct_kernel", 200, 0, 0),
+    ("unrecorded_kernel", 32, 4, 1),
+])
+def test_attribute_faults_rule(name, registers, local, faults):
+    """The guard's rule: local bytes up to the recorded row (none for a
+    function without one), registers bounded for the fused column kernels
+    only."""
+    row = {"source": "x.cu", "registers": registers, "local_bytes": local}
+    assert len(build.attribute_faults({name: row})) == faults
+
+
 def test_every_launch_enters_the_tensor_device(emulated):
     """Each ``_launch*`` runs under its tensor's device, so the ctypes
     launchers (which act on the runtime's current device) hit that card."""
@@ -246,8 +329,13 @@ def test_every_launch_enters_the_tensor_device(emulated):
         (pencil._launch_recomb, (*x, *ops.recomb_luts("cpu", 32, False), "rfft_recomb", 16, 17)),
         (pencil._launch_recomb, (*_planes(6, 2, 17), *ops.recomb_luts("cpu", 32, True),
                                  "irfft_recomb", 16, 16)),
+        (bluestein._launch_fwd, (*_planes(7, 2, 5), _bluestein_args(5, False)[3],
+                                 5, 16, "direct", 0, 0)),
+        (bluestein._launch_inv, (*_planes(8, 2, 16), _bluestein_args(5, False)[4],
+                                 5, 16, "direct", 0, 0)),
+        (bluestein._launch_elem, (*_planes(9, 2, 5), _planes(10, 5), 5, 16)),
     ]
-    launchers = {getattr(mod, name) for mod in (dft_matmul, fft4step, pencil)
+    launchers = {getattr(mod, name) for mod in (dft_matmul, fft4step, pencil, bluestein)
                  for name in vars(mod) if name.startswith("_launch")}
     assert launchers == {fn for fn, _ in calls}
     for fn, args in calls:

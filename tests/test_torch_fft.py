@@ -79,14 +79,15 @@ def test_plans_are_interned_and_describe_their_kernels():
 @pytest.mark.parametrize(
     "spec,item",
     [
-        (F.FFTSpec(15, kind="rfft"), "A6"),
-        (F.FFTSpec(15, kind="irfft"), "A6"),
-        (F.FFTSpec(12, kind="fft2", n2=8), "A6"),
+        # Non-power-of-two lengths whose Bluestein pad passes 2^32.
+        (F.FFTSpec((1 << 32) + 1, kind="rfft"), "A3"),
+        (F.FFTSpec((1 << 32) + 1, kind="irfft"), "A3"),
+        (F.FFTSpec((1 << 31) + 1, kind="fft2", n2=8), "A3"),
         (F.FFTSpec(16, kind="irfft2", n2=1 << 33), "A3"),
         (F.FFTSpec(1 << 34, kind="rfft"), "A3"),
-        (F.FFTSpec(1000), "A6"),
+        (F.FFTSpec((1 << 31) + 1), "A3"),
         (F.FFTSpec(1 << 33), "A3"),
-        (F.FFTSpec(1000, axis=-2), "A6"),
+        (F.FFTSpec((1 << 31) + 1, axis=-2), "A3"),
     ],
 )
 def test_unported_specs_raise(spec, item):
