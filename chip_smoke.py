@@ -10,7 +10,9 @@ package), in phases, and fails on the first check that does not hold:
 2. kernels — each of the ten CUDA kernels at the shapes the main paths
    give it, against its plain PyTorch version on the same inputs
    (max|Δ| ≤ 1e-4·max|plain|), with its time, the plain version's, its bound
-   (the larger of bytes over HBM bandwidth and flops over the FP32 peak),
+   (the larger of the bytes the function must move over HBM bandwidth and
+   the flops it needs over the FP32 peak: 5·f·log2 f per length-f FFT and 6
+   per twiddle or phasor multiply, whatever form the kernel computes it in),
    where one library call computes the same function that call's time, and
    the registers and local (spill) bytes per thread of each of its
    ``__global__`` functions (``cudaFuncGetAttributes``), held to the column
@@ -99,7 +101,8 @@ SOURCES = {
 #: The ``__global__`` functions each kernel launches.
 FUNCTIONS = {
     "dft_matmul": ("dft_matmul_kernel",),
-    "fft4step": ("fft4step_kernel",),
+    "fft4step": ("fft4step_kernel<256, 16>", "fft4step_kernel<512, 16>", "fft4step_kernel<1024, 16>",
+                 "fft4step_slab_kernel"),
     "cols_pass": ("cols_direct_kernel", "cols_direct_kernel<TwDiv>", "cols_fused_kernel",
                   "cols_fused_kernel<DIV>"),
     "rows_natural": ("rows_direct_kernel", "rows_fused_kernel"),
@@ -169,18 +172,22 @@ def planes(gen, *shape):
     )
 
 
-def transform_flops(kind: str, f: int, n1: int, n2: int) -> int:
-    """fp32 flops that one length-f transform needs: 6 per complex
-    multiply-add of the DFT products (three real GEMMs, the Karatsuba form of
-    the reference and of the plain versions) plus 4 per point of their pre-
-    and post-adds, and 6 per complex twiddle multiply.  The CUDA tiles spend
-    8 per multiply-add (4 FMAs); that is their design, not the work."""
-    if kind == "direct":
-        return 6 * f * f + 4 * f
-    return 6 * f * (n1 + n2) + 4 * f + 6 * f + 4 * f
+def fft_flops(f: int) -> float:
+    """fp32 flops one length-f FFT needs: 5·f·log2 f.  The same count for
+    every kernel, whatever form it computes the transform in (a radix FFT, or
+    the DFT-matrix GEMMs of the pencil and Bluestein tiles, which spend more),
+    so a bound is the function's and not the algorithm's."""
+    return 5 * f * math.log2(f) if f > 1 else 0.0
+
+
+def roots_bytes(n: int) -> int:
+    """The radix kernels' one LUT: the n roots of unity, two fp32 planes."""
+    return 8 * n
 
 
 def lut_bytes(kind: str, f: int, n1: int, n2: int) -> int:
+    """The DFT-matrix LUTs a pencil or Bluestein tile reads (an input of the
+    kernel as it is called, read once)."""
     if kind == "direct":
         return 8 * f * f
     return 8 * (n1 * n1 + n1 * n2 + n2 * n2)
@@ -230,7 +237,7 @@ def pencil_pair(gen, dev, n: int, b: int) -> tuple:
         lambda: pencil.cols_pass_call(*xv, luts, tw, **kw),
         lambda: pencil.cols_pass_plain(*xv, luts, tw, **kw),
         nbytes=16 * b * n + 8 * f * s + lut_bytes(cols.kind, f, cols.n1, cols.n2),
-        flops=b * s * transform_flops(cols.kind, f, cols.n1, cols.n2) + 6 * b * n,
+        flops=b * s * fft_flops(f) + 6 * b * n,
     )
     # Row pass: (B, p, f) → (B, f, p) transposed write.
     p_, _, f = rows_p.view_in
@@ -242,7 +249,7 @@ def pencil_pair(gen, dev, n: int, b: int) -> tuple:
         lambda: pencil.rows_natural_call(*xv, luts, **kw),
         lambda: pencil.rows_natural_plain(*xv, luts, **kw),
         nbytes=16 * b * n + lut_bytes(rows_p.kind, f, rows_p.n1, rows_p.n2),
-        flops=b * p_ * transform_flops(rows_p.kind, f, rows_p.n1, rows_p.n2),
+        flops=b * p_ * fft_flops(f),
     )
     del x, xv
     torch.cuda.empty_cache()
@@ -254,38 +261,50 @@ def kernel_phase(gen) -> dict:
     dev = ops.device_key("cuda")
     rows = {}
 
-    # 1. dft_matmul: the n = 1024 direct leaf.
+    # 1. dft_matmul: the n = 1024 direct leaf, forward and inverse.
     n, b = 1024, 16384
     x = planes(gen, b, n)
-    w = ops._direct_luts(dev, n, False)
     xc = torch.complex(*x)
-    rows["dft_matmul"] = measure_kernel(
-        "dft_matmul", f"B={b} N={n}",
-        lambda: dft_matmul.dft_matmul_call(*x, *w),
-        lambda: dft_matmul.dft_matmul_plain(*x, *w),
-        nbytes=16 * b * n + 8 * n * n, flops=b * transform_flops("direct", n, 0, 0),
-        library=lambda: torch.fft.fft(xc),
-    )
+    for inverse in (False, True):
+        w = ops._roots_luts(dev, n, inverse)
+        row = measure_kernel(
+            "dft_matmul", f"B={b} N={n}" + (" inverse" if inverse else ""),
+            lambda: dft_matmul.dft_matmul_call(*x, *w, inverse=inverse),
+            lambda: dft_matmul.dft_matmul_plain(*x, *w, inverse=inverse),
+            nbytes=16 * b * n + roots_bytes(n), flops=b * fft_flops(n),
+            library=lambda: (torch.fft.ifft if inverse else torch.fft.fft)(xc),
+        )
+        rows.setdefault("dft_matmul", row)
     del x, xc
 
-    # 2. fft4step: the fused leaves, natural and k1-major order.
-    for n, b in ((4096, 4096), (16384, 4096), (65536, 1024)):
+    # 2. fft4step: the whole-signal leaves, natural and k1-major order, the
+    # inverse through the slab, and the lengths phase 5 gives them (the
+    # 8192-point child of rfft 16384, the 2048-point rows of fft2
+    # (131072, 2048)).
+    for n, b, orders in ((4096, 4096, (True, False)), (16384, 4096, (True, False)),
+                         (65536, 1024, (True, False, "inverse")), (8192, 8192, (True,)),
+                         (2048, 131072, (True,))):
         x = planes(gen, b, n)
-        luts = ops._fused_luts(dev, *plan_lib.balanced_split(n), False)
-        n1, n2 = luts[0].shape[0], luts[4].shape[0]
+        n1, n2 = plan_lib.balanced_split(n)
         xc = torch.complex(*x)
-        for natural in (True, False):
+        for order in orders:
+            inverse = order == "inverse"
+            natural = order is not False
+            w = ops._roots_luts(dev, n, inverse)
+            kw = dict(n1=n1, inverse=inverse, natural_order=natural)
+            label = "inverse" if inverse else "natural" if natural else "k1-major"
+            lib = (torch.fft.ifft if inverse else torch.fft.fft) if natural else None
             row = measure_kernel(
-                "fft4step", f"B={b} n={n} ({n1}x{n2}) {'natural' if natural else 'k1-major'}",
-                lambda: fft4step.fft4step_call(*x, *luts, natural_order=natural),
-                lambda: fft4step.fft4step_plain(*x, *luts, natural_order=natural),
-                nbytes=16 * b * n + lut_bytes("fused4", n, n1, n2),
-                flops=b * transform_flops("fused4", n, n1, n2),
-                library=(lambda: torch.fft.fft(xc)) if natural else None,
+                "fft4step", f"B={b} n={n} ({n1}x{n2}) {label}",
+                lambda: fft4step.fft4step_call(*x, *w, **kw),
+                lambda: fft4step.fft4step_plain(*x, *w, **kw),
+                nbytes=16 * b * n + roots_bytes(n), flops=b * fft_flops(n),
+                library=(lambda: lib(xc)) if lib is not None else None,
             )
             if n == 16384 and natural:
                 rows["fft4step"] = row
         del x, xc
+    torch.cuda.empty_cache()
 
     # 3./4. the pencil passes of each two-pass main-path program, and of
     # the pad length 2^18 that phase 6's split regime runs for n = 100003.
@@ -323,7 +342,7 @@ def strip_mined_columns(gen, dev, n: int, n2: int) -> dict:
         lambda: pencil.cols_pass_call(*x, luts, tw, **kw),
         lambda: pencil.cols_pass_plain(*x, luts, tw, **kw),
         nbytes=16 * n * n2 + 8 * f * stride + lut_bytes(strided.kind, f, 0, 0),
-        flops=stride * n * transform_flops(strided.kind, f, 0, 0) + 6 * n * n2,
+        flops=stride * n * fft_flops(f) + 6 * n * n2,
     )
     del x
     pencils, _, f = last.view_in
@@ -335,7 +354,7 @@ def strip_mined_columns(gen, dev, n: int, n2: int) -> dict:
         lambda: pencil.cols_natural_call(*x, luts, **kw),
         lambda: pencil.cols_natural_plain(*x, luts, **kw),
         nbytes=16 * n * n2 + lut_bytes(last.kind, f, 0, 0),
-        flops=pencils * n * transform_flops(last.kind, f, 0, 0),
+        flops=pencils * n * fft_flops(f),
     )
     del x
     torch.cuda.empty_cache()
@@ -386,7 +405,7 @@ def real2d_kernels(gen, dev) -> dict:
         lambda: pencil.cols_natural_call(*x, luts, **kw),
         lambda: pencil.cols_natural_plain(*x, luts, **kw),
         nbytes=16 * pp * f * w + lut_bytes("fused4", f, n1, n2_),
-        flops=pp * w * transform_flops("fused4", f, n1, n2_),
+        flops=pp * w * fft_flops(f),
     )
     del x
 
@@ -407,7 +426,7 @@ def real2d_kernels(gen, dev) -> dict:
             lambda: pencil.cols_pass_call(*x, luts, **kw),
             lambda: pencil.cols_pass_plain(*x, luts, **kw),
             nbytes=16 * r * f * s_ + lut_bytes("fused4", f, n1, n2_),
-            flops=r * s_ * transform_flops("fused4", f, n1, n2_),
+            flops=r * s_ * fft_flops(f),
             library=lambda: torch.fft.fft(xc, dim=-2),
         )
         del x, xc
@@ -415,30 +434,13 @@ def real2d_kernels(gen, dev) -> dict:
     return rows
 
 
-def gemm_flops(k: int, outputs: int) -> int:
-    """fp32 flops of a complex GEMM stage with depth k and ``outputs``
-    output points, counted as ``transform_flops`` counts a DFT stage: 6 per
-    complex multiply-add and 4 per output point of pre- and post-adds."""
-    return 6 * k * outputs + 4 * outputs
-
-
-def bluestein_flops(stage: str, n: int, m: int) -> int:
-    """fp32 flops one signal's fused Bluestein stage needs: the M-point
-    transform counted as ``transform_flops`` counts it, over the rows the
-    data fills (the pad rows are zero and are not counted; the kernels skip
-    them), plus 6 per phasor multiply (chirp and B̂, or the post-chirp)."""
-    inner = plan_lib._leaf_pass(m)
+def bluestein_flops(stage: str, n: int, m: int) -> float:
+    """fp32 flops one signal's fused Bluestein stage needs: the M-point FFT
+    (5·M·log2 M) and 6 per phasor multiply, the chirp and B̂ (forward) or
+    the post-chirp (inverse)."""
     if stage == "fwd":
-        if inner.kind == "direct":
-            work = gemm_flops(n, m)  # x (n) · W[:n, :] (n × M)
-        else:  # GEMM 1 over ceil(n / n2) rows j1, twiddle, GEMM 2
-            work = gemm_flops(-(-n // inner.n2), m) + 6 * m + gemm_flops(inner.n2, m)
-        return work + 6 * n + 6 * m
-    if inner.kind == "direct":
-        work = gemm_flops(m, n)  # x (M) · W_inv[:, :n] (M × n)
-    else:  # GEMM 1 whole, twiddle, GEMM 2 over bins k2 < ceil(n / n1)
-        work = gemm_flops(inner.n1, m) + 6 * m + gemm_flops(inner.n2, inner.n1 * -(-n // inner.n1))
-    return work + 6 * n
+        return 6 * n + fft_flops(m) + 6 * m
+    return fft_flops(m) + 6 * n
 
 
 #: Phase 2's shapes of the fused Bluestein stages: (batch, n), every one

@@ -546,7 +546,8 @@ def _plan_cached(spec: FFTSpec, device: str) -> PlannedFFT:
     kind = spec.kind
     if kind in _COMPLEX_KINDS:
         fft_plan = plan_lib.plan_fft(spec.n)
-        return PlannedFFT(spec, entry, fft_plan, dev, ops.plan_luts(fft_plan, kind == "ifft", dev))
+        luts = ops.plan_luts(fft_plan, kind == "ifft", dev, spec.axis)
+        return PlannedFFT(spec, entry, fft_plan, dev, luts)
     if kind in ("fft2", "ifft2"):
         # ONE joint program: rows, then the columns in place (strip-mined
         # beyond the fused regime); every n2 <= 2^32 compiles jointly.

@@ -6,6 +6,9 @@ whatever device the tensors live on:
 
 * :func:`cmul` — elementwise complex multiply;
 * :func:`cmatmul` — the 3-GEMM Karatsuba complex product;
+* :func:`stockham_fft` — the radix-2 Stockham autosort FFT, the body of the
+  radix kernels' plain versions (``kernels/dft_matmul.py``,
+  ``kernels/fft4step.py``), its stage twiddles read from their roots table;
 * :func:`direct_dft` — the whole-transform DFT matmul (N ≤ DIRECT_MAX);
 * :func:`four_step_fft` — Bailey's four-step with the planner's
   factorisation policy, recursing through split levels;
@@ -14,9 +17,10 @@ whatever device the tensors live on:
 * :func:`rfft_recomb` / :func:`irfft_recomb` — the Hermitian even/odd
   recombination of the real-FFT packing (flip and roll, no gather).
 
-It shares no code with the kernels' plain versions (``kernels/*.py``) beyond
-:func:`cmul` and the LUT tables, which makes it their independent oracle in
-the tests.
+Apart from :func:`stockham_fft`, it shares no code with the kernels' plain
+versions (``kernels/*.py``) beyond :func:`cmul` and the LUT tables, which
+makes :func:`four_step_fft` and :func:`direct_dft` their independent oracle
+in the tests.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from repro_torch.core import twiddle as tw
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
 __all__ = [
-    "cmul", "cmatmul", "direct_dft", "four_step_fft", "bluestein_fft", "rfft_recomb", "irfft_recomb",
+    "cmul", "cmatmul", "stockham_fft", "direct_dft", "four_step_fft", "bluestein_fft",
+    "rfft_recomb", "irfft_recomb",
 ]
 
 
@@ -83,6 +88,50 @@ def cmatmul(ar, ai, br, bi) -> Planes:
     k2 = torch.matmul(ar, bi - br)
     k3 = torch.matmul(ai, br + bi)
     return k1 - k3, k1 + k2
+
+
+def stockham_fft(xr, xi, *, inverse: bool = False, roots=None) -> Planes:
+    """Radix-2 Stockham autosort FFT over the last axis (split planes): the
+    reference's ``fft_xla.stockham_fft``.
+
+    ``roots`` — optional (real, imag) planes of the n n-th roots of the
+    transform's direction (:func:`~repro_torch.core.twiddle.roots`, the
+    radix kernels' table): stage l's twiddles ω_{2l}^j are its entries at
+    stride n/(2l).  Without it each stage takes the reference's own table
+    (:func:`~repro_torch.core.twiddle.stage_twiddle`).  ``inverse`` applies
+    the 1/n scale (and picks the direction of the default tables).
+    """
+    n = xr.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"length must be a power of two, got {n}")
+    if n == 1:
+        return xr, xi
+    batch = xr.shape[:-1]
+    l, m = n // 2, 1
+    while l >= 1:
+        # View as (..., 2l, m): rows j and j+l form a butterfly pair.
+        vr = xr.reshape(*batch, 2 * l, m)
+        vi = xi.reshape(*batch, 2 * l, m)
+        x0r, x1r = vr[..., :l, :], vr[..., l:, :]
+        x0i, x1i = vi[..., :l, :], vi[..., l:, :]
+        if roots is None:
+            wr, wi = _table(tw.stage_twiddle(l, inverse), xr)
+        else:
+            step = n // (2 * l)
+            wr, wi = roots[0][::step][:l], roots[1][::step][:l]
+        wr, wi = wr[:, None], wi[:, None]
+        s0r, s0i = x0r + x1r, x0i + x1i
+        dr, di = x0r - x1r, x0i - x1i
+        s1r, s1i = cmul(dr, di, wr, wi)
+        # y[(2j+p)·m + k] ≡ (l, 2, m) row-major — Stockham auto-sorts.
+        xr = torch.stack([s0r, s1r], dim=-2).reshape(*batch, n)
+        xi = torch.stack([s0i, s1i], dim=-2).reshape(*batch, n)
+        l //= 2
+        m *= 2
+    if inverse:
+        inv = np.float32(1.0 / n)
+        xr, xi = xr * inv, xi * inv
+    return xr, xi
 
 
 def _table(planes, like: torch.Tensor) -> Planes:

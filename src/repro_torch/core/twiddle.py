@@ -3,8 +3,10 @@
 Port of ``repro/core/twiddle.py``, numpy only.  Every table is computed once
 on the host in float64, rounded to float32 split planes and cached per size;
 ``kernels/ops.py`` uploads each once per device and keeps it resident there,
-where the kernels read it through L2 (the texture-cache analogue).  The
-values are bit-equal to the reference's tables.
+where the kernels read it through L2 (the texture-cache analogue; the radix
+kernels' :func:`roots` table through the read-only path).  The values are
+bit-equal to the reference's tables (:func:`roots`, which the reference
+does not have, to row 1 of its DFT matrix).
 
 The reference's on-device generators (``traced_twiddle``, ``mulfrac_pow2``)
 are not ported yet: no pass of the 1-D complex slice uses them.
@@ -21,6 +23,7 @@ __all__ = [
     "twiddle_grid",
     "pass_twiddle",
     "stage_twiddle",
+    "roots",
     "rfft_recomb_twiddle",
     "bluestein_chirp",
     "bluestein_postchirp",
@@ -91,6 +94,27 @@ def pass_twiddle(
 def stage_twiddle(l: int, inverse: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Stockham stage twiddle w[j] = exp(∓πi·j/l), j ∈ [0, l) — radix-2."""
     ang = (np.pi / l) * np.arange(l, dtype=np.float64)
+    sign = 1.0 if inverse else -1.0
+    return (
+        np.cos(ang).astype(np.float32),
+        (sign * np.sin(ang)).astype(np.float32),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def roots(n: int, inverse: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """The n n-th roots of unity ω^k = exp(∓2πi·k/n), k ∈ [0, n), in float64
+    rounded to float32 planes (conjugated for the inverse).
+
+    The one table of the radix kernels (``csrc/radix.cuh``): every Stockham
+    stage twiddle of a length-L transform with L | n is ω^{k·n/L}, the
+    four-step inner roots are ω^{n2} and ω^{n1}, and the inter-factor
+    twiddle T[k1, j2] is ω^{(k1·j2) mod n}.  8n bytes, where the DFT
+    matrices it replaces hold 8n² (direct) or 8(n1² + n1·n2 + n2²).
+    """
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"roots table length must be a power of two, got {n}")
+    ang = (2.0 * np.pi / n) * np.arange(n, dtype=np.float64)
     sign = 1.0 if inverse else -1.0
     return (
         np.cos(ang).astype(np.float32),

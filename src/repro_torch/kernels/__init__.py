@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels (sm_90a) for the FFT pass program.
 
-dft_matmul  direct DFT complex GEMM (N <= 1024, one pass)
-fft4step    fused four-step (2048 <= N <= 65536, one pass)
+dft_matmul  whole-signal radix FFT in shared memory (N <= 1024, one pass)
+fft4step    whole-signal radix FFT in shared memory (2048 <= N <= 16384),
+            four-step of two radix phases through a scratch slab beyond
+            (to 65536; one pass)
 pencil      strided-column pass and transposed-write row pass (split regime),
             the 2-D column passes and the real-FFT recombination
 bluestein   the chirp-convolution stages of any-length transforms

@@ -283,8 +283,11 @@ def kernel_attributes() -> dict:
 #: the sm_90a build recorded in PERF.md compiled it: the register guard's
 #: one table, read by ``chip_smoke.py`` and the card tests.
 RECORDED_ATTRS = {
-    "dft_matmul_kernel": (127, 0),
-    "fft4step_kernel": (80, 0),
+    "dft_matmul_kernel": (64, 0),
+    "fft4step_kernel<256, 16>": (64, 0),
+    "fft4step_kernel<512, 16>": (64, 0),
+    "fft4step_kernel<1024, 16>": (64, 0),
+    "fft4step_slab_kernel": (64, 0),
     "cols_direct_kernel": (94, 0),
     "cols_direct_kernel<TwDiv>": (94, 0),
     "cols_fused_kernel": (127, 0),

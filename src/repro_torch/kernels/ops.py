@@ -30,12 +30,17 @@ each kernel wrapper takes its plain version, so a CPU run walks the same
 program one plain call per pass.
 
 LUTs are device-resident: the float64 host tables of ``core/twiddle.py``
-are uploaded once per (device, sizes, direction) and kept, with the inverse
-transform's 1/f folded into each pass's transform LUT exactly as the
-reference folds it (W for the direct leaf, W2 for the four-step leaf), so
-the factors of a program multiply to 1/n.  A Bluestein pass carries the
-chirp tables of the outer direction and the inner transform's LUTs of its
-own (forward, then inverse with 1/M folded in).
+are uploaded once per (device, sizes, direction) and kept.  A whole-signal
+row pass (``dft_matmul``, ``fft4step``: every one-pass plan and the row
+half of a 2-D program) reads one table of n-th roots
+(:func:`_roots_luts`, 8n bytes), and its kernel applies the inverse's 1/n at
+the store: these two radix kernels differ from the rule of the others.
+Every other pass reads DFT-matrix LUTs with the inverse transform's 1/f
+folded into each pass's transform LUT exactly as the reference folds it (W
+for the direct tile, W2 for the four-step tile), so the factors of a
+program multiply to 1/n.  A Bluestein pass carries the chirp tables of the
+outer direction and the inner transform's LUTs of its own (forward, then
+inverse with 1/M folded in).
 """
 
 from __future__ import annotations
@@ -75,6 +80,12 @@ def device_key(device) -> str:
 
 def _upload(planes, device: str) -> tuple:
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in planes)
+
+
+@functools.lru_cache(maxsize=64)
+def _roots_luts(device: str, n: int, inverse: bool) -> tuple:
+    """The (n,) roots table of a whole-signal row pass (no 1/n folded)."""
+    return _upload(tw.roots(n, inverse), device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -195,17 +206,21 @@ def plan_kernels(fft_plan: plan_lib.FFTPlan, axis: int = -1) -> tuple:
     return tuple(pass_kernel(p) for p in fft_plan.passes)
 
 
-def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device) -> tuple:
-    """Upload (or find) every LUT the plan's passes read on ``device``."""
+def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1) -> tuple:
+    """Upload (or find) every LUT the plan's passes read on ``device`` when
+    it runs over ``axis``: the roots table for a whole-signal row pass, the
+    DFT-matrix LUTs for the pencil and column passes."""
     dev = device_key(device)
     luts = []
-    for p in fft_plan.passes:
-        _check_supported(p)
+    for p, kernel in zip(fft_plan.passes, plan_kernels(fft_plan, axis)):
         eff = _pass_inverse(p, inverse)
         if p.kind == "bluestein":
             luts.extend(_bluestein_luts(dev, p, eff))
             continue
-        luts.extend(_transform_luts(dev, p, eff))
+        if kernel in ("dft_matmul", "fft4step"):
+            luts.extend(_roots_luts(dev, p.n, eff))
+        else:
+            luts.extend(_transform_luts(dev, p, eff))
         if p.twiddle_after is not None:
             luts.extend(_pass_twiddle_luts(dev, *p.twiddle_after, eff))
     return tuple(luts)
@@ -234,11 +249,14 @@ def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     dev = device_key(xr.device)
     b, n = xr.shape
     pencils, stride, f = p.view_in
-    luts = _transform_luts(dev, p, inverse)
     if kernel == "dft_matmul":
-        return dft_matmul.dft_matmul_call(xr, xi, *luts)
+        return dft_matmul.dft_matmul_call(xr, xi, *_roots_luts(dev, n, inverse), inverse=inverse)
     if kernel == "fft4step":
-        return fft4step.fft4step_call(xr, xi, *luts, natural_order=p.order == "natural")
+        return fft4step.fft4step_call(
+            xr, xi, *_roots_luts(dev, n, inverse), n1=p.n1, inverse=inverse,
+            natural_order=p.order == "natural",
+        )
+    luts = _transform_luts(dev, p, inverse)
     if kernel == "rows_natural":
         # (b, p, f) → (b, f, p) flattens to natural order.
         yr, yi = pencil.rows_natural_call(

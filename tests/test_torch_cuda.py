@@ -41,25 +41,40 @@ def _close(got, want):
     assert err <= TOL * scale, (err, scale)
 
 
-@pytest.mark.parametrize("b,n", [(3, 2), (5, 16), (70, 100), (33, 1024)])
+@pytest.mark.parametrize("b,n", [(3, 2), (5, 16), (70, 64), (33, 1024)])
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_dft_matmul_kernel(dev, b, n, epilogue):
     x = _planes(dev, b, n)
-    w = _planes(dev, n, n, seed=1)
+    inverse = epilogue  # each direction once per shape
+    w = ops._roots_luts(dev, n, inverse)
     e = _planes(dev, n, seed=2) if epilogue else None
-    _close(dft_matmul.dft_matmul_call(*x, *w, twiddle=e), dft_matmul.dft_matmul_plain(*x, *w, twiddle=e))
+    _close(dft_matmul.dft_matmul_call(*x, *w, inverse=inverse, twiddle=e),
+           dft_matmul.dft_matmul_plain(*x, *w, inverse=inverse, twiddle=e))
 
 
 @pytest.mark.parametrize("b,n", [(3, 2048), (2, 8192), (2, 32768), (1, 65536)])
 @pytest.mark.parametrize("natural", [True, False])
 def test_fft4step_kernel(dev, b, n, natural):
     x = _planes(dev, b, n)
-    luts = ops._fused_luts(dev, *plan_lib.balanced_split(n), False)
+    w = ops._roots_luts(dev, n, not natural)
+    kw = dict(n1=plan_lib.balanced_split(n)[0], inverse=not natural, natural_order=natural)
     e = _planes(dev, n, seed=3)
     _close(
-        fft4step.fft4step_call(*x, *luts, natural_order=natural, twiddle_after=e),
-        fft4step.fft4step_plain(*x, *luts, natural_order=natural, twiddle_after=e),
+        fft4step.fft4step_call(*x, *w, twiddle_after=e, **kw),
+        fft4step.fft4step_plain(*x, *w, twiddle_after=e, **kw),
     )
+
+
+@pytest.mark.parametrize("b,n,natural,inverse", [
+    (2, 16384, True, False), (3, 16384, False, True), (4, 4096, False, False), (1, 8192, True, True),
+])
+def test_fft4step_tile_kernel(dev, b, n, natural, inverse):
+    """Each whole-signal tile (4096, 8192 and 16384 points) in both orders
+    and directions."""
+    x = _planes(dev, b, n, seed=4)
+    w = ops._roots_luts(dev, n, inverse)
+    kw = dict(n1=plan_lib.balanced_split(n)[0], inverse=inverse, natural_order=natural)
+    _close(fft4step.fft4step_call(*x, *w, **kw), fft4step.fft4step_plain(*x, *w, **kw))
 
 
 @pytest.mark.parametrize("n", [1 << 17, 1 << 20, 1 << 22, 1 << 24])

@@ -129,13 +129,22 @@ def _fused(f):
     return ops._fused_luts("cpu", *plan_lib.balanced_split(f), False)
 
 
-@pytest.mark.parametrize("b,n,epilogue", [(3, 16, False), (5, 2, True), (70, 100, False), (2, 1024, True), (1, 1, False)])
-def test_dft_matmul_source(emulated, b, n, epilogue):
+def _roots(n, inverse=False):
+    return ops._roots_luts("cpu", n, inverse)
+
+
+@pytest.mark.parametrize("b,n,epilogue,inverse", [
+    (3, 16, False, False), (5, 2, True, True), (70, 64, False, True), (2, 1024, True, False),
+    (1, 1, False, False),
+])
+def test_dft_matmul_source(emulated, b, n, epilogue, inverse):
+    """The radix kernel at powers of two, ragged last tiles included (a tile
+    is 4096 points: 70 signals of 64, 5 of 2)."""
     x = _planes(b, b, n)
-    w = _planes(n, n, n)
+    w = _roots(n, inverse)
     e = _planes(1, n) if epilogue else (None, None)
-    _close(dft_matmul._launch(*x, *w, *e),
-           dft_matmul.dft_matmul_plain(*x, *w, twiddle=e if epilogue else None))
+    _close(dft_matmul._launch(*x, *w, *e, inverse),
+           dft_matmul.dft_matmul_plain(*x, *w, inverse=inverse, twiddle=e if epilogue else None))
 
 
 @BUDGETS
@@ -143,12 +152,31 @@ def test_dft_matmul_source(emulated, b, n, epilogue):
     (4, 2048, True, False), (3, 2048, False, True), (2, 4096, True, True), (1, 32768, False, False),
 ])
 def test_fft4step_source(budget, b, n, natural, epilogue):
+    """The whole signal in shared memory while it fits the budget, else the
+    four-step through the scratch slab (the small budget sends every length
+    there; n = 32768 goes there on the H100 too)."""
     x = _planes(n, b, n)
-    luts = _fused(n)
+    w = _roots(n)
+    n1 = plan_lib.balanced_split(n)[0]
     e = _planes(2, n) if epilogue else (None, None)
-    _close(fft4step._launch(*x, *luts, *e, natural),
-           fft4step.fft4step_plain(*x, *luts, natural_order=natural,
+    _close(fft4step._launch(*x, *w, *e, n1, False, natural),
+           fft4step.fft4step_plain(*x, *w, n1=n1, natural_order=natural,
                                    twiddle_after=e if epilogue else None))
+
+
+@pytest.mark.parametrize("b,n,natural,inverse", [
+    (1, 8192, True, False), (2, 8192, False, True), (1, 16384, False, False), (1, 16384, True, True),
+])
+def test_fft4step_tile_source(emulated, b, n, natural, inverse):
+    """The larger whole-signal tiles (512 threads, 16 and 32 points each) in
+    both orders and directions."""
+    x = _planes(n, b, n)
+    w = _roots(n, inverse)
+    n1 = plan_lib.balanced_split(n)[0]
+    e = _planes(3, n)
+    _close(fft4step._launch(*x, *w, *e, n1, inverse, natural),
+           fft4step.fft4step_plain(*x, *w, n1=n1, inverse=inverse, natural_order=natural,
+                                   twiddle_after=e))
 
 
 @BUDGETS
@@ -321,8 +349,8 @@ def test_every_launch_enters_the_tensor_device(emulated):
     x = _planes(0, 2, 16)
     w = _planes(1, 16, 16)
     calls = [
-        (dft_matmul._launch, (*x, *w, None, None)),
-        (fft4step._launch, (*_planes(2, 1, 2048), *_fused(2048), None, None, True)),
+        (dft_matmul._launch, (*x, *_roots(16), None, None, False)),
+        (fft4step._launch, (*_planes(2, 1, 2048), *_roots(2048), None, None, 64, False, True)),
         (pencil._launch_cols, (*_planes(3, 1, 16, 2), w, None, "direct", 0, 0)),
         (pencil._launch_rows, (*_planes(4, 1, 2, 16), w, "direct", 0, 0)),
         (pencil._launch_cols_natural, (*_planes(5, 1, 2, 16, 2), w, "direct", 0, 0)),
@@ -347,9 +375,8 @@ def test_every_launch_enters_the_tensor_device(emulated):
 def test_refused_launch_raises(emulated):
     """A launch the runtime refuses surfaces as KernelError, not a result."""
     x = _planes(0, 3, 2048)
-    luts = _fused(2048)
     with pytest.raises(faults.KernelError, match="launch failed"):
-        # lgc = 2 does not divide a batch of 3: the launcher refuses it.
+        # n1 = 16 is under the kernel's shortest factor: the launcher refuses it.
         build.check(build.function("repro_fft4step", fft4step._ARGS)(
-            3, 64, 32, 2, 1, *map(build.ptr, (*x, *luts)), None, None,
+            3, 2048, 16, 1, 0, *map(build.ptr, (*x, *_roots(2048))), None, None,
             *map(build.ptr, x), None, None, 0), "fft4step")

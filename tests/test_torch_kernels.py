@@ -16,6 +16,7 @@ from repro.kernels import pencil as ref_pencil
 from repro.kernels.dft_matmul import dft_matmul_call as ref_dft_matmul
 from repro.kernels.fft4step import fft4step_call as ref_fft4step
 from repro_torch import kernels
+from repro_torch.core import twiddle as tw
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import dft_matmul, fft4step, pencil
 
@@ -62,12 +63,19 @@ def _counted(name, fn):
 @pytest.mark.parametrize("n", [2, 16, 1024])
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_dft_matmul(n, epilogue):
+    """The port's radix leaf (its plain version, the Stockham FFT over the
+    roots table) against the Pallas DFT-matrix kernel, both tables from the
+    same twiddle module, forward with the epilogue and inverse without."""
     b = 3
+    inverse = not epilogue
     x = _planes(n, (b, n))
-    w = ref_tw.dft_matrix(n)
+    w = ref_tw.dft_matrix(n, inverse)
+    if inverse:
+        w = tuple(a / np.float32(n) for a in w)  # the reference folds 1/N into W
+    roots = tw.roots(n, inverse)
     e = _planes(n + 1, (n,)) if epilogue else None
     mine = _counted("dft_matmul", lambda: dft_matmul.dft_matmul_call(
-        *_t(*x, *w), twiddle=_t(*e) if e else None))
+        *_t(*x, *roots), inverse=inverse, twiddle=_t(*e) if e else None))
     ref = ref_dft_matmul(*_j(*x, *w), batch_tile=b, twiddle=_j(*e) if e else None, interpret=True)
     _close(mine, ref)
 
@@ -81,7 +89,8 @@ def test_fft4step(n1, n2, order, epilogue):
     e = _planes(n + 1, (n,)) if epilogue else None
     natural = order == "natural"
     mine = _counted("fft4step", lambda: fft4step.fft4step_call(
-        *_t(*x, *luts), natural_order=natural, twiddle_after=_t(*e) if e else None))
+        *_t(*x, *tw.roots(n)), n1=n1, natural_order=natural,
+        twiddle_after=_t(*e) if e else None))
     ref = ref_fft4step(*_j(*x, *luts), batch_tile=1, natural_order=natural,
                        twiddle_after=_j(*e) if e else None, interpret=True)
     _close(mine, ref)
@@ -162,15 +171,16 @@ def test_recomb(m):
 
 def test_wrappers_validate_operands():
     xr, xi = _t(*_planes(0, (2, 16)))
+    rr, ri = _t(*tw.roots(16))
     wr, wi = _t(*ref_tw.dft_matrix(16))
     with pytest.raises(PlanError, match="float32"):
-        dft_matmul.dft_matmul_call(xr.double(), xi, wr, wi)
+        dft_matmul.dft_matmul_call(xr.double(), xi, rr, ri)
     with pytest.raises(PlanError, match="shape"):
-        dft_matmul.dft_matmul_call(xr, xi, wr[:8], wi)
+        dft_matmul.dft_matmul_call(xr, xi, rr[:8], ri)
     with pytest.raises(PlanError, match="contiguous"):
-        dft_matmul.dft_matmul_call(xr, xi, wr.t(), wi.t())
+        dft_matmul.dft_matmul_call(xr, xi, wr[:, 0], wi[:, 0])
     with pytest.raises(PlanError, match="n1"):
-        fft4step.fft4step_call(xr, xi, wr, wi, wr, wi, wr, wi)
+        fft4step.fft4step_call(*_t(*_planes(1, (1, 2048)), *tw.roots(2048)), n1=16)
     with pytest.raises(PlanError, match="kind"):
         pencil.rows_natural_call(xr.view(1, 2, 16), xi.view(1, 2, 16), (wr, wi), kind="bogus")
     with pytest.raises(PlanError, match="LUT"):
