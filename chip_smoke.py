@@ -103,9 +103,10 @@ FUNCTIONS = {
     "dft_matmul": ("dft_matmul_kernel",),
     "fft4step": ("fft4step_kernel<256, 16>", "fft4step_kernel<512, 16>", "fft4step_kernel<1024, 16>",
                  "fft4step_slab_kernel"),
-    "cols_pass": ("cols_direct_kernel", "cols_direct_kernel<TwDiv>", "cols_fused_kernel",
-                  "cols_fused_kernel<DIV>"),
-    "rows_natural": ("rows_direct_kernel", "rows_fused_kernel"),
+    "cols_pass": ("cols_radix_kernel<256, 16>", "cols_radix_kernel<512, 16>",
+                  "cols_radix_kernel<1024, 16>", "cols_slab_kernel"),
+    "rows_natural": ("rows_radix_kernel<256, 16>", "rows_radix_kernel<512, 16>",
+                     "rows_radix_kernel<1024, 16>", "rows_slab_kernel"),
     "cols_natural": ("cols_direct_kernel", "cols_fused_kernel"),
     "rfft_recomb": ("rfft_recomb_kernel",),
     "irfft_recomb": ("irfft_recomb_kernel",),
@@ -186,7 +187,7 @@ def roots_bytes(n: int) -> int:
 
 
 def lut_bytes(kind: str, f: int, n1: int, n2: int) -> int:
-    """The DFT-matrix LUTs a pencil or Bluestein tile reads (an input of the
+    """The DFT-matrix LUTs a ``cols_natural`` tile reads (an input of the
     kernel as it is called, read once)."""
     if kind == "direct":
         return 8 * f * f
@@ -221,6 +222,14 @@ def measure_kernel(name, label, call, plain, nbytes, flops, library=None):
     return row
 
 
+def form(kernel: str, f: int) -> str:
+    """The form the radix pass takes at length f: its on-chip tile or the
+    scratch slab (``pencil.COLS_TILE`` / ``ROWS_TILE``)."""
+    table = pencil.COLS_TILE if kernel == "cols_pass" else pencil.ROWS_TILE
+    t = table[f.bit_length() - 1]
+    return "slab" if t == pencil.SLAB else f"tile 2^{t}"
+
+
 def pencil_pair(gen, dev, n: int, b: int) -> tuple:
     """The column and row pass of n's two-pass program over (B, n) planes;
     returns their rows."""
@@ -228,27 +237,25 @@ def pencil_pair(gen, dev, n: int, b: int) -> tuple:
     x = planes(gen, b, n)
     # Column pass: (B, f0, s) view, inter-factor twiddle epilogue.
     _, s, f = cols.view_in
-    luts = ops._transform_luts(dev, cols, False)
+    w = ops._roots_luts(dev, f, False)
     tw = ops._pass_twiddle_luts(dev, *cols.twiddle_after, False)
     xv = (x[0].view(b, f, s), x[1].view(b, f, s))
-    kw = dict(kind=cols.kind, n1=cols.n1, n2=cols.n2)
     cols_row = measure_kernel(
-        "cols_pass", f"n={n} B={b} (R={b}, f={f}, s={s}) {cols.kind}",
-        lambda: pencil.cols_pass_call(*xv, luts, tw, **kw),
-        lambda: pencil.cols_pass_plain(*xv, luts, tw, **kw),
-        nbytes=16 * b * n + 8 * f * s + lut_bytes(cols.kind, f, cols.n1, cols.n2),
+        "cols_pass", f"n={n} B={b} (R={b}, f={f}, s={s}) {form('cols_pass', f)}",
+        lambda: pencil.cols_pass_call(*xv, *w, tw, n1=cols.n1),
+        lambda: pencil.cols_pass_plain(*xv, *w, tw),
+        nbytes=16 * b * n + 8 * f * s + roots_bytes(f),
         flops=b * s * fft_flops(f) + 6 * b * n,
     )
     # Row pass: (B, p, f) → (B, f, p) transposed write.
     p_, _, f = rows_p.view_in
-    luts = ops._transform_luts(dev, rows_p, False)
+    w = ops._roots_luts(dev, f, False)
     xv = (x[0].view(b, p_, f), x[1].view(b, p_, f))
-    kw = dict(kind=rows_p.kind, n1=rows_p.n1, n2=rows_p.n2)
     rows_row = measure_kernel(
-        "rows_natural", f"n={n} B={b} (B={b}, p={p_}, f={f}) {rows_p.kind}",
-        lambda: pencil.rows_natural_call(*xv, luts, **kw),
-        lambda: pencil.rows_natural_plain(*xv, luts, **kw),
-        nbytes=16 * b * n + lut_bytes(rows_p.kind, f, rows_p.n1, rows_p.n2),
+        "rows_natural", f"n={n} B={b} (B={b}, p={p_}, f={f}) {form('rows_natural', f)}",
+        lambda: pencil.rows_natural_call(*xv, *w, n1=rows_p.n1),
+        lambda: pencil.rows_natural_plain(*xv, *w),
+        nbytes=16 * b * n + roots_bytes(f),
         flops=b * p_ * fft_flops(f),
     )
     del x, xv
@@ -333,15 +340,14 @@ def strip_mined_columns(gen, dev, n: int, n2: int) -> dict:
     strided, last = plan_lib.plan_fft2(n, n2).passes[-2:]
     _, stride, f = strided.view_in
     x = planes(gen, 1, f, stride * n)
-    luts = ops._transform_luts(dev, strided, False)
+    w = ops._roots_luts(dev, f, False)
     tw = ops._pass_twiddle_luts(dev, *strided.twiddle_after, False)
-    kw = dict(kind=strided.kind, n1=strided.n1, n2=strided.n2, tw_every=n)
     measure_kernel(
         "cols_pass", f"fft2 {n2}x{n} strided factor (R=1, f={f}, s={stride}x{n}) "
-        f"{strided.kind} tw_every={n}",
-        lambda: pencil.cols_pass_call(*x, luts, tw, **kw),
-        lambda: pencil.cols_pass_plain(*x, luts, tw, **kw),
-        nbytes=16 * n * n2 + 8 * f * stride + lut_bytes(strided.kind, f, 0, 0),
+        f"{form('cols_pass', f)} tw_every={n}",
+        lambda: pencil.cols_pass_call(*x, *w, tw, n1=strided.n1, tw_every=n),
+        lambda: pencil.cols_pass_plain(*x, *w, tw, tw_every=n),
+        nbytes=16 * n * n2 + 8 * f * stride + roots_bytes(f),
         flops=stride * n * fft_flops(f) + 6 * n * n2,
     )
     del x
@@ -409,23 +415,22 @@ def real2d_kernels(gen, dev) -> dict:
     )
     del x
 
-    # rfft2's column pass over the m + 1 = 8193 bins of a 16384 x 16384
-    # image: a ragged width in the fused column kernel, beside the width
-    # 8192 that has no ragged chunk; and the whole columns of phase 6's
-    # (4096, 3000) image.
-    for f, s_ in ((16384, 8193), (16384, 8192), (4096, 3000)):
+    # The whole columns of rfft2's 16384 x 16384 image over its m + 1 = 8193
+    # bins (a ragged width), beside the width 8192 that has no ragged chunk,
+    # of the azimuth pass fft axis=-2 (16384, 4096) and of phase 6's
+    # (4096, 3000) image: no twiddle, so one torch.fft call computes them.
+    for call, f, s_ in (("rfft2", 16384, 8193), ("rfft2", 16384, 8192),
+                        ("fft axis=-2", 16384, 4096), ("fft2", 4096, 3000)):
         r = 1
-        n1, n2_ = plan_lib.balanced_split(f)
-        luts = ops._fused_luts(dev, n1, n2_, False)
-        kw = dict(kind="fused4", n1=n1, n2=n2_)
+        w = ops._roots_luts(dev, f, False)
         x = planes(gen, r, f, s_)
         xc = torch.complex(*x)
         measure_kernel(
-            "cols_pass", f"{'rfft2' if f == 16384 else 'fft2'} columns (R={r}, f={f}, s={s_}) fused4"
+            "cols_pass", f"{call} columns (R={r}, f={f}, s={s_}) {form('cols_pass', f)}"
             + (" ragged" if s_ % pencil.CHUNK else ""),
-            lambda: pencil.cols_pass_call(*x, luts, **kw),
-            lambda: pencil.cols_pass_plain(*x, luts, **kw),
-            nbytes=16 * r * f * s_ + lut_bytes("fused4", f, n1, n2_),
+            lambda: pencil.cols_pass_call(*x, *w),
+            lambda: pencil.cols_pass_plain(*x, *w),
+            nbytes=16 * r * f * s_ + roots_bytes(f),
             flops=r * s_ * fft_flops(f),
             library=lambda: torch.fft.fft(xc, dim=-2),
         )

@@ -6,12 +6,15 @@ change, every kernel row and every planned call both sides printed.
 For each (kernel, shape) of phase 2 and each call of phases 3, 5 and 6
 prints the parent's and the change's times (the mean of their two runs
 each), change / parent, and the change's bound where the row has one; a
-row only the change prints has no parent time.
+row only the change prints has no parent time.  A kernel row's shape is
+compared without the form its tree ran it in (``direct``, ``fused4``,
+``tile 2^t``, ``slab``).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import sys
 from collections import defaultdict
@@ -25,7 +28,8 @@ def rows(path: Path) -> dict:
         tag, _, body = line.partition(" ")
         if tag == "kernel":
             r = json.loads(body)
-            out[(r["name"], r["shape"])] = (r["ms"], r["bound_ms"], r["registers"])
+            shape = re.sub(r"\) (direct|fused4|tile 2\^\d+|slab)", ")", r["shape"])
+            out[(r["name"], shape)] = (r["ms"], r["bound_ms"], r["registers"])
         elif tag == "main_path":
             r = json.loads(body)
             out[("fft", f"n={r['n']} B={r['batch']}")] = (r["fft_ms"], None, None)

@@ -1,19 +1,25 @@
-"""Time the whole-signal kernels (``dft_matmul``, ``fft4step``) of one tree
-of this repository on the card, back to back.
+"""Time the whole-signal kernels (``dft_matmul``, ``fft4step``) and the
+split-regime passes (``cols_pass``, ``rows_natural``) of one tree of this
+repository on the card, back to back.
 
-    python3 scripts/kernel_ab.py <tree> [label]
+    python3 scripts/kernel_ab.py <tree> [label] [--forms]
 
 ``<tree>`` is an unpacked checkout (``git archive``) of this repository, of
 this commit or an earlier one: the script imports that tree's
 ``repro_torch``, builds its kernels into the tree's own ``build/``, and
 calls each kernel's wrapper with that tree's LUTs (the DFT matrices of the
-GEMM kernels before the radix redesign, the roots table after it) at the
+GEMM kernels before their radix redesign, the roots table after it) at the
 shapes ``chip_smoke.py``'s phase 2 gives them.  A kernel's time is the
 median over 5 batches of the mean of 20 back-to-back calls between two
 CUDA events, so the wrappers' host time hides behind the queued launches
 (``chip_smoke.py`` times one call per event pair, which adds it).  Each
 output is checked against ``torch.fft`` first.  Prints one JSON line per
-(kernel, shape) and the card's name and power limit.
+(kernel, shape, form) and the card's name and power limit.
+
+``--forms`` (a tree whose passes are radix FFTs): also time every form each
+pass shape can take (each on-chip tile of 2^12, 2^13, 2^14 points that
+holds f, and the four-step through the scratch slab from f = 1024), beside
+the form the tree's tables pick (``"default": true``).
 
 Run parent and change in turns in one call (parent, change, change,
 parent) to compare them on one card.
@@ -29,12 +35,28 @@ import sys
 
 import torch
 
-#: (kernel, batch, n, orders): phase 2's shapes of the two kernels.
+#: (kernel, batch, n, orders): phase 2's shapes of the two whole-signal kernels.
 SHAPES = (
     ("dft_matmul", 16384, 1024, ("natural",)),
     ("fft4step", 4096, 4096, ("natural", "k1-major")),
     ("fft4step", 4096, 16384, ("natural", "k1-major")),
     ("fft4step", 1024, 65536, ("natural", "k1-major")),
+)
+
+#: (n, batch): the two-pass programs whose column and row passes phase 2
+#: times (n = 2^18 is phase 6's split-regime pad of n = 100003).
+PAIRS = ((1 << 18, 64), (1 << 20, 64), (1 << 22, 16), (1 << 24, 4), (1 << 26, 2))
+
+#: (label, f, s, tw_every): phase 2's other column-pass shapes (R = 1):
+#: the strided factors of strip-mined fft2 columns (twiddle broadcast over
+#: runs of tw_every columns) and whole columns (no twiddle).
+COLUMNS = (
+    ("fft2 131072x2048 strided factor", 512, 256 * 2048, 2048),
+    ("fft2 131072x500 strided factor", 512, 256 * 500, 500),
+    ("rfft2 16384^2 columns", 16384, 8193, 0),
+    ("rfft2 16384^2 columns", 16384, 8192, 0),
+    ("fft axis=-2 (16384, 4096) columns", 16384, 4096, 0),
+    ("fft2 (4096, 3000) columns", 4096, 3000, 0),
 )
 
 
@@ -55,20 +77,12 @@ def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(means)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_ab: needs a CUDA device", file=sys.stderr)
-        return 2
-    tree = os.path.abspath(sys.argv[1])
-    label = sys.argv[2] if len(sys.argv) > 2 else os.path.basename(tree)
-    sys.path.insert(0, os.path.join(tree, "src"))
-    from repro_torch.core import plan as plan_lib
-    from repro_torch.kernels import build, dft_matmul, fft4step, ops
+def rel_err(got, want) -> float:
+    return ((torch.complex(*got) - want).abs().max() / want.abs().max()).item()
 
-    build.build()
-    dev = ops.device_key("cuda")
+
+def whole_signal(label, plan_lib, dft_matmul, fft4step, ops, dev, gen) -> bool:
     radix = hasattr(ops, "_roots_luts")
-    gen = torch.Generator(device="cuda").manual_seed(0)
     for kernel, b, n, orders in SHAPES:
         xr = torch.randn(b, n, device="cuda", generator=gen)
         xi = torch.randn(b, n, device="cuda", generator=gen)
@@ -87,19 +101,114 @@ def main() -> int:
                 luts = ops._fused_luts(dev, n1, n2, False)
                 call = lambda: fft4step.fft4step_call(  # noqa: E731
                     xr, xi, *luts, natural_order=natural)
-            yr, yi = call()
             want = ref if natural else ref.view(b, n2, n1).transpose(1, 2).reshape(b, n)
-            err = ((torch.complex(yr, yi) - want).abs().max() / want.abs().max()).item()
+            err = rel_err(call(), want)
             if not err <= 1e-3:
                 print(f"kernel_ab: {kernel} n={n} {order} off by {err:.3e}", file=sys.stderr)
-                return 1
-            del yr, yi
+                return False
             print(json.dumps({
                 "tree": label, "kernel": kernel, "batch": b, "n": n, "order": order,
                 "ms": time_ms(call), "bytes": 16 * b * n, "rel_err": err,
             }), flush=True)
         del xr, xi, ref
         torch.cuda.empty_cache()
+    return True
+
+
+def pass_cases(plan_lib):
+    """(kernel, shape label, x shape, f, the planner's n1, twiddle shape or
+    None, tw_every) of every pass shape phase 2 times."""
+    for n, b in PAIRS:
+        cols, rows = plan_lib.plan_fft(n).passes
+        _, s, f = cols.view_in
+        yield "cols_pass", f"n={n} B={b}", (b, f, s), f, cols.n1, (f, s), 1
+        p, _, f = rows.view_in
+        yield "rows_natural", f"n={n} B={b}", (b, p, f), f, rows.n1, None, 1
+    for label, f, s, tw_every in COLUMNS:
+        n1 = plan_lib.balanced_split(f)[0] if f > 1024 else 0
+        tw = (f, s // tw_every) if tw_every else None
+        yield "cols_pass", label, (1, f, s), f, n1, tw, max(tw_every, 1)
+
+
+def passes(label, plan_lib, pencil, ops, dev, gen, forms: bool) -> bool:
+    radix = hasattr(pencil, "COLS_TILE")
+    for kernel, shape, xs, f, n1, tws, tw_every in pass_cases(plan_lib):
+        xr = torch.randn(*xs, device="cuda", generator=gen)
+        xi = torch.randn(*xs, device="cuda", generator=gen)
+        tw = None
+        if tws is not None:
+            ang = torch.rand(*tws, device="cuda", generator=gen) * 6.283185307179586
+            tw = (torch.cos(ang), torch.sin(ang))
+        x = torch.complex(xr, xi)
+        if kernel == "cols_pass":
+            want = torch.fft.fft(x, dim=-2)
+            if tw is not None:
+                want = want * torch.complex(*tw).repeat_interleave(tw_every, dim=1)
+        else:
+            want = torch.fft.fft(x, dim=-1).transpose(1, 2)
+        del x
+        if radix:
+            w = ops._roots_luts(dev, f, False)
+            table = pencil.COLS_TILE if kernel == "cols_pass" else pencil.ROWS_TILE
+            default = table[f.bit_length() - 1]
+            tiles = [t for t in (12, 13, 14) if f <= 1 << t]
+            if f >= pencil.SLAB_MIN_F:
+                tiles.append(pencil.SLAB)
+            tiles = tiles if forms else [default]
+            calls = {}
+            for t in tiles:
+                if kernel == "cols_pass":
+                    calls[t] = lambda t=t: pencil._launch_cols(
+                        xr, xi, *w, tw, False, n1, tw_every, t)
+                else:
+                    calls[t] = lambda t=t: pencil._launch_rows(xr, xi, *w, False, n1, t)
+            name = {pencil.SLAB: "slab"}
+            named = {name.get(t, f"tile 2^{t}"): (c, t == default) for t, c in calls.items()}
+        else:
+            kind = "direct" if f <= 1024 else "fused4"
+            n1_, n2_ = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+            luts = ops._transform_luts(dev, plan_lib.Pass(kind=kind, n=f, n1=n1_, n2=n2_), False)
+            kw = dict(kind=kind, n1=n1_, n2=n2_)
+            if kernel == "cols_pass":
+                if tw_every > 1:
+                    kw["tw_every"] = tw_every
+                call = lambda: pencil.cols_pass_call(xr, xi, luts, tw, **kw)  # noqa: E731
+            else:
+                call = lambda: pencil.rows_natural_call(xr, xi, luts, **kw)  # noqa: E731
+            named = {"parent": (call, True)}
+        for form, (call, is_default) in named.items():
+            err = rel_err(call(), want)
+            if not err <= 1e-3:
+                print(f"kernel_ab: {kernel} {shape} {form} off by {err:.3e}", file=sys.stderr)
+                return False
+            print(json.dumps({
+                "tree": label, "kernel": kernel, "shape": shape, "view": list(xs), "f": f,
+                "form": form, "default": is_default, "ms": time_ms(call),
+                "bytes": 16 * xr.numel() + (8 * tws[0] * tws[1] if tws else 0), "rel_err": err,
+            }), flush=True)
+        del xr, xi, tw, want, named
+        torch.cuda.empty_cache()
+    return True
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    tree = os.path.abspath(args[0])
+    label = args[1] if len(args) > 1 else os.path.basename(tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.kernels import build, dft_matmul, fft4step, ops, pencil
+
+    build.build()
+    dev = ops.device_key("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if not whole_signal(label, plan_lib, dft_matmul, fft4step, ops, dev, gen):
+        return 1
+    if not passes(label, plan_lib, pencil, ops, dev, gen, "--forms" in sys.argv):
+        return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -8,52 +8,446 @@
 //            c / w serves a run of w columns (the strided factor of a
 //            strip-mined 2-D column program, where the image width rides
 //            along as columns) -- address arithmetic, no grid at image
-//            width.  A power-of-two w is a shift (c >> log2 w); any other
-//            w divides, per element in the direct form (the TwDiv store
-//            policy) and once per tile in the four-step form, whose chunk
-//            of columns then divides w so it never straddles two runs.  s need not be a multiple of the chunk: the
-//            ragged last chunk transforms its columns one at a time (an
-//            rfft2 half-spectrum is m + 1 columns wide), with no padded
-//            copy.
-// cols_natural replaces cols_natural_call (src/repro/kernels/pencil.py:234,
-//            pallas_call at :265): on a (B, P, f, w) view, a length-f
-//            transform down axis 2, written as (B, f, P, w) -- the n2-axis
-//            digit transpose of a strip-mined column program fused into the
-//            write.  The same kernels as cols_pass with the output view
-//            changed: column group r = (b, p) writes rows of stride P.w at
-//            offset p.w of pencil b; P = 1 is cols_pass's in-place layout.
+//            width.  A power-of-two w is a shift (c >> log2 w), any other
+//            w a division.  s may be any width (an rfft2 half-spectrum is
+//            m + 1 columns): the last chunk of columns is masked.
 // rows_natural replaces rows_natural_call (src/repro/kernels/pencil.py:178,
 //            pallas_call at :203): on a (B, p, f) view, a length-f transform
 //            of every row, written transposed to (B, f, p) so the program's
 //            output lands in natural order with no transpose pass.
+// cols_natural replaces cols_natural_call (src/repro/kernels/pencil.py:234,
+//            pallas_call at :265): on a (B, P, f, w) view, a length-f
+//            transform down axis 2, written as (B, f, P, w) -- the n2-axis
+//            digit transpose of a strip-mined column program fused into the
+//            write.  Column group r = (b, p) writes rows of stride P.w at
+//            offset p.w of pencil b.
 //
-// Each embeds the shared tile engines (tile.cuh) as pencil._tile_transform
-// does: the direct DFT for f <= 1024, the four-step tile beyond.  Loads and
-// stores run along the contiguous axis: s (w) for the columns, the output's
-// p for the transposed rows.  The direct form is one complex GEMM per view
-// (Y[r] = W^T . X[r], resp. Y[b] = W^T . X[b]^T) tiled 64 x 64 over the
-// grid; the four-step form gives each block a chunk of C = 2^lgc adjacent
-// columns (rows) -- 8 floats = one 32-byte sector per plane -- so the
-// strided reads of the columns use whole sectors.
+// cols_pass and rows_natural are radix FFTs on the engine of radix.cuh, as
+// dft_matmul and fft4step are: butterflies in registers, the exchanges
+// between stages in padded shared memory, every stage twiddle (and the
+// four-step's w_f^(k1 j2)) from the one table of f-th roots on the
+// read-only path, the inverse's 1/f at the store.  The function is bound
+// by bytes on the H100 (5 f log2 f flops over 16 f bytes per signal), so
+// the kernels move each point as few times as they can, in one of two
+// forms; the wrapper picks one per f (pencil.COLS_TILE / ROWS_TILE, the
+// fastest measured on the H100: on-chip tiles to f = 2048, the slab from
+// 4096):
 //
-// Bound on the H100: arithmetic, as the leaves (the work needs 6.f or
-// 6.(n1 + n2) flops per element over 16 bytes, plus 8 bytes of twiddle for
-// the columns; the tiles spend 8 per complex multiply-add).
-// The four-step intermediate of a chunk lives in shared memory when it fits
-// (f.C <= 16384) and in a wrapper-owned global scratch slab otherwise (see
-// fft4step.cu for the extra bytes).
-#include "tile.cuh"
+// * On-chip tile (f <= 16384): a block transforms C = 2^t / f adjacent
+//   signals, a tile of 2^t = 4096, 8192 or 16384 points (fft4step.cu's
+//   three whole-signal configurations), reading each point once and writing
+//   it once.  cols_radix_kernel takes C adjacent columns, the unit-stride
+//   axis (Geo sig_fast), so each row of the tile is one contiguous run of C
+//   floats per plane; rows_radix_kernel takes C adjacent rows (contiguous
+//   reads).  The last stage of either leaves the bins in shared memory
+//   (padded by one word per f), and the store walks the signals with unit
+//   stride, so bin k's C outputs are one contiguous run (of the column's
+//   row k, times the twiddle, or of the (B, f, p) output).  With C >= 8
+//   (f <= 2048) every run is a whole 32-byte sector; with C < 8 a run is
+//   part of a sector, which measured slower than the slab's two round
+//   trips (the L2 does not merge neighbouring blocks' parts).
+// * Scratch slab (1024 <= f <= 65536):
+//   cols_slab_kernel / rows_slab_kernel keep the planner's four-step
+//   f = n1 x n2 for 8 adjacent columns (rows), so every access is a whole
+//   sector: phase 1, the n1-point FFTs of the 8 n2 sub-columns, times
+//   w_f^(k1 j2), into the block's slice of a global scratch slab; after a
+//   block barrier, phase 2, the n2-point FFTs, stored to bin k2 n1 + k1
+//   (the columns' twiddle applied there; the rows' through shared memory so
+//   each output row gets its 8 adjacent q).  Two round trips per point:
+//   at most half the byte bound.
+//
+// cols_natural keeps the DFT-matrix GEMM tiles of tile.cuh (the direct DFT
+// for f <= 1024, the four-step tile beyond, 8-column chunks, the
+// intermediate in shared memory while f.8 <= 16384 and in a scratch slab
+// otherwise).  Their times against the byte bound are in PERF.md.
+#include "radix.cuh"
 
 using namespace repro;
 
-// Offset of column group r's output: pencil r / P, digit r % P (P = 1: the
-// input's own layout).
+// ---------------------------------------------------------------------------
+// cols_pass and rows_natural: radix FFTs
+// ---------------------------------------------------------------------------
+
+// The inter-factor twiddle of column c: T[k, c >> lgw] (lgw >= 0) or
+// T[k, c / w] of the (f, s / w) grid with row stride ts; none when tr is
+// null.  Columns sit below 2^31.
+struct Twiddle {
+  const float* tr;
+  const float* ti;
+  i64 ts;
+  int lgw;
+  int w;
+  __device__ __forceinline__ float2 apply(float2 v, int k, i64 c) const {
+    if (tr == nullptr) return v;
+    const i64 off = (i64)k * ts + (lgw >= 0 ? (int)c >> lgw : (int)c / w);
+    return cmulf(v, make_float2(ldro(tr + off), ldro(ti + off)));
+  }
+};
+
+namespace {
+
+// The on-chip tiles: threads per block and the blocks each SM must hold
+// (at most 64 registers a thread), by log2 of the tile (fft4step.cu's).
+constexpr int T12 = 256, MB12 = 4;
+constexpr int T13 = 512, MB13 = 2;
+constexpr int T14 = 1024, MB14 = 1;
+
+// The slab kernels: tiles of 8192 points, 1024 threads of 8, one block an
+// SM, 8 columns (rows) per block: one 32-byte sector per plane.
+constexpr int SL_T = 1024;
+constexpr int SL_LGM = 13;
+constexpr int SL_E = (1 << SL_LGM) / SL_T;
+constexpr int LGQ = 3;
+
+// Column c of a tile of adjacent columns: position j at x + j * s + c, of
+// which only the first cv columns exist (a ragged last chunk).
+struct StridedLoad {
+  const float* xr;
+  const float* xi;
+  i64 s;
+  int cv;
+  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
+    if (sig >= cv) {
+      v = make_float2(0.f, 0.f);
+      return;
+    }
+    const i64 off = (i64)pos * s + sig;
+    v = make_float2(xr[off], xi[off]);
+  }
+};
+
+// Bin k of the tile's signal c (image column c0 + c) to y + k * s + c,
+// times the scale and the twiddle (of a column pass; none for rows).
+struct StridedStore {
+  float* yr;
+  float* yi;
+  i64 s;
+  int cv;
+  float scale;
+  i64 c0;
+  Twiddle t;
+  __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
+    if (sig >= cv) return;
+    v = t.apply(make_float2(v.x * scale, v.y * scale), bin, c0 + sig);
+    const i64 off = (i64)bin * s + sig;
+    yr[off] = v.x;
+    yi[off] = v.y;
+  }
+};
+
+// Phase 1 of cols_slab_kernel: signal g = t0 + sig is (j2 = g >> 3,
+// c = g & 7), position j1 at row j1 n2 + j2 of column c.
+struct SlabColLoad {
+  const float* xr;
+  const float* xi;
+  i64 s;
+  int lg2;
+  int t0;
+  int cv;
+  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
+    const int g = t0 + sig;
+    if ((g & 7) >= cv) {
+      v = make_float2(0.f, 0.f);
+      return;
+    }
+    const i64 off = (i64)((pos << lg2) + (g >> LGQ)) * s + (g & 7);
+    v = make_float2(xr[off], xi[off]);
+  }
+};
+
+// Bin k1 of signal (j2, c), times w_f^(k1 j2), to the block's slab at
+// (k1, j2, c): (k1 n2 + j2) 8 + c.
+struct SlabColStore {
+  float* mr;
+  float* mi;
+  int lg2;
+  int t0;
+  int cv;
+  Roots w;
+  __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
+    const int g = t0 + sig;
+    if ((g & 7) >= cv) return;
+    v = cmulf(v, w(bin * (g >> LGQ)));  // k1 j2 < n1 n2: no wrap
+    const int off = (bin << (lg2 + LGQ)) + g;
+    mr[off] = v.x;
+    mi[off] = v.y;
+  }
+};
+
+// Phase 2 of cols_slab_kernel: signal g = t0 + sig is (k1 = g >> 3,
+// c = g & 7), position j2 at the slab's (k1, j2, c).
+struct SlabRowLoad {
+  const float* mr;
+  const float* mi;
+  int lg2;
+  int t0;
+  int cv;
+  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
+    const int g = t0 + sig;
+    if ((g & 7) >= cv) {
+      v = make_float2(0.f, 0.f);
+      return;
+    }
+    const int off = ((g >> LGQ) << (lg2 + LGQ)) + (pos << LGQ) + (g & 7);
+    v = make_float2(mr[off], mi[off]);
+  }
+};
+
+// Bin k2 of signal (k1, c) is bin k = k2 n1 + k1 of column c0 + c: to
+// y + k * s + c, times the scale and the twiddle.
+struct SlabColOut {
+  float* yr;
+  float* yi;
+  i64 s;
+  int lg1;
+  int t0;
+  int cv;
+  float scale;
+  i64 c0;
+  Twiddle t;
+  __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
+    const int g = t0 + sig;
+    const int c = g & 7;
+    if (c >= cv) return;
+    const int k = (bin << lg1) + (g >> LGQ);
+    v = t.apply(make_float2(v.x * scale, v.y * scale), k, c0 + c);
+    const i64 off = (i64)k * s + c;
+    yr[off] = v.x;
+    yi[off] = v.y;
+  }
+};
+
+// Phase 1 of rows_slab_kernel: signal g = t0 + sig is (q = g >> lg2,
+// j2 = g & (n2 - 1)), position j1 at j1 n2 + j2 of row q.
+struct SlabRowColLoad {
+  const float* xr;
+  const float* xi;
+  int lgf;
+  int lg2;
+  int t0;
+  int cv;
+  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
+    const int g = t0 + sig;
+    if ((g >> lg2) >= cv) {
+      v = make_float2(0.f, 0.f);
+      return;
+    }
+    const int off = ((g >> lg2) << lgf) + (pos << lg2) + (g & ((1 << lg2) - 1));
+    v = make_float2(xr[off], xi[off]);
+  }
+};
+
+// Bin k1 of signal (q, j2), times w_f^(k1 j2), to the slab's row q at
+// k1 n2 + j2.
+struct SlabRowColStore {
+  float* mr;
+  float* mi;
+  int lgf;
+  int lg2;
+  int t0;
+  int cv;
+  Roots w;
+  __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
+    const int g = t0 + sig;
+    if ((g >> lg2) >= cv) return;
+    const int j2 = g & ((1 << lg2) - 1);
+    v = cmulf(v, w(bin * j2));
+    const int off = ((g >> lg2) << lgf) + (bin << lg2) + j2;
+    mr[off] = v.x;
+    mi[off] = v.y;
+  }
+};
+
+// Phase 2 of rows_slab_kernel: signal g = t0 + sig is (k1 = g >> 3,
+// q = g & 7), position j2 at the slab's row q, k1 n2 + j2.
+struct SlabQLoad {
+  const float* mr;
+  const float* mi;
+  int lgf;
+  int lg2;
+  int t0;
+  int cv;
+  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
+    const int g = t0 + sig;
+    if ((g & 7) >= cv) {
+      v = make_float2(0.f, 0.f);
+      return;
+    }
+    const int off = ((g & 7) << lgf) + ((g >> LGQ) << lg2) + pos;
+    v = make_float2(mr[off], mi[off]);
+  }
+};
+
+// Words between the rows of a stage_out buffer: one pad word per 2^lgp,
+// at least per 32 so the padded tile fits the buffer (xwords).
+__device__ __forceinline__ int pad_log2(int lgl) { return lgl > 5 ? lgl : 5; }
+
+// The store of a stage_out tile (bins at oaddr(g, lgp, signal, bin)):
+// consecutive threads on consecutive signals, so bin k's outputs are one
+// contiguous run, and reads from the buffer padded per 2^lgp = 2^lgl free
+// of bank conflicts.  A loop of runtime length, not unrolled into the
+// registers of all of a thread's points (that spilled).
+template <int T, class ST>
+__device__ __forceinline__ void store_by_bin(const Geo& g, int lgp, const float* xre,
+                                             const float* xim, const ST& st) {
+  for (int i = threadIdx.x; i < (1 << (g.lgc + g.lgl)); i += T) {
+    const int sig = i & ((1 << g.lgc) - 1);
+    const int a = oaddr(g, lgp, sig, i >> g.lgc);
+    st(sig, i >> g.lgc, make_float2(xre[a], xim[a]));
+  }
+}
+
+}  // namespace
+
+// One tile of C = 2^lgc adjacent columns of view r: block b is chunk
+// b % chunks of view b / chunks.
+template <int T, int E, int MB>
+__global__ void __launch_bounds__(T, MB)
+    cols_radix_kernel(int lgf, int lgc, i64 s, i64 chunks, float scale,
+                      const float* __restrict__ xr, const float* __restrict__ xi,
+                      const float* __restrict__ wr, const float* __restrict__ wi, Twiddle tw,
+                      float* yr, float* yi) {
+  extern __shared__ float2 smem[];
+  float* xre = reinterpret_cast<float*>(smem);
+  float* xim = xre + xwords(T * E);
+  const i64 r = blockIdx.x / (unsigned)chunks;  // chunks < 2^31: no 64-bit division
+  const i64 c0 = (i64)(blockIdx.x % (unsigned)chunks) << lgc;
+  const int cv = s - c0 < (1LL << lgc) ? (int)(s - c0) : 1 << lgc;
+  const i64 base = (r << lgf) * s + c0;
+  const Geo g{lgf, lgc, true};
+  const int lgp = pad_log2(lgf);
+  const StridedLoad ld{xr + base, xi + base, s, cv};
+  if (lgf == 0) {  // length 1: the transform is the identity (the engine would store it)
+    for (int c = threadIdx.x; c < (1 << lgc); c += T) {
+      float2 v;
+      ld(c, 0, v);
+      const int a = oaddr(g, lgp, c, 0);
+      xre[a] = v.x;
+      xim[a] = v.y;
+    }
+    __syncthreads();
+  } else {
+    radix_fft<T, E>(g, roots_table(wr, wi, lgf), xre, xim, ld, NoStore(), lgp);
+  }
+  store_by_bin<T>(g, lgp, xre, xim, StridedStore{yr + base, yi + base, s, cv, scale, c0, tw});
+}
+
+// Eight adjacent columns of view r as the four-step f = n1 x n2 through
+// the block's 8 f points of the slab (mr / mi).
+__global__ void __launch_bounds__(SL_T, 1)
+    cols_slab_kernel(int lgf, int lg1, i64 s, i64 chunks, float scale,
+                     const float* __restrict__ xr, const float* __restrict__ xi,
+                     const float* __restrict__ wr, const float* __restrict__ wi, Twiddle tw,
+                     float* yr, float* yi, float* mr, float* mi) {
+  extern __shared__ float2 smem[];
+  float* xre = reinterpret_cast<float*>(smem);
+  float* xim = xre + xwords(1 << SL_LGM);
+  const int lg2 = lgf - lg1;
+  const i64 r = blockIdx.x / (unsigned)chunks;
+  const i64 c0 = (i64)(blockIdx.x % (unsigned)chunks) << LGQ;
+  const int cv = s - c0 < 8 ? (int)(s - c0) : 8;
+  const i64 base = (r << lgf) * s + c0;
+  const i64 slab = (i64)blockIdx.x << (lgf + LGQ);
+  const Roots w = roots_table(wr, wi, lgf);
+
+  // Phase 1: the n1-point FFT of every (j2, c), times w_f^(k1 j2).
+  const int lgc1 = SL_LGM - lg1;
+  for (int t0 = 0; t0 < (8 << lg2); t0 += 1 << lgc1)
+    radix_fft<SL_T, SL_E>(Geo{lg1, lgc1, true}, w, xre, xim,
+                          SlabColLoad{xr + base, xi + base, s, lg2, t0, cv},
+                          SlabColStore{mr + slab, mi + slab, lg2, t0, cv, w});
+  __syncthreads();  // the block's slab is complete and visible to it
+
+  // Phase 2: the n2-point FFT of every (k1, c), to bin k2 n1 + k1.
+  const int lgc2 = SL_LGM - lg2;
+  for (int t0 = 0; t0 < (8 << lg1); t0 += 1 << lgc2)
+    radix_fft<SL_T, SL_E>(Geo{lg2, lgc2, true}, w, xre, xim,
+                          SlabRowLoad{mr + slab, mi + slab, lg2, t0, cv},
+                          SlabColOut{yr + base, yi + base, s, lg1, t0, cv, scale, c0, tw});
+}
+
+// One tile of C = 2^lgc adjacent rows q0 + c of view b, written
+// transposed: bin k of row q to y[b, k, q].
+template <int T, int E, int MB>
+__global__ void __launch_bounds__(T, MB)
+    rows_radix_kernel(int lgf, int lgc, i64 p, i64 chunks, float scale,
+                      const float* __restrict__ xr, const float* __restrict__ xi,
+                      const float* __restrict__ wr, const float* __restrict__ wi, float* yr,
+                      float* yi) {
+  extern __shared__ float2 smem[];
+  float* xre = reinterpret_cast<float*>(smem);
+  float* xim = xre + xwords(T * E);
+  const i64 b = blockIdx.x / (unsigned)chunks;  // chunks < 2^31: no 64-bit division
+  const i64 q0 = (i64)(blockIdx.x % (unsigned)chunks) << lgc;
+  const int cv = p - q0 < (1LL << lgc) ? (int)(p - q0) : 1 << lgc;
+  const i64 in = (b * p + q0) << lgf;
+  const i64 out = (b << lgf) * p + q0;
+  const Geo g{lgf, lgc, false};
+  const int lgp = pad_log2(lgf);
+  radix_fft<T, E>(g, roots_table(wr, wi, lgf), xre, xim, RowLoad{xr + in, xi + in, lgf, cv},
+                  NoStore(), lgp);
+  const Twiddle none{nullptr, nullptr, 0, 0, 1};
+  store_by_bin<T>(g, lgp, xre, xim, StridedStore{yr + out, yi + out, p, cv, scale, 0, none});
+}
+
+// Eight adjacent rows q0 + q of view b as the four-step f = n1 x n2
+// through the block's 8 f points of the slab, written transposed.
+__global__ void __launch_bounds__(SL_T, 1)
+    rows_slab_kernel(int lgf, int lg1, i64 p, i64 chunks, float scale,
+                     const float* __restrict__ xr, const float* __restrict__ xi,
+                     const float* __restrict__ wr, const float* __restrict__ wi, float* yr,
+                     float* yi, float* mr, float* mi) {
+  extern __shared__ float2 smem[];
+  float* xre = reinterpret_cast<float*>(smem);
+  float* xim = xre + xwords(1 << SL_LGM);
+  const int lg2 = lgf - lg1;
+  const i64 b = blockIdx.x / (unsigned)chunks;
+  const i64 q0 = (i64)(blockIdx.x % (unsigned)chunks) << LGQ;
+  const int cv = p - q0 < 8 ? (int)(p - q0) : 8;
+  const i64 in = (b * p + q0) << lgf;
+  const i64 out = (b << lgf) * p + q0;
+  const i64 slab = (i64)blockIdx.x << (lgf + LGQ);
+  const Roots w = roots_table(wr, wi, lgf);
+
+  // Phase 1: the n1-point FFT of every (q, j2), times w_f^(k1 j2).
+  const int lgc1 = SL_LGM - lg1;
+  for (int t0 = 0; t0 < (8 << lg2); t0 += 1 << lgc1)
+    radix_fft<SL_T, SL_E>(Geo{lg1, lgc1, true}, w, xre, xim,
+                          SlabRowColLoad{xr + in, xi + in, lgf, lg2, t0, cv},
+                          SlabRowColStore{mr + slab, mi + slab, lgf, lg2, t0, cv, w});
+  __syncthreads();  // the block's slab is complete and visible to it
+
+  // Phase 2: the n2-point FFT of every (k1, q); bin k2 n1 + k1 of row q
+  // through shared memory, consecutive threads on consecutive q.
+  const int lgc2 = SL_LGM - lg2;
+  const Geo g2{lg2, lgc2, false};
+  const int lgp = pad_log2(lg2);
+  for (int t0 = 0; t0 < (8 << lg1); t0 += 1 << lgc2) {
+    radix_fft<SL_T, SL_E>(g2, w, xre, xim, SlabQLoad{mr + slab, mi + slab, lgf, lg2, t0, cv},
+                          NoStore(), lgp);
+#pragma unroll
+    for (int e = 0; e < SL_E; ++e) {
+      const int i = threadIdx.x + e * SL_T;
+      const int sig = i & ((1 << lgc2) - 1);  // (k1 - t0 / 8, q)
+      if ((sig & 7) >= cv) continue;
+      const int k = ((i >> lgc2) << lg1) + ((t0 + sig) >> LGQ);
+      const int a = oaddr(g2, lgp, sig, i >> lgc2);
+      const i64 off = out + (i64)k * p + (sig & 7);
+      yr[off] = xre[a] * scale;
+      yi[off] = xim[a] * scale;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// cols_natural: DFT-matrix GEMM tiles
+// ---------------------------------------------------------------------------
+
+// Offset of column group r's output: pencil r / P, digit r % P.
 __device__ __forceinline__ i64 cols_out_base(i64 r, i64 P, i64 f, i64 s) {
   return (r / P) * f * P * s + (r % P) * s;
 }
 
-// ST: PlainStore reads the twiddle through the shift view (power-of-two
-// tw_every, lgw its log2), TwDiv by division (any other tw_every).
 template <class ST>
 __global__ void __launch_bounds__(THREADS)
     cols_direct_kernel(int f, i64 s, i64 P, int lgw, ST st, const float* wr,
@@ -81,7 +475,7 @@ __global__ void __launch_bounds__(THREADS)
 // 186 (one block per SM), and the column passes whose intermediate sits in
 // the scratch slab ran 1.6-1.8x slower on the H100 (PERF.md).  DIV: the
 // twiddle column of a tile is c / w (tw_every = w no power of two), else
-// c >> lgw.
+// c >> lgw; cols_natural runs DIV = false with no twiddle.
 template <bool DIV>
 __global__ void __launch_bounds__(2 * THREADS)
     cols_fused_kernel(int n1, int lg1, int n2, int lg2, int lgc, i64 s, i64 P,
@@ -130,55 +524,9 @@ __global__ void __launch_bounds__(2 * THREADS)
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    rows_direct_kernel(int f, i64 p, const float* wr, const float* wi,
-                       const float* xr, const float* xi, float* yr, float* yi) {
-  __shared__ float2 smem[2 * BK * LDS];
-  const int tm = cdiv(f, BM), tn = cdiv(p, BN);
-  const i64 per_b = (i64)tm * tn;
-  const i64 b = blockIdx.x / per_b;
-  const int t = (int)(blockIdx.x % per_b);
-  const i64 base = b * p * f;
-  const CMat Wt{wr, wi, stride(1), stride(f)};            // Wt[k, j] = W[j, k]
-  const CMat Xt{xr + base, xi + base, stride(1), stride(f)};  // Xt[j, q] = x[q, j]
-  const COut Y{yr + base, yi + base, stride(p), stride(1),
-               nullptr,   nullptr,   stride(0), stride(0)};
-  cgemm_tile(f, (int)p, f, (t / tn) * BM, (t % tn) * BN, Wt, Xt, Y, smem);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    rows_fused_kernel(int n1, int lg1, int n2, int lg2, int lgc, i64 p,
-                      const float* w1r, const float* w1i, const float* t4r,
-                      const float* t4i, const float* w2r, const float* w2i,
-                      const float* xr, const float* xi, float* yr, float* yi,
-                      float* scr_re, float* scr_im) {
-  extern __shared__ float2 smem[];
-  const i64 f = (i64)n1 * n2;
-  const i64 chunks = p >> lgc;
-  const i64 b = blockIdx.x / chunks;
-  const i64 q0 = (blockIdx.x % chunks) << lgc;
-  const i64 in_base = b * p * f + q0 * f;
-  const i64 out_base = b * f * p + q0;
-  const Sig x{xr + in_base, xi + in_base, f, 1};
-  const SigOut y{yr + out_base, yi + out_base, 1, p, nullptr, nullptr, 0, 0};
-  float* mid_re;
-  float* mid_im;
-  if (scr_re != nullptr) {
-    mid_re = scr_re + (i64)blockIdx.x * (f << lgc);
-    mid_im = scr_im + (i64)blockIdx.x * (f << lgc);
-  } else {
-    mid_re = reinterpret_cast<float*>(smem + 2 * BK * LDS);
-    mid_im = mid_re + (f << lgc);
-  }
-  four_step_tile(n1, lg1, n2, lg2, lgc, w1r, w1i, t4r, t4i, w2r, w2i, x, y,
-                 true, mid_re, mid_im, smem);
-}
-
-static int log2_exact(i64 v) {
-  int lg = 0;
-  while ((1LL << lg) < v) ++lg;
-  return (1LL << lg) == v ? lg : -1;
-}
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
 
 static bool grid_ok(i64 blocks) { return blocks >= 1 && blocks <= 0x7fffffff; }
 
@@ -187,108 +535,114 @@ static cudaError_t set_smem(const void* kernel, i64 smem) {
                               (int)smem);
 }
 
-static cudaError_t cols_direct(i64 R, i64 P, i64 f, i64 s, i64 w,
-                               const void* wr, const void* wi, const void* xr,
-                               const void* xi, const void* tr, const void* ti,
-                               void* yr, void* yi, void* stream) {
-  const i64 blocks = R * cdiv(f, BM) * cdiv(s, BN);
-  if (f < 1 || f > 0x7fffffff || s < 1 || s > 0x7fffffff || P < 1 ||
-      R % P != 0 || w < 1 || s % w != 0 || !grid_ok(blocks))
-    return cudaErrorInvalidValue;
-  const int lgw = log2_exact(w);
-  if (lgw >= 0)
-    cols_direct_kernel<PlainStore><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (int)f, s, P, lgw, PlainStore(), (const float*)wr, (const float*)wi,
-        (const float*)xr, (const float*)xi, (const float*)tr, (const float*)ti,
-        (float*)yr, (float*)yi);
-  else
-    cols_direct_kernel<TwDiv><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (int)f, s, P, 0, TwDiv{s / w, (int)w}, (const float*)wr, (const float*)wi,
-        (const float*)xr, (const float*)xi, (const float*)tr, (const float*)ti,
-        (float*)yr, (float*)yi);
-  return cudaGetLastError();
-}
-
-
-template <bool DIV>
-static cudaError_t cols_fused_launch(i64 blocks, i64 smem, int lg1, int lg2,
-                                     i64 n1, i64 n2, i64 lgc, i64 s, i64 P,
-                                     int lgw, i64 w, const void* w1r,
-                                     const void* w1i, const void* t4r,
-                                     const void* t4i, const void* w2r,
-                                     const void* w2i, const void* xr,
-                                     const void* xi, const void* tr,
-                                     const void* ti, void* yr, void* yi,
-                                     void* scr_re, void* scr_im, void* stream) {
-  cudaError_t err = set_smem((const void*)&cols_fused_kernel<DIV>, smem);
+template <int T, int E, int MB>
+static cudaError_t cols_tile(i64 R, int lgf, i64 s, float scale, const void* wr, const void* wi,
+                             const void* xr, const void* xi, const Twiddle& tw, void* yr,
+                             void* yi, cudaStream_t st) {
+  const int lgc = log2_exact(T * E) - lgf;
+  const i64 chunks = (s + (1LL << lgc) - 1) >> lgc;
+  if (lgc < 0 || !grid_ok(R * chunks)) return cudaErrorInvalidValue;
+  const i64 smem = radix_smem_bytes(T * E);
+  const cudaError_t err = set_smem((const void*)&cols_radix_kernel<T, E, MB>, smem);
   if (err != cudaSuccess) return err;
-  cols_fused_kernel<DIV><<<(unsigned)blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (int)n1, lg1, (int)n2, lg2, (int)lgc, s, P, lgw, w, (const float*)w1r,
-      (const float*)w1i, (const float*)t4r, (const float*)t4i,
-      (const float*)w2r, (const float*)w2i, (const float*)xr, (const float*)xi,
-      (const float*)tr, (const float*)ti, (float*)yr, (float*)yi,
-      (float*)scr_re, (float*)scr_im);
+  cols_radix_kernel<T, E, MB><<<(unsigned)(R * chunks), T, (size_t)smem, st>>>(
+      lgf, lgc, s, chunks, scale, (const float*)xr, (const float*)xi, (const float*)wr,
+      (const float*)wi, tw, (float*)yr, (float*)yi);
   return cudaGetLastError();
 }
 
-static cudaError_t cols_fused(i64 R, i64 P, i64 n1, i64 n2, i64 s, i64 lgc,
-                              i64 w, const void* w1r, const void* w1i,
-                              const void* t4r, const void* t4i,
-                              const void* w2r, const void* w2i,
-                              const void* xr, const void* xi, const void* tr,
-                              const void* ti, void* yr, void* yi,
-                              void* scr_re, void* scr_im, void* stream) {
-  const int lg1 = log2_exact(n1), lg2 = log2_exact(n2);
-  if (lg1 < 0 || lg2 < 0 || lgc < 0 || s < 1 || P < 1 || R % P != 0 ||
-      w < 1 || s % w != 0 || (w > 1 && w % (1LL << lgc) != 0) ||
-      (log2_exact(w) < 0 && s > 0x7fffffff))
-    return cudaErrorInvalidValue;
-  // One block per chunk of 2^lgc columns, the last one of each group ragged
-  // when s is no multiple of it; the scratch slab holds n1.n2.2^lgc floats
-  // per block and plane.
-  const i64 blocks = R * ((s + (1LL << lgc) - 1) >> lgc);
-  if (!grid_ok(blocks)) return cudaErrorInvalidValue;
-  const i64 smem =
-      scr_re != nullptr ? TILE_SMEM_BYTES : four_step_smem_bytes(n1 * n2, (int)lgc);
-  const int lgw = log2_exact(w);
-  if (lgw >= 0)
-    return cols_fused_launch<false>(blocks, smem, lg1, lg2, n1, n2, lgc, s, P,
-                                    lgw, w, w1r, w1i, t4r, t4i, w2r, w2i, xr,
-                                    xi, tr, ti, yr, yi, scr_re, scr_im, stream);
-  return cols_fused_launch<true>(blocks, smem, lg1, lg2, n1, n2, lgc, s, P, 0,
-                                 w, w1r, w1i, t4r, t4i, w2r, w2i, xr, xi, tr,
-                                 ti, yr, yi, scr_re, scr_im, stream);
+template <int T, int E, int MB>
+static cudaError_t rows_tile(i64 B, int lgf, i64 p, float scale, const void* wr, const void* wi,
+                             const void* xr, const void* xi, void* yr, void* yi,
+                             cudaStream_t st) {
+  const int lgc = log2_exact(T * E) - lgf;
+  const i64 chunks = (p + (1LL << lgc) - 1) >> lgc;
+  if (lgc < 0 || !grid_ok(B * chunks)) return cudaErrorInvalidValue;
+  const i64 smem = radix_smem_bytes(T * E);
+  const cudaError_t err = set_smem((const void*)&rows_radix_kernel<T, E, MB>, smem);
+  if (err != cudaSuccess) return err;
+  rows_radix_kernel<T, E, MB><<<(unsigned)(B * chunks), T, (size_t)smem, st>>>(
+      lgf, lgc, p, chunks, scale, (const float*)xr, (const float*)xi, (const float*)wr,
+      (const float*)wi, (float*)yr, (float*)yi);
+  return cudaGetLastError();
 }
 
-extern "C" int repro_cols_pass_direct(i64 R, i64 f, i64 s, i64 tw_every,
-                                      const void* wr, const void* wi,
-                                      const void* xr, const void* xi,
-                                      const void* tr, const void* ti, void* yr,
-                                      void* yi, void* stream) {
-  return (int)cols_direct(R, 1, f, s, tw_every, wr, wi, xr, xi, tr, ti, yr, yi,
-                          stream);
+// The slab form's factors: 1024 <= f = n1 n2 with 8 <= n1, n2 <= 1024, so
+// each phase's 8192-point tiles hold whole groups of 8 signals and cover
+// the phase exactly.
+static bool slab_ok(int lgf, int lg1) {
+  return lgf >= 10 && lg1 >= 3 && lg1 <= 10 && lgf - lg1 >= 3 && lgf - lg1 <= 10;
 }
 
-extern "C" int repro_cols_pass_fused(i64 R, i64 n1, i64 n2, i64 s, i64 lgc,
-                                     i64 tw_every, const void* w1r,
-                                     const void* w1i,
-                                     const void* t4r, const void* t4i,
-                                     const void* w2r, const void* w2i,
-                                     const void* xr, const void* xi,
-                                     const void* tr, const void* ti, void* yr,
-                                     void* yi, void* scr_re, void* scr_im,
-                                     void* stream) {
-  return (int)cols_fused(R, 1, n1, n2, s, lgc, tw_every, w1r, w1i, t4r, t4i,
-                         w2r, w2i, xr, xi, tr, ti, yr, yi, scr_re, scr_im,
-                         stream);
+// wr/wi: the f f-th roots of the direction; inverse != 0 scales by 1/f;
+// tr/ti: the (f, s / tw_every) twiddle grid or null; tile: log2 of the
+// on-chip tile's points (12, 13, 14), or 0 for the four-step of factor n1
+// through the slab mr/mi (8 f points per block of 8 columns).
+extern "C" int repro_cols_pass(i64 R, i64 f, i64 s, i64 tw_every, i64 n1, i64 tile, i64 inverse,
+                               const void* wr, const void* wi, const void* xr, const void* xi,
+                               const void* tr, const void* ti, void* yr, void* yi, void* mr,
+                               void* mi, void* stream) {
+  const int lgf = log2_exact(f);
+  if (R < 1 || lgf < 0 || lgf > 16 || s < 1 || s > 0x7fffffff || tw_every < 1 ||
+      s % tw_every != 0)
+    return (int)cudaErrorInvalidValue;
+  const int lgw = log2_exact(tw_every);
+  const Twiddle tw{(const float*)tr, (const float*)ti, lgw >= 0 ? s >> lgw : s / tw_every, lgw,
+                   (int)tw_every};
+  const float scale = inverse != 0 ? 1.f / (float)f : 1.f;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tile == 12) return (int)cols_tile<T12, 4096 / T12, MB12>(R, lgf, s, scale, wr, wi, xr, xi, tw, yr, yi, st);
+  if (tile == 13) return (int)cols_tile<T13, 8192 / T13, MB13>(R, lgf, s, scale, wr, wi, xr, xi, tw, yr, yi, st);
+  if (tile == 14) return (int)cols_tile<T14, 16384 / T14, MB14>(R, lgf, s, scale, wr, wi, xr, xi, tw, yr, yi, st);
+  const int lg1 = log2_exact(n1);
+  const i64 chunks = (s + 7) >> LGQ;
+  if (tile != 0 || mr == nullptr || !slab_ok(lgf, lg1) || !grid_ok(R * chunks))
+    return (int)cudaErrorInvalidValue;
+  const i64 smem = radix_smem_bytes(1 << SL_LGM);
+  const cudaError_t err = set_smem((const void*)&cols_slab_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cols_slab_kernel<<<(unsigned)(R * chunks), SL_T, (size_t)smem, st>>>(
+      lgf, lg1, s, chunks, scale, (const float*)xr, (const float*)xi, (const float*)wr,
+      (const float*)wi, tw, (float*)yr, (float*)yi, (float*)mr, (float*)mi);
+  return (int)cudaGetLastError();
+}
+
+// As repro_cols_pass, for the (B, p, f) -> (B, f, p) row pass (f >= 2).
+extern "C" int repro_rows_natural(i64 B, i64 p, i64 f, i64 n1, i64 tile, i64 inverse,
+                                  const void* wr, const void* wi, const void* xr, const void* xi,
+                                  void* yr, void* yi, void* mr, void* mi, void* stream) {
+  const int lgf = log2_exact(f);
+  if (B < 1 || p < 1 || lgf < 1 || lgf > 16) return (int)cudaErrorInvalidValue;
+  const float scale = inverse != 0 ? 1.f / (float)f : 1.f;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tile == 12) return (int)rows_tile<T12, 4096 / T12, MB12>(B, lgf, p, scale, wr, wi, xr, xi, yr, yi, st);
+  if (tile == 13) return (int)rows_tile<T13, 8192 / T13, MB13>(B, lgf, p, scale, wr, wi, xr, xi, yr, yi, st);
+  if (tile == 14) return (int)rows_tile<T14, 16384 / T14, MB14>(B, lgf, p, scale, wr, wi, xr, xi, yr, yi, st);
+  const int lg1 = log2_exact(n1);
+  const i64 chunks = (p + 7) >> LGQ;
+  if (tile != 0 || mr == nullptr || !slab_ok(lgf, lg1) || !grid_ok(B * chunks))
+    return (int)cudaErrorInvalidValue;
+  const i64 smem = radix_smem_bytes(1 << SL_LGM);
+  const cudaError_t err = set_smem((const void*)&rows_slab_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  rows_slab_kernel<<<(unsigned)(B * chunks), SL_T, (size_t)smem, st>>>(
+      lgf, lg1, p, chunks, scale, (const float*)xr, (const float*)xi, (const float*)wr,
+      (const float*)wi, (float*)yr, (float*)yi, (float*)mr, (float*)mi);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int repro_cols_natural_direct(i64 B, i64 P, i64 f, i64 w,
                                          const void* wr, const void* wi,
                                          const void* xr, const void* xi,
                                          void* yr, void* yi, void* stream) {
-  return (int)cols_direct(B * P, P, f, w, 1, wr, wi, xr, xi, nullptr, nullptr,
-                          yr, yi, stream);
+  const i64 R = B * P;
+  const i64 blocks = R * cdiv(f, BM) * cdiv(w, BN);
+  if (f < 1 || f > 0x7fffffff || w < 1 || w > 0x7fffffff || P < 1 || !grid_ok(blocks))
+    return (int)cudaErrorInvalidValue;
+  cols_direct_kernel<PlainStore><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (int)f, w, P, 0, PlainStore(), (const float*)wr, (const float*)wi, (const float*)xr,
+      (const float*)xi, nullptr, nullptr, (float*)yr, (float*)yi);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int repro_cols_natural_fused(i64 B, i64 P, i64 n1, i64 n2, i64 w,
@@ -299,58 +653,39 @@ extern "C" int repro_cols_natural_fused(i64 B, i64 P, i64 n1, i64 n2, i64 w,
                                         const void* xi, void* yr, void* yi,
                                         void* scr_re, void* scr_im,
                                         void* stream) {
-  return (int)cols_fused(B * P, P, n1, n2, w, lgc, 1, w1r, w1i, t4r, t4i, w2r,
-                         w2i, xr, xi, nullptr, nullptr, yr, yi, scr_re,
-                         scr_im, stream);
-}
-
-extern "C" int repro_rows_natural_direct(i64 B, i64 p, i64 f, const void* wr,
-                                         const void* wi, const void* xr,
-                                         const void* xi, void* yr, void* yi,
-                                         void* stream) {
-  const i64 blocks = B * cdiv(f, BM) * cdiv(p, BN);
-  if (f < 1 || f > 0x7fffffff || p > 0x7fffffff || !grid_ok(blocks))
-    return (int)cudaErrorInvalidValue;
-  rows_direct_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (int)f, p, (const float*)wr, (const float*)wi, (const float*)xr,
-      (const float*)xi, (float*)yr, (float*)yi);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int repro_rows_natural_fused(i64 B, i64 p, i64 n1, i64 n2, i64 lgc,
-                                        const void* w1r, const void* w1i,
-                                        const void* t4r, const void* t4i,
-                                        const void* w2r, const void* w2i,
-                                        const void* xr, const void* xi,
-                                        void* yr, void* yi, void* scr_re,
-                                        void* scr_im, void* stream) {
   const int lg1 = log2_exact(n1), lg2 = log2_exact(n2);
-  if (lg1 < 0 || lg2 < 0 || lgc < 0 || p % (1LL << lgc) != 0)
-    return (int)cudaErrorInvalidValue;
-  const i64 blocks = B * (p >> lgc);
+  if (lg1 < 0 || lg2 < 0 || lgc < 0 || w < 1 || P < 1) return (int)cudaErrorInvalidValue;
+  // One block per chunk of 2^lgc columns, the last one of each group ragged
+  // when w is no multiple of it; the scratch slab holds n1.n2.2^lgc floats
+  // per block and plane.
+  const i64 blocks = B * P * ((w + (1LL << lgc) - 1) >> lgc);
   if (!grid_ok(blocks)) return (int)cudaErrorInvalidValue;
   const i64 smem =
       scr_re != nullptr ? TILE_SMEM_BYTES : four_step_smem_bytes(n1 * n2, (int)lgc);
-  cudaError_t err = set_smem((const void*)rows_fused_kernel, smem);
+  const cudaError_t err = set_smem((const void*)&cols_fused_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  rows_fused_kernel<<<(unsigned)blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (int)n1, lg1, (int)n2, lg2, (int)lgc, p, (const float*)w1r,
-      (const float*)w1i, (const float*)t4r, (const float*)t4i,
-      (const float*)w2r, (const float*)w2i, (const float*)xr, (const float*)xi,
-      (float*)yr, (float*)yi, (float*)scr_re, (float*)scr_im);
+  cols_fused_kernel<false><<<(unsigned)blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+      (int)n1, lg1, (int)n2, lg2, (int)lgc, w, P, 0, 1, (const float*)w1r, (const float*)w1i,
+      (const float*)t4r, (const float*)t4i, (const float*)w2r, (const float*)w2i,
+      (const float*)xr, (const float*)xi, nullptr, nullptr, (float*)yr, (float*)yi,
+      (float*)scr_re, (float*)scr_im);
   return (int)cudaGetLastError();
 }
 
 static const KernelEntry ATTRS[] = {
+    {"cols_radix_kernel<256, 16>", (const void*)&cols_radix_kernel<T12, 4096 / T12, MB12>},
+    {"cols_radix_kernel<512, 16>", (const void*)&cols_radix_kernel<T13, 8192 / T13, MB13>},
+    {"cols_radix_kernel<1024, 16>", (const void*)&cols_radix_kernel<T14, 16384 / T14, MB14>},
+    {"cols_slab_kernel", (const void*)&cols_slab_kernel},
+    {"rows_radix_kernel<256, 16>", (const void*)&rows_radix_kernel<T12, 4096 / T12, MB12>},
+    {"rows_radix_kernel<512, 16>", (const void*)&rows_radix_kernel<T13, 8192 / T13, MB13>},
+    {"rows_radix_kernel<1024, 16>", (const void*)&rows_radix_kernel<T14, 16384 / T14, MB14>},
+    {"rows_slab_kernel", (const void*)&rows_slab_kernel},
     {"cols_direct_kernel", (const void*)&cols_direct_kernel<PlainStore>},
-    {"cols_direct_kernel<TwDiv>", (const void*)&cols_direct_kernel<TwDiv>},
     {"cols_fused_kernel", (const void*)&cols_fused_kernel<false>},
-    {"cols_fused_kernel<DIV>", (const void*)&cols_fused_kernel<true>},
-    {"rows_direct_kernel", (const void*)&rows_direct_kernel},
-    {"rows_fused_kernel", (const void*)&rows_fused_kernel},
 };
 
 extern "C" int repro_attrs_pencil(int i, const char** name, i64* regs,
                                   i64* local) {
-  return kernel_attributes(ATTRS, 6, i, name, regs, local);
+  return kernel_attributes(ATTRS, 10, i, name, regs, local);
 }

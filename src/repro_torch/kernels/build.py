@@ -288,12 +288,16 @@ RECORDED_ATTRS = {
     "fft4step_kernel<512, 16>": (64, 0),
     "fft4step_kernel<1024, 16>": (64, 0),
     "fft4step_slab_kernel": (64, 0),
+    "cols_radix_kernel<256, 16>": (64, 0),
+    "cols_radix_kernel<512, 16>": (64, 0),
+    "cols_radix_kernel<1024, 16>": (64, 0),
+    "cols_slab_kernel": (64, 0),
+    "rows_radix_kernel<256, 16>": (63, 0),
+    "rows_radix_kernel<512, 16>": (63, 0),
+    "rows_radix_kernel<1024, 16>": (63, 0),
+    "rows_slab_kernel": (64, 0),
     "cols_direct_kernel": (94, 0),
-    "cols_direct_kernel<TwDiv>": (94, 0),
     "cols_fused_kernel": (127, 0),
-    "cols_fused_kernel<DIV>": (127, 0),
-    "rows_direct_kernel": (128, 0),
-    "rows_fused_kernel": (80, 8),
     "rfft_recomb_kernel": (24, 0),
     "irfft_recomb_kernel": (20, 0),
     "bluestein_fwd_direct_kernel": (79, 0),

@@ -30,17 +30,18 @@ each kernel wrapper takes its plain version, so a CPU run walks the same
 program one plain call per pass.
 
 LUTs are device-resident: the float64 host tables of ``core/twiddle.py``
-are uploaded once per (device, sizes, direction) and kept.  A whole-signal
-row pass (``dft_matmul``, ``fft4step``: every one-pass plan and the row
-half of a 2-D program) reads one table of n-th roots
-(:func:`_roots_luts`, 8n bytes), and its kernel applies the inverse's 1/n at
-the store: these two radix kernels differ from the rule of the others.
-Every other pass reads DFT-matrix LUTs with the inverse transform's 1/f
-folded into each pass's transform LUT exactly as the reference folds it (W
-for the direct tile, W2 for the four-step tile), so the factors of a
-program multiply to 1/n.  A Bluestein pass carries the chirp tables of the
-outer direction and the inner transform's LUTs of its own (forward, then
-inverse with 1/M folded in).
+are uploaded once per (device, sizes, direction) and kept.  The radix
+kernels (``dft_matmul``, ``fft4step``, ``cols_pass``, ``rows_natural``:
+every one-pass plan, both passes of a two-pass plan, every column pass of
+a 2-D program but the strip-mined last factor) read one table of f-th
+roots of their transform length (:func:`_roots_luts`, 8f bytes), and each
+applies the inverse's 1/f at its store.  ``cols_natural`` reads
+DFT-matrix LUTs with the inverse's 1/f folded into its transform LUT
+exactly as the reference folds it (W for the direct tile, W2 for the
+four-step tile).  Either way the factors of a program multiply to 1/n.  A
+Bluestein pass carries the chirp tables of the outer direction and the
+inner transform's DFT-matrix LUTs of its own (forward, then inverse with
+1/M folded in).
 """
 
 from __future__ import annotations
@@ -82,9 +83,13 @@ def _upload(planes, device: str) -> tuple:
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in planes)
 
 
+#: The kernels that read the roots table of their transform length.
+RADIX_KERNELS = ("dft_matmul", "fft4step", "cols_pass", "rows_natural")
+
+
 @functools.lru_cache(maxsize=64)
 def _roots_luts(device: str, n: int, inverse: bool) -> tuple:
-    """The (n,) roots table of a whole-signal row pass (no 1/n folded)."""
+    """The (n,) roots table of a radix pass (no 1/n folded)."""
     return _upload(tw.roots(n, inverse), device)
 
 
@@ -208,8 +213,8 @@ def plan_kernels(fft_plan: plan_lib.FFTPlan, axis: int = -1) -> tuple:
 
 def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1) -> tuple:
     """Upload (or find) every LUT the plan's passes read on ``device`` when
-    it runs over ``axis``: the roots table for a whole-signal row pass, the
-    DFT-matrix LUTs for the pencil and column passes."""
+    it runs over ``axis``: the roots table for a radix pass, the DFT-matrix
+    LUTs for ``cols_natural``, and each pass's inter-factor twiddle."""
     dev = device_key(device)
     luts = []
     for p, kernel in zip(fft_plan.passes, plan_kernels(fft_plan, axis)):
@@ -217,7 +222,7 @@ def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1)
         if p.kind == "bluestein":
             luts.extend(_bluestein_luts(dev, p, eff))
             continue
-        if kernel in ("dft_matmul", "fft4step"):
+        if kernel in RADIX_KERNELS:
             luts.extend(_roots_luts(dev, p.n, eff))
         else:
             luts.extend(_transform_luts(dev, p, eff))
@@ -256,12 +261,11 @@ def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
             xr, xi, *_roots_luts(dev, n, inverse), n1=p.n1, inverse=inverse,
             natural_order=p.order == "natural",
         )
-    luts = _transform_luts(dev, p, inverse)
+    roots = _roots_luts(dev, f, inverse)
     if kernel == "rows_natural":
         # (b, p, f) → (b, f, p) flattens to natural order.
         yr, yi = pencil.rows_natural_call(
-            xr.view(b, pencils, f), xi.view(b, pencils, f), luts,
-            kind=p.kind, n1=p.n1, n2=p.n2,
+            xr.view(b, pencils, f), xi.view(b, pencils, f), *roots, n1=p.n1, inverse=inverse,
         )
         return yr.view(b, n), yi.view(b, n)
     groups = pencils // stride
@@ -269,8 +273,8 @@ def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     if p.twiddle_after is not None:
         twiddle = _pass_twiddle_luts(dev, *p.twiddle_after, inverse)
     yr, yi = pencil.cols_pass_call(
-        xr.view(b * groups, f, stride), xi.view(b * groups, f, stride), luts, twiddle,
-        kind=p.kind, n1=p.n1, n2=p.n2,
+        xr.view(b * groups, f, stride), xi.view(b * groups, f, stride), *roots, twiddle,
+        n1=p.n1, inverse=inverse,
     )
     return yr.view(b, n), yi.view(b, n)
 
@@ -293,10 +297,9 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     dev = device_key(xr.device)
     b, rows, w = xr.shape
     pencils, stride, f = p.view_in
-    luts = _transform_luts(dev, p, inverse)
-    kw = dict(kind=p.kind, n1=p.n1, n2=p.n2)
     if pencils == 1 or f == rows:
-        return pencil.cols_pass_call(xr, xi, luts, **kw)
+        return pencil.cols_pass_call(xr, xi, *_roots_luts(dev, f, inverse), n1=p.n1,
+                                     inverse=inverse)
     if kernel == "cols_pass":
         # Strided column factor (strip-mined columns have two factors):
         # n2-index t·stride + r, transform over t; the twiddle phase depends
@@ -305,12 +308,13 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
         if p.twiddle_after is not None:
             twiddle = _pass_twiddle_luts(dev, *p.twiddle_after, inverse)
         yr, yi = pencil.cols_pass_call(
-            xr.view(b, f, stride * w), xi.view(b, f, stride * w), luts, twiddle,
-            tw_every=w, **kw,
+            xr.view(b, f, stride * w), xi.view(b, f, stride * w), *_roots_luts(dev, f, inverse),
+            twiddle, n1=p.n1, inverse=inverse, tw_every=w,
         )
     else:
         yr, yi = pencil.cols_natural_call(
-            xr.view(b, pencils, f, w), xi.view(b, pencils, f, w), luts, **kw
+            xr.view(b, pencils, f, w), xi.view(b, pencils, f, w), _transform_luts(dev, p, inverse),
+            kind=p.kind, n1=p.n1, n2=p.n2,
         )
     return yr.view(b, rows, w), yi.view(b, rows, w)
 

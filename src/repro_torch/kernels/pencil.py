@@ -1,34 +1,39 @@
 """Pass kernels of the split regime (n > 65536) and of the 2-D programs.
 
-``cols_pass_call`` — CUDA kernel in ``csrc/pencil.cu``, replacing the TPU
-kernel ``cols_pass_call`` (``src/repro/kernels/pencil.py:102``): on an
-(R, f, s) view, a length-f transform down the middle axis of every column,
-times the inter-factor twiddle ``T[k, c]`` (an (f, s) LUT streamed once).
-``tw_every`` is the width-broadcast mode of a strip-mined 2-D column
-program: the twiddle is an (f, s / tw_every) grid whose column
-``c // tw_every`` serves a run of ``tw_every`` image columns, for any
-image width (a power of two by shift, any other by division).  ``s`` may be
-any width (an rfft2 half-spectrum is m + 1 columns): the four-step
-kernel's ragged last chunk takes its columns one at a time, with no padded
-copy.
+``cols_pass_call`` — CUDA kernel in ``csrc/pencil.cu`` (engine
+``csrc/radix.cuh``), replacing the TPU kernel ``cols_pass_call``
+(``src/repro/kernels/pencil.py:102``): on an (R, f, s) view, a length-f
+FFT down the middle axis of every column, times the inter-factor twiddle
+``T[k, c]`` (an (f, s) LUT streamed once).  ``tw_every`` is the
+width-broadcast mode of a strip-mined 2-D column program: the twiddle is an
+(f, s / tw_every) grid whose column ``c // tw_every`` serves a run of
+``tw_every`` image columns, for any image width (a power of two by shift,
+any other by division).  ``s`` may be any width (an rfft2 half-spectrum is
+m + 1 columns): the last chunk of columns is masked, with no padded copy.
+
+``rows_natural_call`` — CUDA kernel in ``csrc/pencil.cu`` (engine
+``csrc/radix.cuh``), replacing ``rows_natural_call``
+(``src/repro/kernels/pencil.py:178``): on a (B, p, f) view, a length-f FFT
+of every row written transposed to (B, f, p), so the program's output lands
+in natural order with no transpose pass.
+
+Both are radix FFTs, as ``dft_matmul`` and ``fft4step`` are since their
+redesign: they read the (f,) roots table of the direction
+(:func:`repro_torch.core.twiddle.roots`) and apply the inverse's 1/f at
+the store.  A block transforms one on-chip tile of 2^t / f adjacent
+columns (rows), t = 12, 13 or 14, each point read once and written once,
+or runs the four-step f = n1·n2 for 8 adjacent columns (rows) through a
+global scratch slab (two round trips); :data:`COLS_TILE` /
+:data:`ROWS_TILE` pick the form per f (the slab from 4096 points).
 
 ``cols_natural_call`` — CUDA kernel in ``csrc/pencil.cu``, replacing
 ``cols_natural_call`` (``src/repro/kernels/pencil.py:234``): on a
 (B, P, f, w) view, a length-f transform down axis 2, written as
 (B, f, P, w) — the n2-axis digit transpose of a strip-mined column program
-fused into the write.  It is the column kernel with the output view changed.
-
-``rows_natural_call`` — CUDA kernel in ``csrc/pencil.cu``, replacing
-``rows_natural_call`` (``src/repro/kernels/pencil.py:178``): on a (B, p, f)
-view, a length-f transform of every row written transposed to (B, f, p),
-so the program's output lands in natural order with no transpose pass.
-
-These embed the direct (f ≤ 1024) or four-step tile, as the reference's
-``_tile_transform`` does, and are bound by fp32 arithmetic on the H100.
-Loads and stores run along the contiguous axis — s (w) for the columns, the
-output's p for the transposed rows — with 8-signal chunks (one 32-byte
-sector per plane) in the four-step form.  The kernels write a new output
-rather than the reference's in-place update.
+fused into the write.  It keeps the DFT-matrix GEMM tiles (the direct
+f ≤ 1024 or the four-step tile, as the reference's ``_tile_transform``)
+and their LUTs with the inverse's 1/f folded in, 8-column chunks, the
+intermediate in shared memory while it fits and in a scratch slab beyond.
 
 ``rfft_recomb_call`` / ``irfft_recomb_call`` — CUDA kernels in
 ``csrc/recomb.cu``, replacing ``rfft_recomb_call`` / ``irfft_recomb_call``
@@ -39,19 +44,22 @@ They are bound by bytes.
 
 Each ``*_plain`` function is the same computation in plain PyTorch; each
 ``*_call`` takes it for a CPU tensor, and for a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  The kernels write a new output rather than the
+reference's in-place update.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import fft_torch
-from repro_torch.core.fft_torch import cmul
+from repro_torch.core import plan as plan_lib
+from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
 from repro_torch.kernels.dft_matmul import dft_tile
-from repro_torch.kernels.fft4step import chunk_log2, four_step_tile, scratch_planes
+from repro_torch.kernels.fft4step import four_step_tile, scratch_planes
 
 __all__ = [
     "COUNTS",
@@ -81,26 +89,46 @@ COUNTS = {
     "irfft_recomb_plain": 0,
 }
 
-#: Signals per four-step block in the pass kernels: 8 floats = one 32-byte
+#: Signals per four-step block of ``cols_natural``: 8 floats = one 32-byte
 #: sector per plane along the contiguous axis.
 CHUNK = 8
 
+#: The form of ``cols_pass`` / ``rows_natural`` by log2 f: log2 of the
+#: on-chip tile's points (12, 13 or 14; the tile holds 2^t / f signals), or
+#: :data:`SLAB`, the four-step through the scratch slab.  Each entry is the
+#: form measured fastest on the H100 at the lengths the programs give the
+#: kernels (PERF.md, ``scripts/kernel_ab.py --forms``): the 2^13 tile at
+#: f = 512 and 1024 (shorter lengths, unmeasured, take it too), the 2^14
+#: tile at 2048 (8 signals), and the slab from 4096, where an on-chip tile
+#: holds fewer than 8 signals and its strided accesses split sectors.
+SLAB = 0
+COLS_TILE = {**{lg: 13 for lg in range(0, 11)}, 11: 14, **{lg: SLAB for lg in range(12, 17)}}
+ROWS_TILE = {**{lg: 13 for lg in range(1, 11)}, 11: 14, **{lg: SLAB for lg in range(12, 17)}}
+
+#: The longest column or row the radix passes take; the slab form's range
+#: of each four-step factor and its shortest length (each phase's
+#: 8192-point tiles hold whole groups of 8 signals and cover the phase).
+MAX_F = 65536
+SLAB_FACTORS = (8, 1024)
+SLAB_MIN_F = 1024
+
+#: Columns (rows) per block of the slab form: one 32-byte sector per plane.
+SLAB_GROUP = 8
+
 _P = build.PTR
 _I = build.I64
-_COLS_DIRECT = (_I,) * 4 + (_P,) * 9
-_COLS_FUSED = (_I,) * 6 + (_P,) * 15
+_COLS = (_I,) * 7 + (_P,) * 11
+_ROWS = (_I,) * 6 + (_P,) * 9
 _NATURAL_DIRECT = (_I,) * 4 + (_P,) * 7
 _NATURAL_FUSED = (_I,) * 6 + (_P,) * 13
-_ROWS_DIRECT = (_I,) * 3 + (_P,) * 7
-_ROWS_FUSED = (_I,) * 5 + (_P,) * 13
 _RECOMB = (_I,) * 2 + (_P,) * 7
 
 
 def column_chunk_log2(s: int, want: int = CHUNK) -> int:
-    """log2 of the columns per four-step block: ``want`` (a power of two),
-    cut to the power of two at or above ``s``.  A width that is no multiple
-    of the chunk ends in a ragged chunk, whose block transforms its columns
-    one at a time."""
+    """log2 of the columns per four-step block of ``cols_natural``:
+    ``want`` (a power of two), cut to the power of two at or above ``s``.
+    A width that is no multiple of the chunk ends in a ragged chunk, whose
+    block transforms its columns one at a time."""
     c = min(want, 1 << max(s - 1, 0).bit_length())
     return c.bit_length() - 1
 
@@ -146,15 +174,51 @@ def _check_tw_every(s: int, tw_every: int) -> None:
         raise PlanError(f"cols_pass: tw_every={tw_every} must divide the width {s}")
 
 
-def cols_pass_plain(xr, xi, luts, twiddle=None, *, kind: str, n1: int = 0, n2: int = 0,
-                    tw_every: int = 1):
-    """Plain PyTorch version of the column pass (any device)."""
+def _check_radix(name, xr, xi, x_shape, rr, ri, f, n1, twiddle=None, tw_shape=None):
+    """The radix passes' operands: a power-of-two f up to :data:`MAX_F`
+    (rows: at least 2), its (f,) roots table, and a slab factor n1 (0: the
+    balanced split) whose two factors lie in :data:`SLAB_FACTORS`."""
+    least = 2 if name == "rows_natural" else 1
+    if f < least or f & (f - 1) or f > MAX_F:
+        raise PlanError(f"{name}: length {f} is not a power of two from {least} to {MAX_F}")
+    lo, hi = SLAB_FACTORS
+    if n1 and (n1 & (n1 - 1) or not lo <= n1 <= hi or not lo <= f // n1 <= hi):
+        raise PlanError(f"{name}: n1={n1} is not a power-of-two factor of f={f} "
+                        f"with both factors from {lo} to {hi}")
+    ops = {"xr": (xr, x_shape), "xi": (xi, x_shape), "rr": (rr, (f,)), "ri": (ri, (f,))}
+    if twiddle is not None:
+        ops.update(tr=(twiddle[0], tw_shape), ti=(twiddle[1], tw_shape))
+    build.check_planes(name, xr, **ops)
+    if xr.device.type not in ("cpu", "cuda"):
+        raise PlanError(f"{name} runs on cuda or cpu tensors, got {xr.device}")
+
+
+def _tile_for(table: dict, f: int, tile):
+    return table[f.bit_length() - 1] if tile is None else tile
+
+
+def _slab_split(f: int, n1: int, tile: int) -> int:
+    """The four-step's n1 of the slab form (0 for an on-chip tile)."""
+    return (n1 or plan_lib.balanced_split(f)[0]) if tile == SLAB else 0
+
+
+def _scale(yr, yi, f: int, inverse: bool):
+    if not inverse:
+        return yr, yi
+    s = np.float32(1.0 / f)
+    return yr * s, yi * s
+
+
+def cols_pass_plain(xr, xi, rr, ri, twiddle=None, *, inverse=False, tw_every: int = 1):
+    """Plain PyTorch version of the column pass (any device): the radix-2
+    Stockham FFT over the roots table down every column, the scale, the
+    twiddle."""
     COUNTS["cols_pass_plain"] += 1
     r, f, s = xr.shape
-    # (R, f, s) → (R·s, f): each column becomes a row of the tile.
-    tr_ = xr.transpose(1, 2).reshape(r * s, f)
-    ti_ = xi.transpose(1, 2).reshape(r * s, f)
-    yr, yi = _tile_transform(tr_, ti_, luts, kind, n1, n2)
+    # (R, f, s) → (R·s, f): each column becomes a row.
+    yr, yi = stockham_fft(xr.transpose(1, 2).reshape(r * s, f),
+                          xi.transpose(1, 2).reshape(r * s, f), roots=(rr, ri))
+    yr, yi = _scale(yr, yi, f, inverse)
     yr = yr.reshape(r, s, f).transpose(1, 2)
     yi = yi.reshape(r, s, f).transpose(1, 2)
     if twiddle is not None:
@@ -166,46 +230,53 @@ def cols_pass_plain(xr, xi, luts, twiddle=None, *, kind: str, n1: int = 0, n2: i
     return yr.contiguous(), yi.contiguous()
 
 
-def cols_pass_call(xr, xi, luts, twiddle=None, *, kind: str, n1: int = 0, n2: int = 0,
+def cols_pass_call(xr, xi, rr, ri, twiddle=None, *, n1: int = 0, inverse=False,
                    tw_every: int = 1):
     """Strided-column transform pass: x (R, f, s) → y (R, f, s) with
-    ``y[r, :, c] = FFT_f(x[r, :, c]) ⊙ T[:, c // tw_every]``.  ``twiddle``
-    is the (f, s / tw_every) inter-factor grid as split planes, or None."""
+    ``y[r, :, c] = FFT_f(x[r, :, c]) ⊙ T[:, c // tw_every]`` (scaled by 1/f
+    for ``inverse``), f a power of two up to 65536.
+
+    ``rr``, ``ri`` — the (f,) roots table of the direction; ``twiddle`` —
+    the (f, s / tw_every) inter-factor grid as split planes, or None;
+    ``n1`` — the planner's first factor, the four-step split of the slab
+    form (0: the balanced split).
+    """
     r, f, s = xr.shape
     _check_tw_every(s, tw_every)
-    _check("cols_pass", kind, xr, xi, (r, f, s), luts, n1, n2, f, twiddle, (f, s // tw_every))
+    _check_radix("cols_pass", xr, xi, (r, f, s), rr, ri, f, n1, twiddle, (f, s // tw_every))
     if xr.device.type == "cpu":
-        return cols_pass_plain(xr, xi, luts, twiddle, kind=kind, n1=n1, n2=n2, tw_every=tw_every)
-    return _launch_cols(xr, xi, luts, twiddle, kind, n1, n2, tw_every)
+        return cols_pass_plain(xr, xi, rr, ri, twiddle, inverse=inverse, tw_every=tw_every)
+    return _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1, tw_every)
 
 
 @build.on_device
-def _launch_cols(xr, xi, luts, twiddle, kind, n1, n2, tw_every=1):
+def _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1=0, tw_every=1, tile=None):
+    """The launch; ``tile`` (12, 13, 14: the on-chip tile's log2 points, or
+    :data:`SLAB`) overrides :data:`COLS_TILE`'s form, for the tests and the
+    form sweep of ``scripts/kernel_ab.py``."""
     r, f, s = xr.shape
+    tile = _tile_for(COLS_TILE, f, tile)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tr, ti = twiddle if twiddle is not None else (None, None)
+    mr = mi = None
+    if tile == SLAB:
+        mr, mi = _slab(xr, r * -(-s // SLAB_GROUP) * SLAB_GROUP * f)
     p = build.ptr
-    if kind == "direct":
-        wr, wi = luts
-        rc = build.function("repro_cols_pass_direct", _COLS_DIRECT)(
-            r, f, s, tw_every, p(wr), p(wi), p(xr), p(xi), p(tr), p(ti), p(yr), p(yi),
-            build.stream_ptr(xr),
-        )
-    else:
-        # A chunk must not straddle two twiddle columns: with tw_every > 1
-        # it divides tw_every.
-        lgc = column_chunk_log2(s)
-        if tw_every > 1:
-            lgc = min(lgc, (tw_every & -tw_every).bit_length() - 1)
-        sr, si = scratch_planes(xr, f, lgc, _fused_blocks(r, s, lgc) << lgc)
-        rc = build.function("repro_cols_pass_fused", _COLS_FUSED)(
-            r, n1, n2, s, lgc, tw_every, *map(p, luts), p(xr), p(xi), p(tr), p(ti),
-            p(yr), p(yi), p(sr), p(si), build.stream_ptr(xr),
-        )
+    rc = build.function("repro_cols_pass", _COLS)(
+        r, f, s, tw_every, _slab_split(f, n1, tile), tile, int(inverse), p(rr), p(ri), p(xr), p(xi),
+        p(tr), p(ti), p(yr), p(yi), p(mr), p(mi), build.stream_ptr(xr),
+    )
     build.check(rc, "cols_pass")
     COUNTS["cols_pass"] += 1
     return yr, yi
+
+
+def _slab(like, numel: int):
+    """The slab form's scratch planes: f points per column (row) of each
+    block's group."""
+    return (torch.empty(numel, dtype=like.dtype, device=like.device),
+            torch.empty(numel, dtype=like.dtype, device=like.device))
 
 
 def cols_natural_plain(xr, xi, luts, *, kind: str, n1: int = 0, n2: int = 0):
@@ -256,44 +327,46 @@ def _launch_cols_natural(xr, xi, luts, kind, n1, n2):
     return yr, yi
 
 
-def rows_natural_plain(xr, xi, luts, *, kind: str, n1: int = 0, n2: int = 0):
-    """Plain PyTorch version of the transposed-write row pass (any device)."""
+def rows_natural_plain(xr, xi, rr, ri, *, inverse=False):
+    """Plain PyTorch version of the transposed-write row pass (any device):
+    the radix-2 Stockham FFT over the roots table, the scale, the
+    transpose."""
     COUNTS["rows_natural_plain"] += 1
     b, p, f = xr.shape
-    yr, yi = _tile_transform(xr.reshape(b * p, f), xi.reshape(b * p, f), luts, kind, n1, n2)
+    yr, yi = stockham_fft(xr.reshape(b * p, f), xi.reshape(b * p, f), roots=(rr, ri))
+    yr, yi = _scale(yr, yi, f, inverse)
     yr = yr.reshape(b, p, f).transpose(1, 2).contiguous()
     yi = yi.reshape(b, p, f).transpose(1, 2).contiguous()
     return yr, yi
 
 
-def rows_natural_call(xr, xi, luts, *, kind: str, n1: int = 0, n2: int = 0):
+def rows_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False):
     """Contiguous-row transform pass with the natural-order transpose fused
-    into its write: x (B, p, f) → y (B, f, p), y[b, k, q] = FFT_f(x[b, q])[k]."""
+    into its write: x (B, p, f) → y (B, f, p), y[b, k, q] = FFT_f(x[b, q])[k]
+    (scaled by 1/f for ``inverse``), f a power of two from 2 to 65536.
+    ``rr``, ``ri``, ``n1`` as :func:`cols_pass_call`'s."""
     b, pp, f = xr.shape
-    _check("rows_natural", kind, xr, xi, (b, pp, f), luts, n1, n2, f)
+    _check_radix("rows_natural", xr, xi, (b, pp, f), rr, ri, f, n1)
     if xr.device.type == "cpu":
-        return rows_natural_plain(xr, xi, luts, kind=kind, n1=n1, n2=n2)
-    return _launch_rows(xr, xi, luts, kind, n1, n2)
+        return rows_natural_plain(xr, xi, rr, ri, inverse=inverse)
+    return _launch_rows(xr, xi, rr, ri, inverse, n1)
 
 
 @build.on_device
-def _launch_rows(xr, xi, luts, kind, n1, n2):
+def _launch_rows(xr, xi, rr, ri, inverse, n1=0, tile=None):
+    """The launch; ``tile`` as :func:`_launch_cols`' (:data:`ROWS_TILE`)."""
     b, pp, f = xr.shape
+    tile = _tile_for(ROWS_TILE, f, tile)
     yr = torch.empty((b, f, pp), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, f, pp), dtype=xr.dtype, device=xr.device)
+    mr = mi = None
+    if tile == SLAB:
+        mr, mi = _slab(xr, b * -(-pp // SLAB_GROUP) * SLAB_GROUP * f)
     p = build.ptr
-    if kind == "direct":
-        wr, wi = luts
-        rc = build.function("repro_rows_natural_direct", _ROWS_DIRECT)(
-            b, pp, f, p(wr), p(wi), p(xr), p(xi), p(yr), p(yi), build.stream_ptr(xr),
-        )
-    else:
-        lgc = chunk_log2(pp, CHUNK)
-        sr, si = scratch_planes(xr, f, lgc)
-        rc = build.function("repro_rows_natural_fused", _ROWS_FUSED)(
-            b, pp, n1, n2, lgc, *map(p, luts), p(xr), p(xi), p(yr), p(yi),
-            p(sr), p(si), build.stream_ptr(xr),
-        )
+    rc = build.function("repro_rows_natural", _ROWS)(
+        b, pp, f, _slab_split(f, n1, tile), tile, int(inverse), p(rr), p(ri), p(xr), p(xi),
+        p(yr), p(yi), p(mr), p(mi), build.stream_ptr(xr),
+    )
     build.check(rc, "rows_natural")
     COUNTS["rows_natural"] += 1
     return yr, yi

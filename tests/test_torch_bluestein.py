@@ -294,9 +294,9 @@ def test_split_regime_through_the_executor(inverse):
     x128 = x.astype(np.complex128)
     assert _rel(_np((yr, yi)), np.fft.ifft(x128) if inverse else np.fft.fft(x128)) <= TOL
     luts = ops.plan_luts(fft_plan, inverse, "cpu")
-    # The inner passes carry forward then inverse transform LUTs (1/f folded).
-    fwd_w = ops._direct_luts("cpu", 32, False)[0]
-    inv_w = ops._direct_luts("cpu", 32, True)[0]
+    # The inner passes carry the forward then the inverse roots table.
+    fwd_w = ops._roots_luts("cpu", 32, False)[0]
+    inv_w = ops._roots_luts("cpu", 32, True)[0]
     assert sum(t is fwd_w for t in luts) == 2 and sum(t is inv_w for t in luts) == 2
 
 

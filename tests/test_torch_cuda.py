@@ -83,16 +83,31 @@ def test_pass_kernels(dev, n):
     b = 2
     x = _planes(dev, b, n)
     _, s, f = cols.view_in
-    luts = ops._transform_luts(dev, cols, False)
+    w = ops._roots_luts(dev, f, False)
     tw = ops._pass_twiddle_luts(dev, *cols.twiddle_after, False)
     xv = (x[0].view(b, f, s), x[1].view(b, f, s))
-    kw = dict(kind=cols.kind, n1=cols.n1, n2=cols.n2)
-    _close(pencil.cols_pass_call(*xv, luts, tw, **kw), pencil.cols_pass_plain(*xv, luts, tw, **kw))
+    _close(pencil.cols_pass_call(*xv, *w, tw, n1=cols.n1), pencil.cols_pass_plain(*xv, *w, tw))
     p, _, f = rows.view_in
-    luts = ops._transform_luts(dev, rows, False)
+    w = ops._roots_luts(dev, f, False)
     xv = (x[0].view(b, p, f), x[1].view(b, p, f))
-    kw = dict(kind=rows.kind, n1=rows.n1, n2=rows.n2)
-    _close(pencil.rows_natural_call(*xv, luts, **kw), pencil.rows_natural_plain(*xv, luts, **kw))
+    _close(pencil.rows_natural_call(*xv, *w, n1=rows.n1), pencil.rows_natural_plain(*xv, *w))
+
+
+@pytest.mark.parametrize("f,tile", [(256, 12), (256, 13), (512, 14), (1024, 13), (2048, 14),
+                                    (4096, 14), (4096, pencil.SLAB), (16384, 14),
+                                    (16384, pencil.SLAB), (65536, pencil.SLAB)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_radix_pass_forms_kernel(dev, f, tile, inverse):
+    """Both radix passes in every form (on-chip tiles of 2^12..2^14 points,
+    the slab four-step) at a ragged width and row count."""
+    w = ops._roots_luts(dev, f, inverse)
+    x = _planes(dev, 2, f, 11)
+    tw = _planes(dev, f, 11, seed=3)
+    kw = dict(inverse=inverse)
+    _close(pencil._launch_cols(*x, *w, tw, inverse, 0, 1, tile),
+           pencil.cols_pass_plain(*x, *w, tw, **kw))
+    x = _planes(dev, 2, 11, f, seed=1)
+    _close(pencil._launch_rows(*x, *w, inverse, 0, tile), pencil.rows_natural_plain(*x, *w, **kw))
 
 
 @pytest.mark.parametrize("n", [2, 1024, 4096, 65536, 1 << 18, 1 << 22])
@@ -122,28 +137,24 @@ def test_recomb_kernels(dev, b, m):
     _close(pencil.irfft_recomb_call(*x, *inv), pencil.irfft_recomb_plain(*x, *inv))
 
 
-@pytest.mark.parametrize("r,f,s,kind,tw_every", [
-    (2, 512, 256 * 16, "direct", 16), (1, 2048, 64 * 32, "fused4", 32), (1, 4096, 16 * 4, "fused4", 4),
+@pytest.mark.parametrize("r,f,s,tile,tw_every", [
+    (2, 512, 256 * 16, None, 16), (1, 2048, 64 * 32, None, 32), (1, 4096, 16 * 4, pencil.SLAB, 4),
 ])
-def test_cols_pass_tw_every_kernel(dev, r, f, s, kind, tw_every):
+def test_cols_pass_tw_every_kernel(dev, r, f, s, tile, tw_every):
     x = _planes(dev, r, f, s)
-    luts = ops._direct_luts(dev, f, False) if kind == "direct" else ops._fused_luts(
-        dev, *plan_lib.balanced_split(f), False)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+    w = ops._roots_luts(dev, f, False)
     tw = _planes(dev, f, s // tw_every, seed=4)
-    kw = dict(kind=kind, n1=n1, n2=n2, tw_every=tw_every)
-    _close(pencil.cols_pass_call(*x, luts, tw, **kw), pencil.cols_pass_plain(*x, luts, tw, **kw))
+    _close(pencil._launch_cols(*x, *w, tw, False, 0, tw_every, tile),
+           pencil.cols_pass_plain(*x, *w, tw, tw_every=tw_every))
 
 
-@pytest.mark.parametrize("r,f,s", [(1, 2048, 8193), (2, 4096, 13), (1, 1024, 1025)])
-def test_cols_pass_ragged_kernel(dev, r, f, s):
+@pytest.mark.parametrize("r,f,s,tile", [(1, 2048, 8193, None), (2, 4096, 13, pencil.SLAB),
+                                        (1, 1024, 1025, None), (1, 16384, 9, None)])
+def test_cols_pass_ragged_kernel(dev, r, f, s, tile):
     x = _planes(dev, r, f, s)
-    kind = "direct" if f <= 1024 else "fused4"
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = ops._direct_luts(dev, f, False) if kind == "direct" else ops._fused_luts(dev, n1, n2, False)
+    w = ops._roots_luts(dev, f, False)
     tw = _planes(dev, f, s, seed=5)
-    kw = dict(kind=kind, n1=n1, n2=n2)
-    _close(pencil.cols_pass_call(*x, luts, tw, **kw), pencil.cols_pass_plain(*x, luts, tw, **kw))
+    _close(pencil._launch_cols(*x, *w, tw, False, 0, 1, tile), pencil.cols_pass_plain(*x, *w, tw))
 
 
 @pytest.mark.parametrize("b,p,f,w", [(1, 512, 256, 64), (2, 16, 2048, 32), (1, 4, 4096, 8)])
@@ -218,17 +229,15 @@ def test_planned_axis_minus_2(dev, n, q):
     assert _rel(y.cpu().numpy(), ref) <= 1e-3
 
 
-@pytest.mark.parametrize("r,f,s,kind,tw_every", [
-    (2, 512, 256 * 12, "direct", 12), (1, 2048, 64 * 500, "fused4", 500), (1, 4096, 16 * 3, "fused4", 3),
+@pytest.mark.parametrize("r,f,s,tile,tw_every", [
+    (2, 512, 256 * 12, None, 12), (1, 2048, 64 * 500, None, 500), (1, 4096, 16 * 3, pencil.SLAB, 3),
 ])
-def test_cols_pass_tw_every_any_width_kernel(dev, r, f, s, kind, tw_every):
+def test_cols_pass_tw_every_any_width_kernel(dev, r, f, s, tile, tw_every):
     x = _planes(dev, r, f, s)
-    luts = ops._direct_luts(dev, f, False) if kind == "direct" else ops._fused_luts(
-        dev, *plan_lib.balanced_split(f), False)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+    w = ops._roots_luts(dev, f, False)
     tw = _planes(dev, f, s // tw_every, seed=4)
-    kw = dict(kind=kind, n1=n1, n2=n2, tw_every=tw_every)
-    _close(pencil.cols_pass_call(*x, luts, tw, **kw), pencil.cols_pass_plain(*x, luts, tw, **kw))
+    _close(pencil._launch_cols(*x, *w, tw, False, 0, tw_every, tile),
+           pencil.cols_pass_plain(*x, *w, tw, tw_every=tw_every))
 
 
 @pytest.mark.parametrize("b,n", [(5, 3), (33, 97), (70, 500), (4, 1000), (3, 3000), (2, 12288)])
@@ -292,6 +301,11 @@ def test_planned_any_length(dev, spec, shape):
 
 
 def test_register_guard(dev):
-    """The fused column kernels stay within their 128-register bound and no
-    function uses more local memory than the recorded build gave it."""
-    assert build.attribute_faults(build.kernel_attributes()) == []
+    """The fused column kernels stay within their 128-register bound, no
+    function uses more local memory than the recorded build gave it, and
+    the radix passes' functions have the recorded registers."""
+    attrs = build.kernel_attributes()
+    assert build.attribute_faults(attrs) == []
+    for name, row in attrs.items():
+        if name.startswith(("cols_radix", "cols_slab", "rows_radix", "rows_slab")):
+            assert (row["registers"], row["local_bytes"]) == build.RECORDED_ATTRS[name]

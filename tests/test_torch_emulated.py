@@ -179,62 +179,83 @@ def test_fft4step_tile_source(emulated, b, n, natural, inverse):
                                    twiddle_after=e))
 
 
-@BUDGETS
-@pytest.mark.parametrize("r,f,s,kind,with_twiddle", [
-    (2, 256, 64, "direct", True), (3, 100, 70, "direct", False),
-    (2, 2048, 8, "fused4", True), (1, 4096, 16, "fused4", True), (2, 2048, 4, "fused4", False),
-])
-def test_cols_pass_source(budget, r, f, s, kind, with_twiddle):
-    x = _planes(f, r, f, s)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = _planes(3, f, f) if kind == "direct" else _fused(f)
-    tw = _planes(4, f, s) if with_twiddle else None
-    _close(pencil._launch_cols(*x, luts, tw, kind, n1, n2),
-           pencil.cols_pass_plain(*x, luts, tw, kind=kind, n1=n1, n2=n2))
+SLAB = pencil.SLAB
 
 
-@BUDGETS
-@pytest.mark.parametrize("b,p,f,kind", [
-    (2, 64, 256, "direct"), (3, 70, 100, "direct"), (2, 16, 2048, "fused4"), (1, 8, 4096, "fused4"),
-    (2, 4, 2048, "fused4"),
+def _cols(x, tw, tile, inverse=False, tw_every=1):
+    """The column kernel (emulated) against its plain version."""
+    f = x[0].shape[1]
+    w = _roots(f, inverse)
+    _close(pencil._launch_cols(*x, *w, tw, inverse, 0, tw_every, tile),
+           pencil.cols_pass_plain(*x, *w, tw, inverse=inverse, tw_every=tw_every))
+
+
+@pytest.mark.parametrize("r,f,s,tile,with_twiddle,inverse", [
+    (2, 256, 64, 12, True, False), (3, 256, 70, 13, False, True), (2, 512, 40, 14, True, False),
+    (2, 1024, 8, 13, True, True), (1, 2048, 16, 14, True, False), (2, 1024, 12, SLAB, True, False),
+    (1, 4096, 16, None, True, True), (1, 4096, 16, SLAB, False, True), (3, 2, 5, None, True, False),
+    (2, 1, 3, None, True, False),
 ])
-def test_rows_natural_source(budget, b, p, f, kind):
+def test_cols_pass_source(emulated, r, f, s, tile, with_twiddle, inverse):
+    """Every on-chip tile (4096, 8192, 16384 points: 2^t / f adjacent
+    columns a block, ragged width 70 at f = 256), the slab four-step
+    (8 columns a block), the table's default, f = 2 and 1."""
+    _cols(_planes(f, r, f, s), _planes(4, f, s) if with_twiddle else None, tile, inverse)
+
+
+@pytest.mark.parametrize("b,p,f,tile,inverse", [
+    (2, 64, 256, 12, False), (3, 70, 256, 13, True), (2, 16, 512, 14, False),
+    (2, 16, 2048, 14, True), (1, 8, 4096, None, False), (2, 13, 1024, SLAB, False),
+    (1, 9, 4096, SLAB, True), (3, 5, 2, None, False), (2, 40, 64, 12, True),
+    (1, 3, 16384, None, False),
+])
+def test_rows_natural_source(emulated, b, p, f, tile, inverse):
+    """The transposed-write row kernel at every tile, ragged row counts
+    (70, 13, 9, 5, 3: the last chunk is masked), the slab four-step and
+    f = 2."""
     x = _planes(f, b, p, f)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = _planes(5, f, f) if kind == "direct" else _fused(f)
-    _close(pencil._launch_rows(*x, luts, kind, n1, n2),
-           pencil.rows_natural_plain(*x, luts, kind=kind, n1=n1, n2=n2))
+    w = _roots(f, inverse)
+    _close(pencil._launch_rows(*x, *w, inverse, 0, tile),
+           pencil.rows_natural_plain(*x, *w, inverse=inverse))
 
 
-@BUDGETS
-@pytest.mark.parametrize("r,f,s,kind,tw_every", [
-    (2, 256, 32, "direct", 8), (1, 100, 12, "direct", 4),
-    (2, 2048, 32, "fused4", 16), (1, 4096, 16, "fused4", 4), (1, 2048, 8, "fused4", 2),
+@pytest.mark.parametrize("r,f,s,tile,tw_every", [
+    (2, 256, 32, 12, 8), (1, 128, 12, 13, 4), (2, 2048, 32, 14, 16), (1, 4096, 16, None, 4),
+    (1, 2048, 8, None, 2), (1, 4096, 16, SLAB, 4), (1, 1024, 32, SLAB, 8), (2, 512, 64, 13, 32),
 ])
-def test_cols_pass_tw_every_source(budget, r, f, s, kind, tw_every):
-    """The width-broadcast twiddle of a strip-mined column factor; chunks
-    never straddle two twiddle columns (tw_every < 8 cuts the chunk)."""
-    x = _planes(f, r, f, s)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = _planes(3, f, f) if kind == "direct" else _fused(f)
-    tw = _planes(4, f, s // tw_every)
-    _close(pencil._launch_cols(*x, luts, tw, kind, n1, n2, tw_every),
-           pencil.cols_pass_plain(*x, luts, tw, kind=kind, n1=n1, n2=n2, tw_every=tw_every))
+def test_cols_pass_tw_every_source(emulated, r, f, s, tile, tw_every):
+    """The width-broadcast twiddle of a strip-mined column factor by shift
+    (tw_every a power of two), in every form."""
+    _cols(_planes(f, r, f, s), _planes(4, f, s // tw_every), tile, tw_every=tw_every)
 
 
-@BUDGETS
+@pytest.mark.parametrize("tile", [None, SLAB])
 @pytest.mark.parametrize("r,f,s,with_twiddle", [
     (1, 2048, 13, True), (2, 2048, 3, False), (1, 4096, 9, True), (2, 2048, 1, True),
 ])
-def test_cols_pass_ragged_width_source(budget, r, f, s, with_twiddle):
-    """An odd width in the fused column kernel: the last chunk is masked,
-    and nothing past the width is read or written."""
-    x = _planes(f, r, f, s)
-    n1, n2 = plan_lib.balanced_split(f)
-    luts = _fused(f)
-    tw = _planes(4, f, s) if with_twiddle else None
-    _close(pencil._launch_cols(*x, luts, tw, "fused4", n1, n2),
-           pencil.cols_pass_plain(*x, luts, tw, kind="fused4", n1=n1, n2=n2))
+def test_cols_pass_ragged_width_source(emulated, tile, r, f, s, with_twiddle):
+    """An odd width: the last chunk of columns is masked, and nothing past
+    the width is read or written (on-chip tile and slab)."""
+    _cols(_planes(f, r, f, s), _planes(4, f, s) if with_twiddle else None, tile)
+
+
+def test_radix_passes_refuse_other_lengths_source(emulated):
+    """A column or row length that is no power of two raises PlanError
+    before anything launches, and the launcher itself refuses it, as it
+    refuses a tile that cannot hold f (the slab form below 1024 points, an
+    on-chip tile shorter than f)."""
+    x = _planes(0, 2, 100, 3)
+    w = _planes(1, 100)
+    with pytest.raises(faults.PlanError, match="power of two"):
+        pencil.cols_pass_call(*x, *w)
+    with pytest.raises(faults.PlanError, match="power of two"):
+        pencil.rows_natural_call(*_planes(2, 2, 3, 100), *w)
+    with pytest.raises(faults.KernelError, match="launch failed"):
+        pencil._launch_cols(*x, *w, None, False)
+    with pytest.raises(faults.KernelError, match="launch failed"):
+        pencil._launch_cols(*_planes(3, 1, 512, 2), *_roots(512), None, False, tile=SLAB)
+    with pytest.raises(faults.KernelError, match="launch failed"):
+        pencil._launch_rows(*_planes(4, 1, 2, 8192), *_roots(8192), False, tile=12)
 
 
 @BUDGETS
@@ -263,22 +284,16 @@ def test_recomb_source(emulated, b, m):
            pencil.irfft_recomb_plain(*x, *inv))
 
 
-@BUDGETS
-@pytest.mark.parametrize("r,f,s,kind,tw_every", [
-    (1, 256, 24, "direct", 12), (2, 100, 30, "direct", 5),
-    (1, 2048, 24, "fused4", 12), (1, 2048, 20, "fused4", 10), (1, 4096, 9, "fused4", 3),
+@pytest.mark.parametrize("r,f,s,tile,tw_every", [
+    (1, 256, 24, 12, 12), (2, 128, 30, 13, 5), (1, 2048, 24, 14, 12), (1, 2048, 20, SLAB, 10),
+    (1, 4096, 9, None, 3), (1, 4096, 9, SLAB, 3), (2, 512, 21, 14, 7),
 ])
-def test_cols_pass_tw_every_any_width_source(budget, r, f, s, kind, tw_every):
+def test_cols_pass_tw_every_any_width_source(emulated, r, f, s, tile, tw_every):
     """A width-broadcast twiddle whose run of columns is no power of two
     (the strided factor of fft2 at a non-power-of-two row length): the
-    direct form divides per element, the four-step form once per tile,
-    with a chunk that divides tw_every."""
-    x = _planes(f, r, f, s)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = _planes(3, f, f) if kind == "direct" else _fused(f)
-    tw = _planes(4, f, s // tw_every)
-    _close(pencil._launch_cols(*x, luts, tw, kind, n1, n2, tw_every),
-           pencil.cols_pass_plain(*x, luts, tw, kind=kind, n1=n1, n2=n2, tw_every=tw_every))
+    twiddle column is c / tw_every, per element, in every form; a tile
+    may straddle two runs."""
+    _cols(_planes(f, r, f, s), _planes(4, f, s // tw_every), tile, tw_every=tw_every)
 
 
 def _bluestein_args(n, inverse):
@@ -328,11 +343,11 @@ def test_kernel_attribute_entries(emulated):
 
 
 @pytest.mark.parametrize("name,registers,local,faults", [
-    ("rows_fused_kernel", 80, 8, 0),
-    ("rows_fused_kernel", 80, 16, 1),
-    ("cols_fused_kernel<DIV>", 128, 0, 0),
-    ("cols_fused_kernel<DIV>", 129, 120, 2),
-    ("rows_direct_kernel", 200, 0, 0),
+    ("cols_slab_kernel", 64, 0, 0),
+    ("cols_slab_kernel", 64, 16, 1),
+    ("cols_fused_kernel", 128, 0, 0),
+    ("cols_fused_kernel", 129, 120, 2),
+    ("rows_radix_kernel<1024, 16>", 200, 0, 0),
     ("unrecorded_kernel", 32, 4, 1),
 ])
 def test_attribute_faults_rule(name, registers, local, faults):
@@ -351,8 +366,8 @@ def test_every_launch_enters_the_tensor_device(emulated):
     calls = [
         (dft_matmul._launch, (*x, *_roots(16), None, None, False)),
         (fft4step._launch, (*_planes(2, 1, 2048), *_roots(2048), None, None, 64, False, True)),
-        (pencil._launch_cols, (*_planes(3, 1, 16, 2), w, None, "direct", 0, 0)),
-        (pencil._launch_rows, (*_planes(4, 1, 2, 16), w, "direct", 0, 0)),
+        (pencil._launch_cols, (*_planes(3, 1, 16, 2), *_roots(16), None, False)),
+        (pencil._launch_rows, (*_planes(4, 1, 2, 16), *_roots(16), False)),
         (pencil._launch_cols_natural, (*_planes(5, 1, 2, 16, 2), w, "direct", 0, 0)),
         (pencil._launch_recomb, (*x, *ops.recomb_luts("cpu", 32, False), "rfft_recomb", 16, 17)),
         (pencil._launch_recomb, (*_planes(6, 2, 17), *ops.recomb_luts("cpu", 32, True),

@@ -100,45 +100,67 @@ def _pass_luts(kind, f, n1, n2):
     return ref_tw.dft_matrix(f) if kind == "direct" else _fused_luts(n1, n2)
 
 
-@pytest.mark.parametrize("kind,f,n1,n2", [("direct", 512, 0, 0), ("fused4", 2048, 64, 32)])
+def _ref_pass_luts(kind, f, n1, n2, inverse):
+    """The reference's LUTs of one pass with the inverse's 1/f folded in, as
+    the reference folds it (into W, or W2 of the four-step)."""
+    if kind == "direct":
+        w = ref_tw.dft_matrix(f, inverse)
+        return tuple(a / np.float32(f) for a in w) if inverse else w
+    w2 = ref_tw.dft_matrix(n2, inverse)
+    if inverse:
+        w2 = tuple(a / np.float32(f) for a in w2)
+    return (*ref_tw.dft_matrix(n1, inverse), *ref_tw.twiddle_grid(n1, n2, inverse), *w2)
+
+
+#: (kind, f, n1, n2, inverse) of the pass tests: direct and four-step
+#: lengths, and f = 4096 (n1 = 64), a length the port's slab form can take.
+PASSES = [("direct", 512, 0, 0, False), ("direct", 512, 0, 0, True),
+          ("fused4", 2048, 64, 32, False), ("fused4", 4096, 64, 64, True)]
+
+
+@pytest.mark.parametrize("kind,f,n1,n2,inverse", PASSES)
 @pytest.mark.parametrize("with_twiddle", [True, False])
-def test_cols_pass(kind, f, n1, n2, with_twiddle):
+def test_cols_pass(kind, f, n1, n2, inverse, with_twiddle):
+    """The port's radix column pass (its plain version, the Stockham FFT
+    over the roots table, 1/f at the store) against the Pallas kernel with
+    the reference's DFT-matrix LUTs."""
     r, s = 2, 16
     x = _planes(f, (r, f, s))
-    luts = _pass_luts(kind, f, n1, n2)
-    tw = ref_tw.pass_twiddle(f, s) if with_twiddle else None
+    grid = ref_tw.pass_twiddle(f, s, inverse) if with_twiddle else None
     mine = _counted("cols_pass", lambda: pencil.cols_pass_call(
-        *_t(*x), _t(*luts), _t(*tw) if tw else None, kind=kind, n1=n1, n2=n2))
-    ref = ref_pencil.cols_pass_call(*_j(*x), _j(*luts), _j(*tw) if tw else None,
-                                    kind=kind, n1=n1, n2=n2, chunk=8, interpret=True)
+        *_t(*x, *tw.roots(f, inverse)), _t(*grid) if grid else None, n1=n1, inverse=inverse))
+    ref = ref_pencil.cols_pass_call(*_j(*x), _j(*_ref_pass_luts(kind, f, n1, n2, inverse)),
+                                    _j(*grid) if grid else None, kind=kind, n1=n1, n2=n2,
+                                    chunk=8, interpret=True)
     _close(mine, ref)
 
 
-@pytest.mark.parametrize("kind,f,n1,n2", [("direct", 256, 0, 0), ("fused4", 2048, 64, 32)])
-def test_rows_natural(kind, f, n1, n2):
+@pytest.mark.parametrize("kind,f,n1,n2,inverse", [(k, 256 if f == 512 else f, *rest)
+                                                  for k, f, *rest in PASSES])
+def test_rows_natural(kind, f, n1, n2, inverse):
     b, p = 2, 16
     x = _planes(f + 7, (b, p, f))
-    luts = _pass_luts(kind, f, n1, n2)
     mine = _counted("rows_natural", lambda: pencil.rows_natural_call(
-        *_t(*x), _t(*luts), kind=kind, n1=n1, n2=n2))
-    ref = ref_pencil.rows_natural_call(*_j(*x), _j(*luts), kind=kind, n1=n1, n2=n2,
-                                       chunk=8, interpret=True)
+        *_t(*x, *tw.roots(f, inverse)), n1=n1, inverse=inverse))
+    ref = ref_pencil.rows_natural_call(*_j(*x), _j(*_ref_pass_luts(kind, f, n1, n2, inverse)),
+                                       kind=kind, n1=n1, n2=n2, chunk=8, interpret=True)
     _close(mine, ref)
 
 
-@pytest.mark.parametrize("kind,f,n1,n2", [("direct", 256, 0, 0), ("fused4", 2048, 64, 32)])
+@pytest.mark.parametrize("kind,f,n1,n2,inverse", [("direct", 256, 0, 0, False),
+                                                  ("fused4", 2048, 64, 32, True)])
 @pytest.mark.parametrize("tw_every", [8, 16])
-def test_cols_pass_tw_every(kind, f, n1, n2, tw_every):
+def test_cols_pass_tw_every(kind, f, n1, n2, inverse, tw_every):
     """The width-broadcast twiddle of a strip-mined column factor: one
     (f, s / tw_every) grid column per run of tw_every image columns."""
     r, s = 2, 64
     x = _planes(f + tw_every, (r, f, s))
-    luts = _pass_luts(kind, f, n1, n2)
-    tw = ref_tw.pass_twiddle(f, s // tw_every)
+    grid = ref_tw.pass_twiddle(f, s // tw_every, inverse)
     mine = _counted("cols_pass", lambda: pencil.cols_pass_call(
-        *_t(*x), _t(*luts), _t(*tw), kind=kind, n1=n1, n2=n2, tw_every=tw_every))
-    ref = ref_pencil.cols_pass_call(*_j(*x), _j(*luts), _j(*tw), kind=kind, n1=n1, n2=n2,
-                                    chunk=8, interpret=True, tw_every=tw_every)
+        *_t(*x, *tw.roots(f, inverse)), _t(*grid), n1=n1, inverse=inverse, tw_every=tw_every))
+    ref = ref_pencil.cols_pass_call(*_j(*x), _j(*_ref_pass_luts(kind, f, n1, n2, inverse)),
+                                    _j(*grid), kind=kind, n1=n1, n2=n2, chunk=8, interpret=True,
+                                    tw_every=tw_every)
     _close(mine, ref)
 
 
@@ -182,12 +204,20 @@ def test_wrappers_validate_operands():
     with pytest.raises(PlanError, match="n1"):
         fft4step.fft4step_call(*_t(*_planes(1, (1, 2048)), *tw.roots(2048)), n1=16)
     with pytest.raises(PlanError, match="kind"):
-        pencil.rows_natural_call(xr.view(1, 2, 16), xi.view(1, 2, 16), (wr, wi), kind="bogus")
+        pencil.cols_natural_call(xr.view(1, 1, 16, 2), xi.view(1, 1, 16, 2), (wr, wi),
+                                 kind="bogus")
     with pytest.raises(PlanError, match="LUT"):
-        pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), (wr,), kind="direct")
+        pencil.cols_natural_call(xr.view(1, 1, 16, 2), xi.view(1, 1, 16, 2), (wr,),
+                                 kind="direct")
     with pytest.raises(PlanError, match="tw_every"):
-        pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), (wr, wi), kind="direct",
-                              tw_every=3)
+        pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), rr, ri, tw_every=3)
+    with pytest.raises(PlanError, match="power of two"):
+        pencil.rows_natural_call(xr.view(2, 2, 8)[:, :, :6].contiguous(),
+                                 xi.view(2, 2, 8)[:, :, :6].contiguous(), rr[:6], ri[:6])
+    with pytest.raises(PlanError, match="shape"):
+        pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), rr[:8], ri[:8])
+    with pytest.raises(PlanError, match="n1"):
+        pencil.rows_natural_call(xr.view(2, 1, 16), xi.view(2, 1, 16), rr, ri, n1=4)
     with pytest.raises(PlanError, match="shape"):
         pencil.rfft_recomb_call(xr, xi, wr[0], wi[0])  # the LUT must hold m + 1 phasors
 
