@@ -38,7 +38,10 @@ package), in phases, and fails on the first check that does not hold:
    split regime, held as phase 5 holds its calls.
 
 Phases 3, 5 and 6 each set the launch counts to 0 before they start and read
-them when they end; every kernel of a path must have launched in it.  The
+them when they end; every kernel of a path must have launched in it.  Each
+also runs every one of its calls over a batch of 0: the output must have
+np.fft's shape, and the call launches nothing (0 launches, not
+``len(plan.passes)``).  The
 script then prints the per-kernel JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -62,7 +65,7 @@ import torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
-from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil  # noqa: E402
+from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): FP32 on
 #: the CUDA cores and HBM3 bandwidth.
@@ -110,8 +113,10 @@ FUNCTIONS = {
     "cols_natural": ("cols_direct_kernel", "cols_fused_kernel"),
     "rfft_recomb": ("rfft_recomb_kernel",),
     "irfft_recomb": ("irfft_recomb_kernel",),
-    "bluestein_fwd": ("bluestein_fwd_direct_kernel", "bluestein_fwd_fused_kernel"),
-    "bluestein_inv": ("bluestein_inv_direct_kernel", "bluestein_inv_fused_kernel"),
+    "bluestein_fwd": ("bluestein_fwd_kernel<256, 16>", "bluestein_fwd_kernel<512, 16>",
+                      "bluestein_fwd_kernel<1024, 16>", "bluestein_fwd_slab_kernel"),
+    "bluestein_inv": ("bluestein_inv_kernel<256, 16>", "bluestein_inv_kernel<512, 16>",
+                      "bluestein_inv_kernel<1024, 16>", "bluestein_inv_slab_kernel"),
     "bluestein_elem": ("bluestein_elem_kernel",),
 }
 
@@ -176,8 +181,8 @@ def planes(gen, *shape):
 def fft_flops(f: int) -> float:
     """fp32 flops one length-f FFT needs: 5·f·log2 f.  The same count for
     every kernel, whatever form it computes the transform in (a radix FFT, or
-    the DFT-matrix GEMMs of the pencil and Bluestein tiles, which spend more),
-    so a bound is the function's and not the algorithm's."""
+    the DFT-matrix GEMMs of cols_natural's tiles, which spend more), so a
+    bound is the function's and not the algorithm's."""
     return 5 * f * math.log2(f) if f > 1 else 0.0
 
 
@@ -454,27 +459,34 @@ BLUESTEIN_FUSED = ((16384, 500), (131072, 500), (8192, 3000), (4096, 3000), (204
                    (8192, 4999))
 
 
+def bluestein_form(x, m: int, in1: int) -> str:
+    """The form a fused Bluestein stage takes at pad m on this card: its
+    whole-signal tile or the slab four-step (``bluestein.slab_split``)."""
+    n1 = bluestein.slab_split(x, m, in1)
+    return f"slab {n1}x{m // n1}" if n1 else f"tile 2^{max(12, m.bit_length() - 1)}"
+
+
 def bluestein_kernels(gen, dev) -> dict:
     """The three Bluestein kernels at the shapes phase 6 gives them: the
-    fused stages with a direct inner transform (M = 1024), a four-step one
-    with its intermediate in shared memory (M = 8192, and M = 16384 at one
-    block per SM) and in the scratch slab (M = 32768), and the split
-    regime's elementwise stages at n = 100003 (M = 2^18)."""
+    fused stages in the 4096-point tile (M = 1024), the 8192- and
+    16384-point tiles (M = 8192, 16384) and the slab four-step (M = 32768),
+    and the split regime's elementwise stages at n = 100003 (M = 2^18).
+    Bound: the stage's own bytes (x in, y out, the chirp tables and the
+    pad's roots table once each) and flops."""
     rows = {}
     for b, n in BLUESTEIN_FUSED:
         fwd, inv = plan_lib.plan_fft(n).passes
         m = fwd.n1
-        inner = plan_lib._leaf_pass(m)
-        kw = dict(n=n, m_pad=m, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
-        where = "direct" if inner.kind == "direct" else f"four-step {inner.n1}x{inner.n2}"
+        kw = dict(n=n, m_pad=m)
+        in1 = plan_lib._leaf_pass(m).n1
         for stage, p, width in (("fwd", fwd, n), ("inv", inv, m)):
             luts = ops._bluestein_luts(dev, p, False)
             x = planes(gen, b, width)
             call = getattr(bluestein, f"bluestein_{stage}_call")
             plain = getattr(bluestein, f"bluestein_{stage}_plain")
             row = measure_kernel(
-                f"bluestein_{stage}", f"B={b} n={n} M={m} {where}",
-                lambda: call(*x, luts, **kw), lambda: plain(*x, luts, **kw),
+                f"bluestein_{stage}", f"B={b} n={n} M={m} {bluestein_form(x[0], m, in1)}",
+                lambda: call(*x, luts, in1=in1, **kw), lambda: plain(*x, luts, **kw),
                 nbytes=8 * b * (n + m) + sum(4 * t.numel() for t in luts),
                 flops=b * bluestein_flops(stage, n, m),
             )
@@ -550,6 +562,22 @@ def counted_call(label: str, planned, x):
     return y, torch.cuda.max_memory_allocated() - base
 
 
+def empty_call(label: str, fwd, inv, shape) -> None:
+    """The forward call over a batch of 0 (``shape``: its input's), then the
+    inverse over what it returned: np.fft's shape, the input's shape back,
+    and no kernel launched (an empty call launches 0, not len(passes))."""
+    x = np.zeros(shape, np.float32 if fwd.spec.kind.startswith("rfft") else np.complex64)
+    before = kernels.counts()
+    y = fwd(torch.from_numpy(x).cuda())
+    z = inv(y)
+    torch.cuda.synchronize()
+    check_launches(f"{label} empty batch", before, kernels.counts(), {})
+    got = tuple(as_complex(y).shape)
+    want = ref.np_fft(fwd.spec, x).shape
+    check(got == want, f"{label} empty batch: forward gives {got}, np.fft {want}")
+    check(tuple(z.shape) == shape, f"{label} empty batch: inverse gives {tuple(z.shape)}")
+
+
 def main_path_phase(gen) -> None:
     reps, warmup = 3, 1
     for n, b in MAIN_PATH:
@@ -595,6 +623,7 @@ def main_path_phase(gen) -> None:
         )
         del x
         torch.cuda.empty_cache()
+        empty_call(f"n={n}", fwd, inv, (0, n))
 
 
 # ---------------------------------------------------------------------------
@@ -775,6 +804,7 @@ def calls_phase(gen, cases, tag: str) -> None:
         )
         del x, y, yc
         torch.cuda.empty_cache()
+        empty_call(label, fwd, inv, (0,) + (shape if fspec.axis == -2 else shape[1:]))
 
 
 def path_launches(name: str, phase, gen) -> dict:

@@ -8,7 +8,7 @@ prints the parent's and the change's times (the mean of their two runs
 each), change / parent, and the change's bound where the row has one; a
 row only the change prints has no parent time.  A kernel row's shape is
 compared without the form its tree ran it in (``direct``, ``fused4``,
-``tile 2^t``, ``slab``).
+``tile 2^t``, ``slab``; a Bluestein stage's ``four-step n1xn2``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ def rows(path: Path) -> dict:
         if tag == "kernel":
             r = json.loads(body)
             shape = re.sub(r"\) (direct|fused4|tile 2\^\d+|slab)", ")", r["shape"])
+            # A Bluestein stage's form follows its pad: "four-step 128x64", "slab 256x128".
+            shape = re.sub(r"(M=\d+) .*$", r"\1", shape)
             out[(r["name"], shape)] = (r["ms"], r["bound_ms"], r["registers"])
         elif tag == "main_path":
             r = json.loads(body)

@@ -1,5 +1,6 @@
-"""Time the whole-signal kernels (``dft_matmul``, ``fft4step``) and the
-split-regime passes (``cols_pass``, ``rows_natural``) of one tree of this
+"""Time the whole-signal kernels (``dft_matmul``, ``fft4step``), the
+split-regime passes (``cols_pass``, ``rows_natural``) and the fused
+Bluestein stages (``bluestein_fwd``, ``bluestein_inv``) of one tree of this
 repository on the card, back to back.
 
     python3 scripts/kernel_ab.py <tree> [label] [--forms]
@@ -8,13 +9,18 @@ repository on the card, back to back.
 this commit or an earlier one: the script imports that tree's
 ``repro_torch``, builds its kernels into the tree's own ``build/``, and
 calls each kernel's wrapper with that tree's LUTs (the DFT matrices of the
-GEMM kernels before their radix redesign, the roots table after it) at the
-shapes ``chip_smoke.py``'s phase 2 gives them.  A kernel's time is the
+GEMM kernels before their radix redesign, the roots table after it; for
+the Bluestein stages ``ops._bluestein_luts`` of the tree, with its
+wrappers' keywords) at the shapes ``chip_smoke.py``'s phase 2 gives them.  A kernel's time is the
 median over 5 batches of the mean of 20 back-to-back calls between two
 CUDA events, so the wrappers' host time hides behind the queued launches
 (``chip_smoke.py`` times one call per event pair, which adds it).  Each
 output is checked against ``torch.fft`` first.  Prints one JSON line per
-(kernel, shape, form) and the card's name and power limit.
+(kernel, shape, form), one per fused Bluestein call of ``chip_smoke.py``'s
+phase 6 with the device memory a warm call requests beyond its input
+(``requested_bytes``: the tensors' own bytes, which the caching
+allocator's rounding of reused blocks does not move) and allocates, and
+the card's name and power limit.
 
 ``--forms`` (a tree whose passes are radix FFTs): also time every form each
 pass shape can take (each on-chip tile of 2^12, 2^13, 2^14 points that
@@ -46,6 +52,18 @@ SHAPES = (
 #: (n, batch): the two-pass programs whose column and row passes phase 2
 #: times (n = 2^18 is phase 6's split-regime pad of n = 100003).
 PAIRS = ((1 << 18, 64), (1 << 20, 64), (1 << 22, 16), (1 << 24, 4), (1 << 26, 2))
+
+#: (batch, n): phase 2's shapes of the fused Bluestein stages.
+BLUESTEIN = ((16384, 500), (131072, 500), (8192, 3000), (4096, 3000), (2048, 12288), (8192, 4999))
+
+#: (kind, n, n2, axis, input shape): phase 6's calls through the fused
+#: Bluestein stages.
+CALLS = (
+    ("fft", 500, None, -1, (16384, 500)), ("fft", 3000, None, -1, (8192, 3000)),
+    ("fft", 12288, None, -1, (2048, 12288)), ("rfft", 4999, None, -1, (8192, 4999)),
+    ("rfft", 6000, None, -1, (8192, 6000)), ("fft2", 3000, 4096, -1, (1, 4096, 3000)),
+    ("fft2", 500, 1 << 17, -1, (1, 1 << 17, 500)), ("fft", 3000, None, -2, (3000, 4096)),
+)
 
 #: (label, f, s, tw_every): phase 2's other column-pass shapes (R = 1):
 #: the strided factors of strip-mined fft2 columns (twiddle broadcast over
@@ -191,6 +209,70 @@ def passes(label, plan_lib, pencil, ops, dev, gen, forms: bool) -> bool:
     return True
 
 
+def bluestein_stages(label, plan_lib, bluestein, ops, dev, gen) -> bool:
+    """Both fused stages at each shape, each against its plain version at
+    1e-4 first (the tree's own: the parent's runs the DFT-matrix tiles)."""
+    import inspect
+
+    old = "inner_kind" in inspect.signature(bluestein.bluestein_fwd_call).parameters
+    for b, n in BLUESTEIN:
+        fwd, inv = plan_lib.plan_fft(n).passes
+        m = fwd.n1
+        inner = plan_lib._leaf_pass(m)
+        plain_kw = dict(n=n, m_pad=m)
+        if old:
+            plain_kw.update(inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
+        call_kw = dict(plain_kw, in1=inner.n1)
+        for stage, p, width in (("fwd", fwd, n), ("inv", inv, m)):
+            luts = ops._bluestein_luts(dev, p, False)
+            xr = torch.randn(b, width, device="cuda", generator=gen)
+            xi = torch.randn(b, width, device="cuda", generator=gen)
+            call = getattr(bluestein, f"bluestein_{stage}_call")
+            got, want = call(xr, xi, luts, **call_kw), getattr(
+                bluestein, f"bluestein_{stage}_plain")(xr, xi, luts, **plain_kw)
+            err = rel_err(got, torch.complex(*want))
+            if not err <= 1e-4:
+                print(f"kernel_ab: bluestein_{stage} B={b} n={n} off by {err:.3e}", file=sys.stderr)
+                return False
+            del got, want
+            print(json.dumps({
+                "tree": label, "kernel": f"bluestein_{stage}", "batch": b, "n": n, "m": m,
+                "ms": time_ms(lambda: call(xr, xi, luts, **call_kw)),
+                "bytes": 8 * b * (n + m) + sum(4 * t.numel() for t in luts), "rel_err": err,
+            }), flush=True)
+            del xr, xi
+            torch.cuda.empty_cache()
+    return True
+
+
+def call_peaks(label, F, gen) -> None:
+    """The device memory each call of :data:`CALLS` holds beyond its input
+    in a warm call (output included)."""
+    for kind, n, n2, axis, shape in CALLS:
+        planned = F.plan(F.FFTSpec(n, kind=kind, n2=n2, axis=axis))
+        x = torch.randn(*shape, device="cuda", generator=gen)
+        if kind != "rfft":
+            x = torch.complex(x, torch.randn(*shape, device="cuda", generator=gen))
+        planned(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()
+        y = planned(x)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()
+        print(json.dumps({
+            "tree": label, "call": f"{kind} {'x'.join(map(str, shape))}" + (
+                " axis=-2" if axis == -2 else ""),
+            "input_bytes": x.numel() * x.element_size(),
+            "requested_bytes": after["requested_bytes.all.peak"]
+            - before["requested_bytes.all.current"],
+            "allocated_bytes": after["allocated_bytes.all.peak"]
+            - before["allocated_bytes.all.current"],
+        }), flush=True)
+        del x, y
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -199,8 +281,9 @@ def main() -> int:
     tree = os.path.abspath(args[0])
     label = args[1] if len(args) > 1 else os.path.basename(tree)
     sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.core import fft as F
     from repro_torch.core import plan as plan_lib
-    from repro_torch.kernels import build, dft_matmul, fft4step, ops, pencil
+    from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil
 
     build.build()
     dev = ops.device_key("cuda")
@@ -209,6 +292,9 @@ def main() -> int:
         return 1
     if not passes(label, plan_lib, pencil, ops, dev, gen, "--forms" in sys.argv):
         return 1
+    if not bluestein_stages(label, plan_lib, bluestein, ops, dev, gen):
+        return 1
+    call_peaks(label, F, gen)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

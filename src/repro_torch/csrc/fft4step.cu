@@ -47,56 +47,6 @@ using namespace repro;
 
 namespace {
 
-// The whole-signal tiles: threads per block and the blocks each SM must
-// hold (at most 64 registers a thread, none spilled), by log2 of the tile.
-// 4096 points: 256 threads of 16, four blocks; 8192: 512 of 16, two;
-// 16384: 1024 of 16, one (the signal fills half the register file).
-constexpr int T12 = 256, MB12 = 4;
-constexpr int T13 = 512, MB13 = 2;
-constexpr int T14 = 1024, MB14 = 1;
-
-// The slab kernel's tile: 8192 points, 1024 threads of 8, one block an SM
-// (64 registers, none spilled; 16 points a thread spill here).
-constexpr int SL_T = 1024;
-constexpr int SL_LGM = 13;
-constexpr int SL_E = (1 << SL_LGM) / SL_T;
-constexpr int SL_MINB = 1;
-
-// Column j2 = c0 + c of one signal's (n1, n2) row-major matrix.
-struct ColLoad {
-  const float* xr;
-  const float* xi;
-  int lg2;
-  int c0;
-  int cv;
-  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
-    if (sig >= cv) {
-      v = make_float2(0.f, 0.f);
-      return;
-    }
-    const int off = (pos << lg2) + c0 + sig;
-    v = make_float2(xr[off], xi[off]);
-  }
-};
-
-// Bin k1 of column j2 = c0 + c, times w_n^(k1 j2), to the slab's (k1, j2).
-struct ColStore {
-  float* mr;
-  float* mi;
-  int lg2;
-  int c0;
-  int cv;
-  Roots w;
-  __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
-    if (sig >= cv) return;
-    const int j2 = c0 + sig;
-    v = cmulf(v, w(bin * j2));  // k1 j2 < n1 n2: no wrap
-    const int off = (bin << lg2) + j2;
-    mr[off] = v.x;
-    mi[off] = v.y;
-  }
-};
-
 // Bin k2 of row k1 = r0 + c to k1-major position k1 n2 + k2.
 struct K1Store {
   float* yr;
@@ -116,16 +66,6 @@ struct K1Store {
     yi[p] = v.y;
   }
 };
-
-// Output position p of a signal (at yr / yi + off), times the scale and
-// the phasor e[p].
-__device__ __forceinline__ void put(float* yr, float* yi, int off, int p, float2 v, float scale,
-                                    const float* er, const float* ei) {
-  v = make_float2(v.x * scale, v.y * scale);
-  if (er != nullptr) v = cmulf(v, make_float2(ldro(er + p), ldro(ei + p)));
-  yr[off] = v.x;
-  yi[off] = v.y;
-}
 
 }  // namespace
 
@@ -163,7 +103,7 @@ __global__ void __launch_bounds__(T, MB)
   }
 }
 
-__global__ void __launch_bounds__(SL_T, SL_MINB)
+__global__ void __launch_bounds__(SL_T, 1)
     fft4step_slab_kernel(int lgn, int lg1, int natural, const float* __restrict__ xr,
                          const float* __restrict__ xi, const float* __restrict__ wr,
                          const float* __restrict__ wi, const float* __restrict__ er,
@@ -212,7 +152,7 @@ __global__ void __launch_bounds__(SL_T, SL_MINB)
 }
 
 // Shared memory a four-step block needs with its intermediate on chip:
-// the GEMM tiles' figure, which the pencil and Bluestein kernels read.
+// the GEMM tiles' figure, which cols_natural reads.
 extern "C" i64 repro_four_step_smem_bytes(i64 n, i64 lgc) {
   return four_step_smem_bytes(n, (int)lgc);
 }

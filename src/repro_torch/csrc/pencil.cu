@@ -86,17 +86,9 @@ struct Twiddle {
 
 namespace {
 
-// The on-chip tiles: threads per block and the blocks each SM must hold
-// (at most 64 registers a thread), by log2 of the tile (fft4step.cu's).
-constexpr int T12 = 256, MB12 = 4;
-constexpr int T13 = 512, MB13 = 2;
-constexpr int T14 = 1024, MB14 = 1;
-
-// The slab kernels: tiles of 8192 points, 1024 threads of 8, one block an
-// SM, 8 columns (rows) per block: one 32-byte sector per plane.
-constexpr int SL_T = 1024;
-constexpr int SL_LGM = 13;
-constexpr int SL_E = (1 << SL_LGM) / SL_T;
+// The on-chip tiles and the slab kernels' 8192-point tile are radix.cuh's
+// (fft4step.cu's); a slab block takes 8 columns (rows): one 32-byte sector
+// per plane.
 constexpr int LGQ = 3;
 
 // Column c of a tile of adjacent columns: position j at x + j * s + c, of

@@ -4,9 +4,9 @@
 // (src/repro/core/fft_xla.py:114, stockham_fft), written as the paper
 // writes its kernel: a butterfly FFT kept on chip, each point crossing
 // device memory once each way, the twiddles read from one table through
-// the read-only ("texture") path.  dft_matmul.cu and fft4step.cu run it;
-// the GEMM tiles of tile.cuh stay as they are for the pencil and Bluestein
-// kernels.
+// the read-only ("texture") path.  dft_matmul.cu, fft4step.cu, pencil.cu
+// (cols_pass, rows_natural) and bluestein.cu (the fused stages) run it; the
+// GEMM tiles of tile.cuh stay as they are for cols_natural.
 //
 // A block transforms a tile of M = T * E points: C = 2^lgc signals of
 // length L = 2^lgl (C * L = M).  Each thread holds E points in registers.
@@ -344,5 +344,64 @@ struct RowStore {
 struct NoStore {
   __device__ __forceinline__ void operator()(int, int, float2) const {}
 };
+
+// The whole-signal tiles: threads per block and the blocks each SM must
+// hold (at most 64 registers a thread, none spilled), by log2 of the tile.
+// 4096 points: 256 threads of 16, four blocks; 8192: 512 of 16, two;
+// 16384: 1024 of 16, one (the signal fills half the register file).
+constexpr int T12 = 256, MB12 = 4;
+constexpr int T13 = 512, MB13 = 2;
+constexpr int T14 = 1024, MB14 = 1;
+
+// The slab kernels' tile: 8192 points, 1024 threads of 8, one block an SM
+// (64 registers, none spilled; 16 points a thread spill here).
+constexpr int SL_T = 1024;
+constexpr int SL_LGM = 13;
+constexpr int SL_E = (1 << SL_LGM) / SL_T;
+
+// Column j2 = c0 + c of one signal's (n1, n2) row-major matrix.
+struct ColLoad {
+  const float* xr;
+  const float* xi;
+  int lg2;
+  int c0;
+  int cv;
+  __device__ __forceinline__ void operator()(int sig, int pos, float2& v) const {
+    if (sig >= cv) {
+      v = make_float2(0.f, 0.f);
+      return;
+    }
+    const int off = (pos << lg2) + c0 + sig;
+    v = make_float2(xr[off], xi[off]);
+  }
+};
+
+// Bin k1 of column j2 = c0 + c, times w_n^(k1 j2), to the slab's (k1, j2).
+struct ColStore {
+  float* mr;
+  float* mi;
+  int lg2;
+  int c0;
+  int cv;
+  Roots w;
+  __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
+    if (sig >= cv) return;
+    const int j2 = c0 + sig;
+    v = cmulf(v, w(bin * j2));  // k1 j2 < n1 n2: no wrap
+    const int off = (bin << lg2) + j2;
+    mr[off] = v.x;
+    mi[off] = v.y;
+  }
+};
+
+// Output position p of a signal (at yr / yi + off), times the scale and
+// the phasor e[p].
+__device__ __forceinline__ void put(float* yr, float* yi, int off, int p, float2 v, float scale,
+                                    const float* er, const float* ei) {
+  v = make_float2(v.x * scale, v.y * scale);
+  if (er != nullptr) v = cmulf(v, make_float2(ldro(er + p), ldro(ei + p)));
+  yr[off] = v.x;
+  yi[off] = v.y;
+}
 
 }  // namespace repro

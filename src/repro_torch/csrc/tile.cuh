@@ -24,9 +24,8 @@
 //
 // Load and store policies (template parameters whose defaults are the
 // plain load and store) let a caller bend one GEMM without a runtime test
-// in the shared tile: Bluestein's pre-chirp and zero pad on a load, its bin
-// mask on a store, a column pass's twiddle column by division.  With the
-// defaults every kernel compiles to the code it had without them.
+// in the shared tile; cols_natural, the one kernel left on these tiles,
+// runs the defaults.
 //
 // All offsets are 64-bit: B.n passes 2^31 at the main-path shapes.
 #pragma once
@@ -85,57 +84,11 @@ struct PlainLoad {
   }
 };
 
-// Bluestein's pre-chirp on a load.  Element (r, c) of the view is sample
-// j = r * rmul + (c & cmask) of its signal: j >= n is the zero pad and
-// reads nothing (v stays 0), else the sample times chirp[j].
-struct ChirpLoad {
-  const float* cr;
-  const float* ci;
-  int n;
-  int rmul;
-  int cmask;
-  __device__ __forceinline__ void operator()(const CMat& X, int r, int c, float2& v) const {
-    const int j = r * rmul + (c & cmask);
-    if (j >= n) return;  // v stays 0
-    const i64 off = X.row(r) + X.col(c);
-    const float xr = X.re[off], xi = X.im[off];
-    const float ar = cr[j], ai = ci[j];
-    v.x = xr * ar - xi * ai;
-    v.y = xr * ai + xi * ar;
-  }
-};
-
 // The plain store: every element in range, the phasor at its own view.
 struct PlainStore {
   __device__ __forceinline__ bool keep(int, int) const { return true; }
   __device__ __forceinline__ i64 eoff(const COut& O, int m, int c) const {
     return O.erow(m) + O.ecol(c);
-  }
-};
-
-// Bluestein's bin mask on the natural-order store of a four-step GEMM 2:
-// row m holds k1 = m mod n1, column c is k2, and only bins
-// k = k2 * n1 + k1 < n are written.
-struct BinMask {
-  int n;
-  int n1;
-  __device__ __forceinline__ bool keep(int m, int c) const {
-    return c * n1 + (m & (n1 - 1)) < n;
-  }
-  __device__ __forceinline__ i64 eoff(const COut& O, int m, int c) const {
-    return O.erow(m) + O.ecol(c);
-  }
-};
-
-// A column pass's twiddle column by division, for a width-broadcast run of
-// w columns that is no power of two: column c of row m reads phasor
-// m * ts + c / w (the shift view Ix serves a power-of-two w).
-struct TwDiv {
-  i64 ts;
-  int w;
-  __device__ __forceinline__ bool keep(int, int) const { return true; }
-  __device__ __forceinline__ i64 eoff(const COut&, int m, int c) const {
-    return (i64)m * ts + c / w;
   }
 };
 
@@ -296,16 +249,11 @@ __host__ __device__ __forceinline__ i64 four_step_smem_bytes(i64 n, int lgc) {
 // at mid_re/mid_im: shared memory when it fits the block, else a global
 // scratch slab of the same size owned by this block.  LUTs: W1 (n1 x n1),
 // T (n1 x n2), W2 (n2 x n2), row-major; inverse scaling is folded in W2.
-// l1 reads the signals into GEMM 1 and s2 masks GEMM 2's store; j1_end > 0
-// stops GEMM 1 at input rows j1 < j1_end and k2_end > 0 GEMM 2 at bins
-// k2 < k2_end (Bluestein's zero pad and sliced bins); both whole by default.
-template <class L1 = PlainLoad, class S2 = PlainStore>
 __device__ __forceinline__ void four_step_tile(
     int n1, int lg1, int n2, int lg2, int lgc, const float* w1r,
     const float* w1i, const float* tr, const float* ti, const float* w2r,
     const float* w2i, const Sig& x, const SigOut& y, bool natural,
-    float* mid_re, float* mid_im, float2* smem, const L1& l1 = L1(),
-    const S2& s2 = S2(), int j1_end = 0, int k2_end = 0) {
+    float* mid_re, float* mid_im, float2* smem) {
   const int C = 1 << lgc;
   const i64 n2c = (i64)n2 << lgc;
   // GEMM 1: mid[k1, q] = sum_j1 W1[k1, j1] x[c, j1*n2 + j2] * T[k1, j2].
@@ -318,7 +266,7 @@ __device__ __forceinline__ void four_step_tile(
   const CMat B1{x.re, x.im, stride((i64)n2 * x.sj), q_in};
   const COut O1{mid_re, mid_im, stride(n2c), stride(1),
                 tr,     ti,     stride(n2),  q_tw};
-  cgemm_block(n1, (int)n2c, j1_end > 0 ? j1_end : n1, A1, B1, O1, smem, PlainLoad(), l1);
+  cgemm_block(n1, (int)n2c, n1, A1, B1, O1, smem);
   __syncthreads();  // the intermediate is complete and visible to the block
 
   // GEMM 2: y[c, bin(k1, k2)] = sum_j2 mid[k1, q(j2, c)] W2[j2, k2].
@@ -338,8 +286,7 @@ __device__ __forceinline__ void four_step_tile(
   const CMat B2{w2r, w2i, stride(n2), stride(1)};
   const COut O2{y.re, y.im, m_out, stride(out_k2),
                 y.er, y.ei, m_e,   stride(e_k2)};
-  cgemm_block(n1 << lgc, k2_end > 0 ? k2_end : n2, n2, A2, B2, O2, smem, PlainLoad(),
-              PlainLoad(), s2);
+  cgemm_block(n1 << lgc, n2, n2, A2, B2, O2, smem);
 }
 
 // Compiled attributes of the kernels of one source, for the register guard

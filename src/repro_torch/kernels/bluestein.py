@@ -6,44 +6,50 @@ planner (``core/plan.compile_bluestein``) schedules it as two passes while
 M ≤ 65536 (the fused regime) and as seven beyond (the split regime: three
 elementwise stages around M's own two-pass forward and inverse programs).
 
-``bluestein_fwd_call`` — CUDA kernel in ``csrc/bluestein.cu``, replacing
-the TPU kernel ``bluestein_fwd_call`` (``src/repro/kernels/bluestein.py:85``):
-x (B, n) → FFT_M(chirp·x ‖ 0) ⊙ B̂ (B, M).
+``bluestein_fwd_call`` — CUDA kernel in ``csrc/bluestein.cu`` (engine
+``csrc/radix.cuh``), replacing the TPU kernel ``bluestein_fwd_call``
+(``src/repro/kernels/bluestein.py:85``): x (B, n) → FFT_M(chirp·x ‖ 0) ⊙ B̂
+(B, M).
 
 ``bluestein_inv_call`` — replacing ``bluestein_inv_call`` (``:142``):
-x (B, M) → post·IFFT_M(x)[:, :n] (B, n), with 1/M in the inner LUTs and,
-for an outer inverse, 1/n in ``post``.
+x (B, M) → post·IFFT_M(x)[:, :n] (B, n), 1/M applied at the store and, for
+an outer inverse, 1/n in ``post``.
 
 ``bluestein_elem_call`` — replacing ``bluestein_elem_call`` (``:197``): one
 elementwise stage of the split regime, ``pre`` (B, n) → chirp·x padded to
 (B, M), ``mul`` (B, M) ⊙ B̂, ``post`` (B, M) → post·x[:, :n] (B, n).
 
-The fused stages run the leaves' GEMM tiles with the pre-chirp and the zero
-pad folded into the loads and the bin mask into the store, so the pad is
-never in memory and its rows cost no arithmetic; they are bound by fp32
-arithmetic on the H100.  The elementwise stage is bound by bytes.  The
-kernels write a new output where the reference's ``mul`` worked in place:
-writing in place would not lower a split call's peak memory, since the pad
-length's column and row passes around ``mul`` hold two (B, M) pairs too.
+The fused stages are radix FFTs of the pad length, as ``fft4step``'s, bound
+by bytes on the H100: the chirp and the zero pad are the forward's load
+(the pad is never in memory and costs no read), B̂ its store; the inverse's
+store keeps the first n bins times 1/M and the post-chirp.  Up to
+M = 16384 a block holds whole signals on chip (one round trip); at
+M = 32768 and 65536 it runs the planner's four-step M = n1 × n2 through a
+global scratch slab (two).  Each reads one (M,) roots table: forward for
+``fwd``, inverse for ``inv``, whatever the outer direction.  The
+elementwise stage is bound by bytes too.  The kernels write a new output
+where the reference's ``mul`` worked in place: writing in place would not
+lower a split call's peak memory, since the pad length's column and row
+passes around ``mul`` hold two (B, M) pairs too.
 
 Each ``*_plain`` function is the same computation in plain PyTorch, from
-:func:`~repro_torch.core.fft_torch.cmul` and the leaves' tile functions;
-each ``*_call`` takes it for a CPU tensor, and for a CUDA tensor launches
-the kernel or raises.  ``luts`` are the reference's, as 1-D planes:
-``(chirp_r, chirp_i, *inner_fwd_luts, spec_r, spec_i)`` for ``fwd``,
-``(*inner_inv_luts, post_r, post_i)`` for ``inv`` and the stage's pair for
-``elem`` (``kernels/ops._bluestein_luts``).
+:func:`~repro_torch.core.fft_torch.cmul` and
+:func:`~repro_torch.core.fft_torch.stockham_fft` over the same roots
+table; each ``*_call`` takes it for a CPU tensor, and for a CUDA tensor
+launches the kernel or raises.  ``luts`` are 1-D planes
+(``kernels/ops._bluestein_luts``): ``(chirp_r, chirp_i, *roots(M, fwd),
+spec_r, spec_i)`` for ``fwd``, ``(*roots(M, inv), post_r, post_i)`` for
+``inv`` and the stage's pair for ``elem``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.fft_torch import cmul
+from repro_torch.core import plan as plan_lib
+from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
-from repro_torch.kernels import build
-from repro_torch.kernels.dft_matmul import dft_tile
-from repro_torch.kernels.fft4step import TILE_N, chunk_log2, four_step_tile, scratch_planes
+from repro_torch.kernels import build, dft_matmul, fft4step
 
 __all__ = [
     "COUNTS",
@@ -54,6 +60,7 @@ __all__ = [
     "bluestein_inv_call",
     "bluestein_elem_plain",
     "bluestein_elem_call",
+    "slab_split",
 ]
 
 #: Kernel launches and plain-version calls, counted where each happens.
@@ -69,28 +76,14 @@ COUNTS = {
 #: The elementwise stages of the split regime.
 STAGES = ("pre", "mul", "post")
 
+#: The longest pad of the fused stages.
+MAX_M = 65536
+
 _P = build.PTR
 _I = build.I64
-_FWD_DIRECT = (_I,) * 3 + (_P,) * 11
-_INV_DIRECT = (_I,) * 3 + (_P,) * 9
-_FWD_FUSED = (_I,) * 5 + (_P,) * 17
-_INV_FUSED = (_I,) * 5 + (_P,) * 15
+_FWD = (_I,) * 4 + (_P,) * 13
+_INV = (_I,) * 4 + (_P,) * 11
 _ELEM = (_I,) * 3 + (_P,) * 7
-
-
-def _inner(xr, xi, inner_luts, inner_kind: str, in1: int, in2: int):
-    """The pad-length transform of a (B, M) batch through the leaves' tiles."""
-    if inner_kind == "direct":
-        return dft_tile(xr, xi, *inner_luts)
-    return four_step_tile(xr, xi, *inner_luts, in1, in2, True)
-
-
-def _inner_shapes(inner_kind: str, m_pad: int, in1: int, in2: int):
-    if inner_kind == "direct":
-        return [(m_pad, m_pad)] * 2
-    if inner_kind != "fused4" or in1 * in2 != m_pad:
-        raise PlanError(f"bluestein: inner {inner_kind} {in1}·{in2} is no transform of M={m_pad}")
-    return [(in1, in1)] * 2 + [(in1, in2)] * 2 + [(in2, in2)] * 2
 
 
 def _check(name, xr, xi, width, luts, lut_shapes):
@@ -109,104 +102,117 @@ def _check_pad(name, n: int, m_pad: int):
         raise PlanError(f"{name}: pad M={m_pad} must be a power of two ≥ 2n − 1 = {2 * n - 1}")
 
 
-def bluestein_fwd_plain(xr, xi, luts, *, n: int, m_pad: int, inner_kind: str,
-                        in1: int = 0, in2: int = 0):
+def _check_fused(name, n: int, m_pad: int, in1: int) -> None:
+    """A fused stage's pad (at most :data:`MAX_M`) and the slab form's
+    first factor ``in1`` (0: the balanced split), whose two factors are
+    ``fft4step``'s."""
+    _check_pad(name, n, m_pad)
+    if m_pad > MAX_M:
+        raise PlanError(f"{name}: pad M={m_pad} is past the fused regime's {MAX_M}")
+    lo = fft4step.MIN_FACTOR
+    if in1 and (in1 & (in1 - 1) or in1 < lo or m_pad // in1 < lo):
+        raise PlanError(f"{name}: in1={in1} is not a power-of-two factor of M={m_pad} "
+                        f"with both factors at least {lo}")
+
+
+def slab_split(like, m_pad: int, in1: int = 0) -> int:
+    """The first factor of the slab form at pad ``m_pad`` on ``like``'s
+    card (``in1``, or the balanced split), or 0 for the whole-signal tiles:
+    the pad takes the form ``fft4step`` gives that length (a tile to 1024
+    points, and to 16384 while the tile fits a block's shared memory)."""
+    if m_pad <= dft_matmul.MAX_N or not fft4step.slab_needed(like, m_pad):
+        return 0
+    return in1 or plan_lib.balanced_split(m_pad)[0]
+
+
+def _slab(xr, m_pad: int, in1: int):
+    """(scratch planes of B·M points each, or None, None; the slab form's
+    first factor, or 0)."""
+    n1 = slab_split(xr, m_pad, in1)
+    if not n1:
+        return None, None, 0
+    numel = xr.shape[0] * m_pad
+    return (torch.empty(numel, dtype=xr.dtype, device=xr.device),
+            torch.empty(numel, dtype=xr.dtype, device=xr.device), n1)
+
+
+def bluestein_fwd_plain(xr, xi, luts, *, n: int, m_pad: int):
     """Plain PyTorch version of the forward stage (any device)."""
     COUNTS["bluestein_fwd_plain"] += 1
-    cr, ci, *inner, br, bi = luts
+    cr, ci, rr, ri, br, bi = luts
     yr, yi = cmul(xr, xi, cr, ci)
     yr = torch.nn.functional.pad(yr, (0, m_pad - n))
     yi = torch.nn.functional.pad(yi, (0, m_pad - n))
-    fr, fi = _inner(yr, yi, inner, inner_kind, in1, in2)
+    fr, fi = stockham_fft(yr, yi, roots=(rr, ri))
     return cmul(fr, fi, br, bi)
 
 
-def bluestein_fwd_call(xr, xi, luts, *, n: int, m_pad: int, inner_kind: str,
-                       in1: int = 0, in2: int = 0):
+def bluestein_fwd_call(xr, xi, luts, *, n: int, m_pad: int, in1: int = 0):
     """Fused forward stage: x (B, n) → FFT_M(chirp·x ‖ 0) ⊙ B̂ (B, M).
 
-    ``luts`` = (chirp_r, chirp_i, *inner_fwd_luts, spec_r, spec_i): the (n,)
-    pre-chirp, the forward M-point transform's LUTs (direct W, or W1/T/W2
-    of the ``in1 × in2`` four-step) and the (M,) chirp spectrum B̂."""
-    _check_pad("bluestein_fwd", n, m_pad)
-    shapes = [(n,)] * 2 + _inner_shapes(inner_kind, m_pad, in1, in2) + [(m_pad,)] * 2
-    _check("bluestein_fwd", xr, xi, n, luts, shapes)
+    ``luts`` = (chirp_r, chirp_i, roots_r, roots_i, spec_r, spec_i): the
+    (n,) pre-chirp, the (M,) forward roots table and the (M,) chirp
+    spectrum B̂.  ``in1``: the planner's first factor of M, the four-step
+    split of the slab form (0: the balanced split)."""
+    _check_fused("bluestein_fwd", n, m_pad, in1)
+    _check("bluestein_fwd", xr, xi, n, luts, [(n,)] * 2 + [(m_pad,)] * 4)
     if xr.device.type == "cpu":
-        return bluestein_fwd_plain(xr, xi, luts, n=n, m_pad=m_pad, inner_kind=inner_kind,
-                                   in1=in1, in2=in2)
-    return _launch_fwd(xr, xi, luts, n, m_pad, inner_kind, in1, in2)
-
-
-def _fused_chunk(b: int, in2: int) -> int:
-    """log2 of the signals per four-step block, as ``fft4step`` picks it:
-    short second factors batch signals so GEMM tiles fill."""
-    return chunk_log2(b, max(1, TILE_N // in2))
+        return bluestein_fwd_plain(xr, xi, luts, n=n, m_pad=m_pad)
+    return _launch_fwd(xr, xi, luts, n, m_pad, in1)
 
 
 @build.on_device
-def _launch_fwd(xr, xi, luts, n, m_pad, inner_kind, in1, in2):
+def _launch_fwd(xr, xi, luts, n, m_pad, in1=0):
     b = xr.shape[0]
     yr = torch.empty((b, m_pad), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, m_pad), dtype=xr.dtype, device=xr.device)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
+    mr, mi, n1 = _slab(xr, m_pad, in1)
     p = build.ptr
-    if inner_kind == "direct":
-        rc = build.function("repro_bluestein_fwd_direct", _FWD_DIRECT)(
-            b, n, m_pad, p(xr), p(xi), *map(p, luts), p(yr), p(yi), build.stream_ptr(xr),
-        )
-    else:
-        lgc = _fused_chunk(b, in2)
-        sr, si = scratch_planes(xr, m_pad, lgc, b)
-        rc = build.function("repro_bluestein_fwd_fused", _FWD_FUSED)(
-            b, n, in1, in2, lgc, p(xr), p(xi), *map(p, luts), p(yr), p(yi),
-            p(sr), p(si), build.stream_ptr(xr),
-        )
+    rc = build.function("repro_bluestein_fwd", _FWD)(
+        b, n, m_pad, n1, p(xr), p(xi), *map(p, luts), p(yr), p(yi), p(mr), p(mi),
+        build.stream_ptr(xr),
+    )
     build.check(rc, "bluestein_fwd")
     COUNTS["bluestein_fwd"] += 1
     return yr, yi
 
 
-def bluestein_inv_plain(xr, xi, luts, *, n: int, m_pad: int, inner_kind: str,
-                        in1: int = 0, in2: int = 0):
+def bluestein_inv_plain(xr, xi, luts, *, n: int, m_pad: int):
     """Plain PyTorch version of the inverse stage (any device)."""
     COUNTS["bluestein_inv_plain"] += 1
-    *inner, pr, pi = luts
-    gr, gi = _inner(xr, xi, inner, inner_kind, in1, in2)
+    rr, ri, pr, pi = luts
+    gr, gi = stockham_fft(xr, xi, inverse=True, roots=(rr, ri))
     return cmul(gr[:, :n], gi[:, :n], pr, pi)
 
 
-def bluestein_inv_call(xr, xi, luts, *, n: int, m_pad: int, inner_kind: str,
-                       in1: int = 0, in2: int = 0):
+def bluestein_inv_call(xr, xi, luts, *, n: int, m_pad: int, in1: int = 0):
     """Fused inverse stage: x (B, M) → post·IFFT_M(x)[:, :n] (B, n).
 
-    ``luts`` = (*inner_inv_luts, post_r, post_i): the inverse M-point
-    transform's LUTs (1/M folded in) and the (n,) post-chirp (1/n folded in
-    for an outer inverse)."""
-    _check_pad("bluestein_inv", n, m_pad)
-    shapes = _inner_shapes(inner_kind, m_pad, in1, in2) + [(n,)] * 2
-    _check("bluestein_inv", xr, xi, m_pad, luts, shapes)
+    ``luts`` = (roots_r, roots_i, post_r, post_i): the (M,) inverse roots
+    table (1/M is applied at the store) and the (n,) post-chirp (1/n folded
+    in for an outer inverse).  ``in1`` as :func:`bluestein_fwd_call`'s."""
+    _check_fused("bluestein_inv", n, m_pad, in1)
+    _check("bluestein_inv", xr, xi, m_pad, luts, [(m_pad,)] * 2 + [(n,)] * 2)
     if xr.device.type == "cpu":
-        return bluestein_inv_plain(xr, xi, luts, n=n, m_pad=m_pad, inner_kind=inner_kind,
-                                   in1=in1, in2=in2)
-    return _launch_inv(xr, xi, luts, n, m_pad, inner_kind, in1, in2)
+        return bluestein_inv_plain(xr, xi, luts, n=n, m_pad=m_pad)
+    return _launch_inv(xr, xi, luts, n, m_pad, in1)
 
 
 @build.on_device
-def _launch_inv(xr, xi, luts, n, m_pad, inner_kind, in1, in2):
+def _launch_inv(xr, xi, luts, n, m_pad, in1=0):
     b = xr.shape[0]
     yr = torch.empty((b, n), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, n), dtype=xr.dtype, device=xr.device)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
+    mr, mi, n1 = _slab(xr, m_pad, in1)
     p = build.ptr
-    if inner_kind == "direct":
-        rc = build.function("repro_bluestein_inv_direct", _INV_DIRECT)(
-            b, n, m_pad, p(xr), p(xi), *map(p, luts), p(yr), p(yi), build.stream_ptr(xr),
-        )
-    else:
-        lgc = _fused_chunk(b, in2)
-        sr, si = scratch_planes(xr, m_pad, lgc, b)
-        rc = build.function("repro_bluestein_inv_fused", _INV_FUSED)(
-            b, n, in1, in2, lgc, p(xr), p(xi), *map(p, luts), p(yr), p(yi),
-            p(sr), p(si), build.stream_ptr(xr),
-        )
+    rc = build.function("repro_bluestein_inv", _INV)(
+        b, n, m_pad, n1, p(xr), p(xi), *map(p, luts), p(yr), p(yi), p(mr), p(mi),
+        build.stream_ptr(xr),
+    )
     build.check(rc, "bluestein_inv")
     COUNTS["bluestein_inv"] += 1
     return yr, yi
@@ -252,6 +258,8 @@ def _launch_elem(xr, xi, planes, w_in, w_out):
     b = xr.shape[0]
     yr = torch.empty((b, w_out), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, w_out), dtype=xr.dtype, device=xr.device)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_bluestein_elem", _ELEM)(
         b, w_in, w_out, p(xr), p(xi), *map(p, planes), p(yr), p(yi), build.stream_ptr(xr),

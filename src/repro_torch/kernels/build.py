@@ -300,10 +300,14 @@ RECORDED_ATTRS = {
     "cols_fused_kernel": (127, 0),
     "rfft_recomb_kernel": (24, 0),
     "irfft_recomb_kernel": (20, 0),
-    "bluestein_fwd_direct_kernel": (79, 0),
-    "bluestein_fwd_fused_kernel": (128, 0),
-    "bluestein_inv_direct_kernel": (103, 0),
-    "bluestein_inv_fused_kernel": (128, 0),
+    "bluestein_fwd_kernel<256, 16>": (64, 0),
+    "bluestein_fwd_kernel<512, 16>": (64, 0),
+    "bluestein_fwd_kernel<1024, 16>": (64, 0),
+    "bluestein_fwd_slab_kernel": (64, 0),
+    "bluestein_inv_kernel<256, 16>": (64, 0),
+    "bluestein_inv_kernel<512, 16>": (64, 0),
+    "bluestein_inv_kernel<1024, 16>": (64, 0),
+    "bluestein_inv_slab_kernel": (64, 0),
     "bluestein_elem_kernel": (16, 0),
 }
 

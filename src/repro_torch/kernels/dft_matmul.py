@@ -92,6 +92,8 @@ def _launch(xr, xi, rr, ri, er, ei, inverse):
     b, n = xr.shape
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_dft_matmul", _ARGS)(
         b, n, int(inverse), p(xr), p(xi), p(rr), p(ri), p(er), p(ei), p(yr), p(yi),

@@ -18,9 +18,10 @@ Stockham FFT over the kernel's own roots table, the scale, the k1-major
 permutation and the phasor.  :func:`fft4step_call` takes it for a CPU
 tensor; for a CUDA tensor it launches the kernel or raises.
 
-:func:`cgemm_tile`, :func:`four_step_tile`, :func:`chunk_log2`,
-:func:`scratch_planes` and ``TILE_N`` serve the pencil and Bluestein
-kernels, whose four-step tiles stay DFT-matrix GEMMs (``csrc/tile.cuh``).
+:func:`cgemm_tile`, :func:`four_step_tile` and :func:`scratch_planes`
+serve ``cols_natural``, whose four-step tile stays a DFT-matrix GEMM
+(``csrc/tile.cuh``); :func:`slab_needed` and :data:`MIN_FACTOR` serve the
+Bluestein stages, whose pad takes the tiles and the slab of this kernel.
 """
 
 from __future__ import annotations
@@ -40,16 +41,12 @@ __all__ = [
     "four_step_tile",
     "fft4step_plain",
     "fft4step_call",
-    "chunk_log2",
     "scratch_planes",
     "slab_needed",
 ]
 
 #: Kernel launches and plain-version calls, counted where each happens.
 COUNTS = {"fft4step": 0, "fft4step_plain": 0}
-
-#: Output-tile width of the CUDA GEMM tiles (``BN`` in ``csrc/tile.cuh``).
-TILE_N = 64
 
 #: The longest signal the kernel takes, and the shortest factor of its
 #: four-step split (n1, n2 ≥ 32).
@@ -140,13 +137,6 @@ def fft4step_call(xr, xi, rr, ri, *, n1, inverse=False, natural_order=True, twid
     return _launch(xr, xi, rr, ri, er, ei, n1, inverse, natural_order)
 
 
-def chunk_log2(count: int, want: int) -> int:
-    """log2 of the signals per block: ``want`` (a power of two) cut to the
-    largest power of two dividing ``count``."""
-    c = min(want, count & -count)
-    return c.bit_length() - 1
-
-
 def scratch_planes(like, n: int, lgc: int, signals: int | None = None):
     """A global scratch slab for the four-step intermediate, or (None, None)
     when a chunk of 2^lgc length-n signals keeps it in shared memory of
@@ -178,12 +168,14 @@ def slab_needed(like, n: int) -> bool:
 @build.on_device
 def _launch(xr, xi, rr, ri, er, ei, n1, inverse, natural_order):
     b, n = xr.shape
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     sr = si = None
     if slab_needed(xr, n):
         sr = torch.empty_like(xr)
         si = torch.empty_like(xi)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
     p = build.ptr
     rc = build.function("repro_fft4step", _ARGS)(
         b, n, n1, int(natural_order), int(inverse),

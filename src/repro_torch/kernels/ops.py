@@ -39,9 +39,9 @@ applies the inverse's 1/f at its store.  ``cols_natural`` reads
 DFT-matrix LUTs with the inverse's 1/f folded into its transform LUT
 exactly as the reference folds it (W for the direct tile, W2 for the
 four-step tile).  Either way the factors of a program multiply to 1/n.  A
-Bluestein pass carries the chirp tables of the outer direction and the
-inner transform's DFT-matrix LUTs of its own (forward, then inverse with
-1/M folded in).
+fused Bluestein pass carries the chirp tables of the outer direction and
+the pad length's roots table of its own stage (forward for ``fwd``,
+inverse for ``inv``, whose kernel applies 1/M at its store).
 """
 
 from __future__ import annotations
@@ -151,9 +151,10 @@ def _bluestein_luts(device: str, p: plan_lib.Pass, inverse: bool) -> tuple:
     """The LUT planes of one Bluestein pass stage, interned piecewise per
     (device, n, M, direction): the (n,) chirp, the (M,) chirp spectrum B̂,
     the (n,) post-chirp (1/n folded in for an outer inverse) and, for the
-    fused stages, the inner M-point transform's LUTs.  The inner conv is
-    always forward then inverse; ``inverse`` only picks the chirp tables
-    (reference ``src/repro/kernels/ops.py:99``)."""
+    fused stages, the (M,) roots table of the inner transform: ``fwd``
+    reads (chirp, forward roots, B̂), ``inv`` (inverse roots, post-chirp).
+    The inner conv is always forward then inverse; ``inverse`` only picks
+    the chirp tables (reference ``src/repro/kernels/ops.py:99``)."""
     n, m_pad = p.n, p.n1
     if p.stage == "pre":
         return _chirp_luts(device, n, inverse)
@@ -161,12 +162,11 @@ def _bluestein_luts(device: str, p: plan_lib.Pass, inverse: bool) -> tuple:
         return _spectrum_luts(device, n, m_pad, inverse)
     if p.stage == "post":
         return _postchirp_luts(device, n, inverse)
-    inner = plan_lib._leaf_pass(m_pad)
     if p.stage == "fwd":
-        return (*_chirp_luts(device, n, inverse), *_transform_luts(device, inner, False),
+        return (*_chirp_luts(device, n, inverse), *_roots_luts(device, m_pad, False),
                 *_spectrum_luts(device, n, m_pad, inverse))
     if p.stage == "inv":
-        return (*_transform_luts(device, inner, True), *_postchirp_luts(device, n, inverse))
+        return (*_roots_luts(device, m_pad, True), *_postchirp_luts(device, n, inverse))
     raise faults.PlanError(f"unknown bluestein stage {p.stage!r}")
 
 
@@ -213,7 +213,8 @@ def plan_kernels(fft_plan: plan_lib.FFTPlan, axis: int = -1) -> tuple:
 
 def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1) -> tuple:
     """Upload (or find) every LUT the plan's passes read on ``device`` when
-    it runs over ``axis``: the roots table for a radix pass, the DFT-matrix
+    it runs over ``axis``: the roots table for a radix pass, the chirp
+    tables and the pad's roots table for a Bluestein pass, the DFT-matrix
     LUTs for ``cols_natural``, and each pass's inter-factor twiddle."""
     dev = device_key(device)
     luts = []
@@ -237,9 +238,9 @@ def _bluestein_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     kw = dict(n=p.n, m_pad=p.n1)
     if p.stage in bluestein.STAGES:
         return bluestein.bluestein_elem_call(xr, xi, luts, stage=p.stage, **kw)
-    inner = plan_lib._leaf_pass(p.n1)
     call = bluestein.bluestein_fwd_call if p.stage == "fwd" else bluestein.bluestein_inv_call
-    return call(xr, xi, luts, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2, **kw)
+    # The planner's split of the pad: the four-step of the slab form.
+    return call(xr, xi, luts, in1=plan_lib._leaf_pass(p.n1).n1, **kw)
 
 
 def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:

@@ -258,6 +258,8 @@ def _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1=0, tw_every=1, tile=None):
     tile = _tile_for(COLS_TILE, f, tile)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     tr, ti = twiddle if twiddle is not None else (None, None)
     mr = mi = None
     if tile == SLAB:
@@ -309,6 +311,8 @@ def _launch_cols_natural(xr, xi, luts, kind, n1, n2):
     b, pp, f, w = xr.shape
     yr = torch.empty((b, f, pp, w), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, f, pp, w), dtype=xr.dtype, device=xr.device)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     p = build.ptr
     if kind == "direct":
         wr, wi = luts
@@ -359,6 +363,8 @@ def _launch_rows(xr, xi, rr, ri, inverse, n1=0, tile=None):
     tile = _tile_for(ROWS_TILE, f, tile)
     yr = torch.empty((b, f, pp), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, f, pp), dtype=xr.dtype, device=xr.device)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     mr = mi = None
     if tile == SLAB:
         mr, mi = _slab(xr, b * -(-pp // SLAB_GROUP) * SLAB_GROUP * f)
@@ -427,6 +433,8 @@ def _launch_recomb(xr, xi, wr, wi, name, m, width):
     b = xr.shape[0]
     yr = torch.empty((b, width), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, width), dtype=xr.dtype, device=xr.device)
+    if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
     p = build.ptr
     rc = build.function(f"repro_{name}", _RECOMB)(
         b, m, p(xr), p(xi), p(wr), p(wi), p(yr), p(yi), build.stream_ptr(xr),

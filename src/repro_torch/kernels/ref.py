@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["naive_dft", "four_step_ref"]
+__all__ = ["naive_dft", "four_step_ref", "np_fft"]
 
 
 def naive_dft(x: np.ndarray, inverse: bool = False) -> np.ndarray:
@@ -46,3 +46,19 @@ def four_step_ref(x: np.ndarray, n1: int, n2: int, inverse: bool = False) -> np.
     if inverse:
         out = out / n
     return out
+
+
+def np_fft(spec, x: np.ndarray) -> np.ndarray:
+    """``spec``'s transform of ``x`` (an ``FFTSpec`` of any kind, ``axis``
+    -1 or -2) by the one ``np.fft`` call that computes it."""
+    n, ax = spec.n, spec.axis
+    return {
+        "fft": lambda: np.fft.fft(x, axis=ax),
+        "ifft": lambda: np.fft.ifft(x, axis=ax),
+        "rfft": lambda: np.fft.rfft(x, axis=ax),
+        "irfft": lambda: np.fft.irfft(x, n=n, axis=ax),
+        "fft2": lambda: np.fft.fft2(x),
+        "ifft2": lambda: np.fft.ifft2(x),
+        "rfft2": lambda: np.fft.rfft2(x),
+        "irfft2": lambda: np.fft.irfft2(x, s=(x.shape[-2], n)),
+    }[spec.kind]()

@@ -23,6 +23,7 @@ from repro_torch import kernels
 from repro_torch.core import fft as F
 from repro_torch.core import fft_torch
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import twiddle as tw
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import bluestein, ops
 
@@ -116,26 +117,29 @@ def _counted(name, fn):
 
 @pytest.mark.parametrize("n,inverse", [(97, False), (97, True), (1000, False), (1000, True)])
 def test_fused_stages_match_pallas(n, inverse):
-    """#7 / #8 at n = 97 (M = 256, direct inner) and n = 1000 (M = 2048,
-    four-step inner), outer forward and inverse chirps."""
+    """#7 / #8 at n = 97 (M = 256, direct inner in the reference) and
+    n = 1000 (M = 2048, four-step inner), outer forward and inverse chirps:
+    the port's radix stages on its own LUTs (the pad's roots table) against
+    the Pallas kernels on the reference's (its DFT-matrix LUTs)."""
     fwd, inv = ref_plan.plan_fft(n).passes
     m = fwd.n1
     inner = ref_plan._leaf_pass(m)
-    kw = dict(n=n, m_pad=m, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
+    ref_kw = dict(n=n, m_pad=m, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
+    port_fwd, port_inv = plan_lib.plan_fft(n).passes
     b = 4
     x = _real((2, b, n), seed=n)
-    luts = ref_ops._bluestein_luts(fwd, inverse)
-    ref = ref_bluestein.bluestein_fwd_call(*map(jnp.asarray, x), luts, batch_tile=2,
-                                           interpret=True, **kw)
-    mine = _counted("bluestein_fwd", lambda: bluestein.bluestein_fwd_call(*_t(*x), _luts(luts), **kw))
+    ref = ref_bluestein.bluestein_fwd_call(*map(jnp.asarray, x), ref_ops._bluestein_luts(fwd, inverse),
+                                           batch_tile=2, interpret=True, **ref_kw)
+    luts = ops._bluestein_luts("cpu", port_fwd, inverse)
+    mine = _counted("bluestein_fwd", lambda: bluestein.bluestein_fwd_call(*_t(*x), luts, n=n, m_pad=m))
     _kernel_close(mine, ref)
     assert tuple(mine[0].shape) == (b, m)
 
     y = _real((2, b, m), seed=m)
-    luts = ref_ops._bluestein_luts(inv, inverse)
-    ref = ref_bluestein.bluestein_inv_call(*map(jnp.asarray, y), luts, batch_tile=2,
-                                           interpret=True, **kw)
-    mine = _counted("bluestein_inv", lambda: bluestein.bluestein_inv_call(*_t(*y), _luts(luts), **kw))
+    ref = ref_bluestein.bluestein_inv_call(*map(jnp.asarray, y), ref_ops._bluestein_luts(inv, inverse),
+                                           batch_tile=2, interpret=True, **ref_kw)
+    luts = ops._bluestein_luts("cpu", port_inv, inverse)
+    mine = _counted("bluestein_inv", lambda: bluestein.bluestein_inv_call(*_t(*y), luts, n=n, m_pad=m))
     _kernel_close(mine, ref)
     assert tuple(mine[0].shape) == (b, n)
 
@@ -156,27 +160,45 @@ def test_elem_stages_match_pallas(stage):
 
 
 def test_port_luts_are_the_reference_tables():
-    """``ops._bluestein_luts`` carries the reference's tables, as 1-D planes."""
+    """``ops._bluestein_luts`` carries the reference's chirp, B̂ and
+    post-chirp tables, as 1-D planes; a fused stage's inner planes are the
+    pad's roots table, forward for ``fwd`` and inverse for ``inv``, where the
+    reference carries the inner transform's DFT-matrix LUTs."""
     for p in ref_plan.plan_fft(300, fused_max=256).passes + ref_plan.plan_fft(1000).passes:
         if p.kind != "bluestein":
             continue
         for inverse in (False, True):
             mine = ops._bluestein_luts("cpu", p, inverse)
             ref = ref_ops._bluestein_luts(p, inverse)
+            if p.stage == "fwd":
+                mine, roots = mine[:2] + mine[4:], (mine[2:4], tw.roots(p.n1, False))
+                ref = ref[:2] + ref[-2:]
+            elif p.stage == "inv":
+                mine, roots = mine[2:], (mine[:2], tw.roots(p.n1, True))
+                ref = ref[-2:]
+            else:
+                roots = None
             assert len(mine) == len(ref)
             for a, b in zip(mine, ref):
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b).reshape(a.shape))
+            if roots is not None:
+                for a, b in zip(*roots):
+                    np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_wrappers_validate_operands():
     x = _t(*_real((2, 3, 7)))
     luts = ops._bluestein_luts("cpu", plan_lib.plan_fft(7).passes[0], False)
     with pytest.raises(PlanError, match="power of two"):
-        bluestein.bluestein_fwd_call(*x, luts, n=7, m_pad=12, inner_kind="direct")
+        bluestein.bluestein_fwd_call(*x, luts, n=7, m_pad=12)
     with pytest.raises(PlanError, match="LUT"):
-        bluestein.bluestein_fwd_call(*x, luts[:4], n=7, m_pad=16, inner_kind="direct")
+        bluestein.bluestein_fwd_call(*x, luts[:4], n=7, m_pad=16)
     with pytest.raises(PlanError, match="shape"):
-        bluestein.bluestein_fwd_call(*x, luts, n=7, m_pad=32, inner_kind="direct")
+        bluestein.bluestein_fwd_call(*x, luts, n=7, m_pad=32)
+    with pytest.raises(PlanError, match="fused regime"):
+        bluestein.bluestein_fwd_call(*x, luts, n=7, m_pad=1 << 17)
+    with pytest.raises(PlanError, match="factor"):
+        bluestein.bluestein_inv_call(*x, luts, n=7, m_pad=4096, in1=16)
     with pytest.raises(PlanError, match="stage"):
         bluestein.bluestein_elem_call(*x, luts[:2], stage="bogus", n=7, m_pad=16)
 

@@ -13,7 +13,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import fft as F
 from repro_torch.core import plan as plan_lib
-from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil
+from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -240,21 +240,25 @@ def test_cols_pass_tw_every_any_width_kernel(dev, r, f, s, tile, tw_every):
            pencil.cols_pass_plain(*x, *w, tw, tw_every=tw_every))
 
 
-@pytest.mark.parametrize("b,n", [(5, 3), (33, 97), (70, 500), (4, 1000), (3, 3000), (2, 12288)])
+@pytest.mark.parametrize("b,n", [(5, 3), (33, 97), (70, 500), (4, 1000), (3, 3000), (2, 4999),
+                                 (2, 12288), (1, 20000)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_bluestein_fused_kernels(dev, b, n, inverse):
-    """Direct inner (M <= 1024), four-step with the intermediate in shared
-    memory (M = 2048, 8192) and in the scratch slab (M = 32768)."""
+    """Every form of the radix stages: the 4096-point tile (M = 8 … 2048,
+    many signals a block, ragged last blocks), the 8192- and 16384-point
+    tiles (n = 3000, 4999) and the slab four-step (M = 32768, 65536)."""
     fwd, inv = plan_lib.plan_fft(n).passes
     m = fwd.n1
-    inner = plan_lib._leaf_pass(m)
-    kw = dict(n=n, m_pad=m, inner_kind=inner.kind, in1=inner.n1, in2=inner.n2)
+    kw = dict(n=n, m_pad=m)
+    in1 = plan_lib._leaf_pass(m).n1
     x = _planes(dev, b, n)
     luts = ops._bluestein_luts(dev, fwd, inverse)
-    _close(bluestein.bluestein_fwd_call(*x, luts, **kw), bluestein.bluestein_fwd_plain(*x, luts, **kw))
+    _close(bluestein.bluestein_fwd_call(*x, luts, in1=in1, **kw),
+           bluestein.bluestein_fwd_plain(*x, luts, **kw))
     y = _planes(dev, b, m, seed=1)
     luts = ops._bluestein_luts(dev, inv, inverse)
-    _close(bluestein.bluestein_inv_call(*y, luts, **kw), bluestein.bluestein_inv_plain(*y, luts, **kw))
+    _close(bluestein.bluestein_inv_call(*y, luts, in1=in1, **kw),
+           bluestein.bluestein_inv_plain(*y, luts, **kw))
 
 
 @pytest.mark.parametrize("stage", bluestein.STAGES)
@@ -300,12 +304,35 @@ def test_planned_any_length(dev, spec, shape):
     assert (z - x).abs().max().item() <= 1e-3 * x.abs().max().item()
 
 
+#: Every kind at a power-of-two length, a Bluestein length and a two-pass
+#: length, the 2-D kinds and the column axis, each over a batch of 0.
+EMPTY = [F.FFTSpec(n, kind=k) for n in (1024, 1000, 1 << 20) for k in ("fft", "ifft", "rfft", "irfft")]
+EMPTY += [F.FFTSpec(64, kind=k, n2=16) for k in ("fft2", "ifft2", "rfft2", "irfft2")]
+EMPTY += [F.FFTSpec(1000, kind="fft2", n2=16), F.FFTSpec(1000, axis=-2), F.FFTSpec(1024, axis=-2)]
+
+
+@pytest.mark.parametrize("spec", EMPTY, ids=str)
+def test_empty_batch_on_the_card(dev, spec):
+    """A batch of 0 on the card: np.fft's shape in the port's dtype, no
+    launch and no plain call."""
+    n = spec.n // 2 + 1 if spec.kind.startswith("irfft") else spec.n
+    shape = (0, spec.n2, n) if spec.n2 else (0, n, 3) if spec.axis == -2 else (0, n)
+    x = np.zeros(shape, np.float32 if spec.kind.startswith("rfft") else np.complex64)
+    planned = F.plan(spec)
+    y, launched, plain = _launched(lambda: planned(torch.from_numpy(x).to(dev)))
+    y = torch.complex(*y) if isinstance(y, tuple) else y
+    assert (launched, plain) == (0, 0)
+    assert y.device.type == "cuda" and tuple(y.shape) == ref.np_fft(spec, x).shape
+    assert y.dtype == (torch.float32 if spec.kind.startswith("irfft") else torch.complex64)
+
+
 def test_register_guard(dev):
     """The fused column kernels stay within their 128-register bound, no
     function uses more local memory than the recorded build gave it, and
-    the radix passes' functions have the recorded registers."""
+    the radix functions (#2, #3, #4, #7, #8) have the recorded registers."""
     attrs = build.kernel_attributes()
     assert build.attribute_faults(attrs) == []
     for name, row in attrs.items():
-        if name.startswith(("cols_radix", "cols_slab", "rows_radix", "rows_slab")):
+        if name.startswith(("cols_radix", "cols_slab", "rows_radix", "rows_slab", "fft4step",
+                            "bluestein_fwd", "bluestein_inv")):
             assert (row["registers"], row["local_bytes"]) == build.RECORDED_ATTRS[name]

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import faults, limits
 from repro_torch.core import plan as plan_lib
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil
@@ -297,28 +298,41 @@ def test_cols_pass_tw_every_any_width_source(emulated, r, f, s, tile, tw_every):
 
 
 def _bluestein_args(n, inverse):
-    """(inner kind, in1, in2, fwd luts, inv luts) of the fused stages at n."""
+    """(the planner's first factor of the pad, fwd luts, inv luts) of the
+    fused stages at n."""
     fwd, inv = plan_lib.plan_fft(n).passes
-    inner = plan_lib._leaf_pass(fwd.n1)
-    return (inner.kind, inner.n1, inner.n2, ops._bluestein_luts("cpu", fwd, inverse),
+    return (plan_lib._leaf_pass(fwd.n1).n1, ops._bluestein_luts("cpu", fwd, inverse),
             ops._bluestein_luts("cpu", inv, inverse))
+
+
+def _bluestein(b, n, inverse):
+    """Both fused stages (emulated) against their plain versions."""
+    in1, fwd_luts, inv_luts = _bluestein_args(n, inverse)
+    m = plan_lib.bluestein_pad(n)
+    x = _planes(n, b, n)
+    _close(bluestein._launch_fwd(*x, fwd_luts, n, m, in1),
+           bluestein.bluestein_fwd_plain(*x, fwd_luts, n=n, m_pad=m))
+    y = _planes(m, b, m)
+    _close(bluestein._launch_inv(*y, inv_luts, n, m, in1),
+           bluestein.bluestein_inv_plain(*y, inv_luts, n=n, m_pad=m))
 
 
 @BUDGETS
 @pytest.mark.parametrize("b,n,inverse", [(3, 97, False), (70, 97, True), (2, 1000, False),
-                                         (3, 1000, True), (1, 2029, False)])
+                                         (3, 1000, True), (1, 2029, False), (1, 8193, True)])
 def test_bluestein_fused_source(budget, b, n, inverse):
-    """The fused stages, direct inner (n = 97, M = 256) and four-step inner
-    (n = 1000, M = 2048, signals chunked in pairs; n = 2029, M = 4096)."""
-    kind, in1, in2, fwd_luts, inv_luts = _bluestein_args(n, inverse)
-    m = plan_lib.bluestein_pad(n)
-    kw = dict(n=n, m_pad=m, inner_kind=kind, in1=in1, in2=in2)
-    x = _planes(n, b, n)
-    _close(bluestein._launch_fwd(*x, fwd_luts, n, m, kind, in1, in2),
-           bluestein.bluestein_fwd_plain(*x, fwd_luts, **kw))
-    y = _planes(m, b, m)
-    _close(bluestein._launch_inv(*y, inv_luts, n, m, kind, in1, in2),
-           bluestein.bluestein_inv_plain(*y, inv_luts, **kw))
+    """The fused stages in the 4096-point tile (n = 97, M = 256: 16 signals
+    a tile, the last of 70 ragged; n = 1000, M = 2048; n = 2029, M = 4096)
+    and the slab four-step (n = 8193, M = 32768, as on the H100; the small
+    budget sends every pad past 1024 there)."""
+    _bluestein(b, n, inverse)
+
+
+@pytest.mark.parametrize("b,n,inverse", [(2, 3000, False), (1, 3000, True), (1, 4999, False)])
+def test_bluestein_tile_source(emulated, b, n, inverse):
+    """The larger whole-signal tiles: M = 8192 (512 threads) and 16384
+    (1024 threads), one signal a block."""
+    _bluestein(b, n, inverse)
 
 
 @pytest.mark.parametrize("b,n,m", [(3, 300, 1024), (2, 97, 256)])
@@ -358,33 +372,60 @@ def test_attribute_faults_rule(name, registers, local, faults):
     assert len(build.attribute_faults({name: row})) == faults
 
 
+def _launch_calls(b):
+    """{kernel: (its ``_launch*``, arguments over a batch of b, the output
+    shape)} for every launcher of the wrapper modules."""
+    w = _planes(1, 16, 16)
+    fwd_luts, inv_luts = _bluestein_args(5, False)[1:]
+    return {
+        "dft_matmul": (dft_matmul._launch, (*_planes(0, b, 16), *_roots(16), None, None, False),
+                       (b, 16)),
+        "fft4step": (fft4step._launch, (*_planes(2, b, 2048), *_roots(2048), None, None, 64,
+                                        False, True), (b, 2048)),
+        "cols_pass": (pencil._launch_cols, (*_planes(3, b, 16, 2), *_roots(16), None, False),
+                      (b, 16, 2)),
+        "rows_natural": (pencil._launch_rows, (*_planes(4, b, 2, 16), *_roots(16), False),
+                         (b, 16, 2)),
+        "cols_natural": (pencil._launch_cols_natural, (*_planes(5, b, 2, 16, 2), w, "direct",
+                                                       0, 0), (b, 16, 2, 2)),
+        "rfft_recomb": (pencil._launch_recomb, (*_planes(0, b, 16),
+                                                *ops.recomb_luts("cpu", 32, False),
+                                                "rfft_recomb", 16, 17), (b, 17)),
+        "irfft_recomb": (pencil._launch_recomb, (*_planes(6, b, 17),
+                                                 *ops.recomb_luts("cpu", 32, True),
+                                                 "irfft_recomb", 16, 16), (b, 16)),
+        "bluestein_fwd": (bluestein._launch_fwd, (*_planes(7, b, 5), fwd_luts, 5, 16), (b, 16)),
+        "bluestein_inv": (bluestein._launch_inv, (*_planes(8, b, 16), inv_luts, 5, 16), (b, 5)),
+        "bluestein_elem": (bluestein._launch_elem, (*_planes(9, b, 5), _planes(10, 5), 5, 16),
+                           (b, 16)),
+    }
+
+
 def test_every_launch_enters_the_tensor_device(emulated):
     """Each ``_launch*`` runs under its tensor's device, so the ctypes
     launchers (which act on the runtime's current device) hit that card."""
-    x = _planes(0, 2, 16)
-    w = _planes(1, 16, 16)
-    calls = [
-        (dft_matmul._launch, (*x, *_roots(16), None, None, False)),
-        (fft4step._launch, (*_planes(2, 1, 2048), *_roots(2048), None, None, 64, False, True)),
-        (pencil._launch_cols, (*_planes(3, 1, 16, 2), *_roots(16), None, False)),
-        (pencil._launch_rows, (*_planes(4, 1, 2, 16), *_roots(16), False)),
-        (pencil._launch_cols_natural, (*_planes(5, 1, 2, 16, 2), w, "direct", 0, 0)),
-        (pencil._launch_recomb, (*x, *ops.recomb_luts("cpu", 32, False), "rfft_recomb", 16, 17)),
-        (pencil._launch_recomb, (*_planes(6, 2, 17), *ops.recomb_luts("cpu", 32, True),
-                                 "irfft_recomb", 16, 16)),
-        (bluestein._launch_fwd, (*_planes(7, 2, 5), _bluestein_args(5, False)[3],
-                                 5, 16, "direct", 0, 0)),
-        (bluestein._launch_inv, (*_planes(8, 2, 16), _bluestein_args(5, False)[4],
-                                 5, 16, "direct", 0, 0)),
-        (bluestein._launch_elem, (*_planes(9, 2, 5), _planes(10, 5), 5, 16)),
-    ]
+    calls = list(_launch_calls(2).values())
     launchers = {getattr(mod, name) for mod in (dft_matmul, fft4step, pencil, bluestein)
                  for name in vars(mod) if name.startswith("_launch")}
-    assert launchers == {fn for fn, _ in calls}
-    for fn, args in calls:
+    assert launchers == {fn for fn, _, _ in calls}
+    for fn, args, _ in calls:
         del emulated[:]
         fn(*args)
         assert emulated == [torch.device("cpu")]
+
+
+@pytest.mark.parametrize("kernel", [
+    "dft_matmul", "fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
+    "irfft_recomb", "bluestein_fwd", "bluestein_inv", "bluestein_elem"])
+def test_empty_batch_launches_nothing_source(emulated, kernel):
+    """A batch of 0: every launcher returns the empty output of the shape
+    the kernel would have written, launches nothing and counts nothing (the
+    C entries refuse B < 1, so a launch would raise)."""
+    fn, args, shape = _launch_calls(0)[kernel]
+    kernels.reset_counts()
+    yr, yi = fn(*args)
+    assert tuple(yr.shape) == tuple(yi.shape) == shape and yr.dtype == torch.float32
+    assert not any(kernels.counts().values())
 
 
 def test_refused_launch_raises(emulated):

@@ -16,7 +16,7 @@ from repro.core import fft as ref_fft
 from repro_torch import kernels
 from repro_torch.core import faults
 from repro_torch.core import fft as F
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 SIZES = [2, 16, 1024, 2048, 65536, 1 << 17, 1 << 18, 1 << 20]
 TOL = 1e-3
@@ -193,3 +193,34 @@ def test_backend_registry():
     assert F.available_backends() == ("cuda", "torch")
     with pytest.raises(faults.PlanError, match="already registered"):
         F.register_backend("torch", lambda *a, **k: None, {"cpu"})
+
+
+#: Every kind at a power-of-two length, a Bluestein length and a two-pass
+#: length, the 2-D kinds, and the column axis.
+EMPTY = [F.FFTSpec(n, kind=k) for n in (1024, 1000, 1 << 20) for k in ("fft", "ifft", "rfft", "irfft")]
+EMPTY += [F.FFTSpec(64, kind=k, n2=16) for k in ("fft2", "ifft2", "rfft2", "irfft2")]
+EMPTY += [F.FFTSpec(1000, kind="fft2", n2=16), F.FFTSpec(1000, axis=-2), F.FFTSpec(1024, axis=-2)]
+
+
+def empty_input(spec) -> np.ndarray:
+    """A batch of 0 signals (images) of ``spec``'s input."""
+    n = spec.n // 2 + 1 if spec.kind.startswith("irfft") else spec.n
+    shape = (0, spec.n2, n) if spec.n2 else (0, n, 3) if spec.axis == -2 else (0, n)
+    dtype = np.float32 if spec.kind.startswith("rfft") else np.complex64
+    return np.zeros(shape, dtype)
+
+
+@pytest.mark.parametrize("spec", EMPTY, ids=str)
+def test_empty_batch(spec):
+    """A batch of 0 gives what np.fft gives (its shape, the port's dtype),
+    one plain call per pass and no launch."""
+    x = empty_input(spec)
+    planned = F.plan(spec, device="cpu")
+    kernels.reset_counts()
+    y = planned(torch.from_numpy(x))
+    y = torch.complex(*y) if isinstance(y, tuple) else y
+    counts = kernels.counts()
+    assert tuple(y.shape) == ref.np_fft(spec, x).shape
+    assert y.dtype == (torch.float32 if spec.kind.startswith("irfft") else torch.complex64)
+    assert sum(v for k, v in counts.items() if k.endswith("_plain")) == len(planned.passes)
+    assert sum(v for k, v in counts.items() if not k.endswith("_plain")) == 0
