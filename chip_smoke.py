@@ -15,9 +15,8 @@ package), in phases, and fails on the first check that does not hold:
    per twiddle or phasor multiply, whatever form the kernel computes it in),
    where one library call computes the same function that call's time, and
    the registers and local (spill) bytes per thread of each of its
-   ``__global__`` functions (``cudaFuncGetAttributes``), held to the column
-   kernels' bound of 128 registers and to no more local bytes than the
-   recorded build had;
+   ``__global__`` functions (``cudaFuncGetAttributes``), held to no more
+   local bytes than the recorded build had;
 3. main path — ``plan(FFTSpec(n))`` forward and ``ifft`` at full-size
    remote-sensing shapes: sample rows against ``np.fft`` in complex128 at
    1e-3·max|ref|, ``ifft(fft(x)) ≈ x``, exactly ``len(plan.passes)`` kernel
@@ -110,7 +109,8 @@ FUNCTIONS = {
                   "cols_radix_kernel<1024, 16>", "cols_slab_kernel"),
     "rows_natural": ("rows_radix_kernel<256, 16>", "rows_radix_kernel<512, 16>",
                      "rows_radix_kernel<1024, 16>", "rows_slab_kernel"),
-    "cols_natural": ("cols_direct_kernel", "cols_fused_kernel"),
+    "cols_natural": ("cols_radix_kernel<256, 16, natural>", "cols_radix_kernel<512, 16, natural>",
+                     "cols_radix_kernel<1024, 16, natural>", "cols_slab_kernel<natural>"),
     "rfft_recomb": ("rfft_recomb_kernel",),
     "irfft_recomb": ("irfft_recomb_kernel",),
     "bluestein_fwd": ("bluestein_fwd_kernel<256, 16>", "bluestein_fwd_kernel<512, 16>",
@@ -180,23 +180,15 @@ def planes(gen, *shape):
 
 def fft_flops(f: int) -> float:
     """fp32 flops one length-f FFT needs: 5·f·log2 f.  The same count for
-    every kernel, whatever form it computes the transform in (a radix FFT, or
-    the DFT-matrix GEMMs of cols_natural's tiles, which spend more), so a
-    bound is the function's and not the algorithm's."""
+    every kernel, whatever form it computes the transform in (an on-chip
+    tile or the slab four-step), so a bound is the function's and not the
+    algorithm's."""
     return 5 * f * math.log2(f) if f > 1 else 0.0
 
 
 def roots_bytes(n: int) -> int:
     """The radix kernels' one LUT: the n roots of unity, two fp32 planes."""
     return 8 * n
-
-
-def lut_bytes(kind: str, f: int, n1: int, n2: int) -> int:
-    """The DFT-matrix LUTs a ``cols_natural`` tile reads (an input of the
-    kernel as it is called, read once)."""
-    if kind == "direct":
-        return 8 * f * f
-    return 8 * (n1 * n1 + n1 * n2 + n2 * n2)
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +221,8 @@ def measure_kernel(name, label, call, plain, nbytes, flops, library=None):
 
 def form(kernel: str, f: int) -> str:
     """The form the radix pass takes at length f: its on-chip tile or the
-    scratch slab (``pencil.COLS_TILE`` / ``ROWS_TILE``)."""
-    table = pencil.COLS_TILE if kernel == "cols_pass" else pencil.ROWS_TILE
+    scratch slab (``pencil.COLS_TILE``, ``ROWS_TILE`` for rows_natural)."""
+    table = pencil.ROWS_TILE if kernel == "rows_natural" else pencil.COLS_TILE
     t = table[f.bit_length() - 1]
     return "slab" if t == pencil.SLAB else f"tile 2^{t}"
 
@@ -357,25 +349,31 @@ def strip_mined_columns(gen, dev, n: int, n2: int) -> dict:
     )
     del x
     pencils, _, f = last.view_in
-    x = planes(gen, 1, pencils, f, n)
-    luts = ops._transform_luts(dev, last, False)
-    kw = dict(kind=last.kind, n1=last.n1, n2=last.n2)
+    row = natural_columns(gen, dev, f"fft2 {n2}x{n} last factor", pencils, f, n, last.n1)
+    torch.cuda.empty_cache()
+    return row
+
+
+def natural_columns(gen, dev, label: str, pp: int, f: int, w: int, n1: int = 0) -> dict:
+    """``cols_natural`` on one (1, P, f, w) input against its plain version;
+    returns its row."""
+    x = planes(gen, 1, pp, f, w)
+    rr = ops._roots_luts(dev, f, False)
     row = measure_kernel(
-        "cols_natural", f"fft2 {n2}x{n} last factor (B=1, P={pencils}, f={f}, w={n}) {last.kind}",
-        lambda: pencil.cols_natural_call(*x, luts, **kw),
-        lambda: pencil.cols_natural_plain(*x, luts, **kw),
-        nbytes=16 * n * n2 + lut_bytes(last.kind, f, 0, 0),
-        flops=pencils * n * fft_flops(f),
+        "cols_natural", f"{label} (B=1, P={pp}, f={f}, w={w}) {form('cols_natural', f)}".lstrip(),
+        lambda: pencil.cols_natural_call(*x, *rr, n1=n1),
+        lambda: pencil.cols_natural_plain(*x, *rr),
+        nbytes=16 * pp * f * w + roots_bytes(f),
+        flops=pp * w * fft_flops(f),
     )
     del x
-    torch.cuda.empty_cache()
     return row
 
 
 def real2d_kernels(gen, dev) -> dict:
     """The kernels of the real and 2-D path at the shapes phases 5 and 6
-    give them (and cols_natural's four-step form, which no phase-5 shape
-    reaches at a size that fits the time limit)."""
+    give them (and cols_natural's 2^14 tile and slab forms, which no
+    phase-5 shape reaches at a size that fits the time limit)."""
     rows = {}
     # rfft2 of a 16384 x 16384 image: 16384 rows of m = 8192 packed bins;
     # rfft of 6000-sample lines: 8192 rows of m = 3000.
@@ -405,20 +403,10 @@ def real2d_kernels(gen, dev) -> dict:
     # (phase 6) with its twiddle's division by the width.
     rows["cols_natural"] = strip_mined_columns(gen, dev, 2048, 1 << 17)
     strip_mined_columns(gen, dev, 500, 1 << 17)
-    # cols_natural's four-step form.
-    pp, f, w = 2048, 2048, 32
-    n1, n2_ = plan_lib.balanced_split(f)
-    x = planes(gen, 1, pp, f, w)
-    luts = ops._fused_luts(dev, n1, n2_, False)
-    kw = dict(kind="fused4", n1=n1, n2=n2_)
-    measure_kernel(
-        "cols_natural", f"(B=1, P={pp}, f={f}, w={w}) fused4",
-        lambda: pencil.cols_natural_call(*x, luts, **kw),
-        lambda: pencil.cols_natural_plain(*x, luts, **kw),
-        nbytes=16 * pp * f * w + lut_bytes("fused4", f, n1, n2_),
-        flops=pp * w * fft_flops(f),
-    )
-    del x
+    # cols_natural's other forms: the 2^14 tile (f = 2048, 8 columns a
+    # block) and the slab four-step (f = 4096), 0.5 GB each.
+    for pp, f, w in ((2048, 2048, 32), (256, 4096, 64)):
+        natural_columns(gen, dev, "", pp, f, w, plan_lib.balanced_split(f)[0])
 
     # The whole columns of rfft2's 16384 x 16384 image over its m + 1 = 8193
     # bins (a ragged width), beside the width 8192 that has no ragged chunk,
@@ -432,7 +420,7 @@ def real2d_kernels(gen, dev) -> dict:
         xc = torch.complex(*x)
         measure_kernel(
             "cols_pass", f"{call} columns (R={r}, f={f}, s={s_}) {form('cols_pass', f)}"
-            + (" ragged" if s_ % pencil.CHUNK else ""),
+            + (" ragged" if s_ % pencil.SLAB_GROUP else ""),
             lambda: pencil.cols_pass_call(*x, *w),
             lambda: pencil.cols_pass_plain(*x, *w),
             nbytes=16 * r * f * s_ + roots_bytes(f),
@@ -464,6 +452,13 @@ def bluestein_form(x, m: int, in1: int) -> str:
     whole-signal tile or the slab four-step (``bluestein.slab_split``)."""
     n1 = bluestein.slab_split(x, m, in1)
     return f"slab {n1}x{m // n1}" if n1 else f"tile 2^{max(12, m.bit_length() - 1)}"
+
+
+def elem_bytes(b: int, w_in: int, w_out: int, w_lut: int) -> int:
+    """The bytes a ``bluestein_elem`` stage must move: every output, the
+    LUT, and the inputs it keeps (``pre`` reads n and writes the M-point
+    pad, ``mul`` M each way, ``post`` reads only the n bins it keeps of M)."""
+    return 8 * b * (min(w_in, w_out) + w_out) + 8 * w_lut
 
 
 def bluestein_kernels(gen, dev) -> dict:
@@ -505,7 +500,7 @@ def bluestein_kernels(gen, dev) -> dict:
             "bluestein_elem", f"{stage} B={b} n={n} M={m}",
             lambda: bluestein.bluestein_elem_call(*x, lut, **kw),
             lambda: bluestein.bluestein_elem_plain(*x, lut, **kw),
-            nbytes=8 * b * (w_in + w_out) + 8 * w_lut, flops=6 * b * min(w_in, w_out),
+            nbytes=elem_bytes(b, w_in, w_out, w_lut), flops=6 * b * min(w_in, w_out),
         )
         if stage == "mul":
             rows["bluestein_elem"] = row
@@ -517,7 +512,7 @@ def bluestein_kernels(gen, dev) -> dict:
 def register_guard() -> None:
     """Print every ``__global__`` function's registers and local bytes per
     thread beside the recorded build's; fail where ``build.attribute_faults``
-    finds a fault (more local bytes, a fused column kernel past 128)."""
+    finds a fault (more local bytes than recorded)."""
     for name, row in sorted(ATTRS.items()):
         was = build.RECORDED_ATTRS.get(name)
         print("registers " + json.dumps({

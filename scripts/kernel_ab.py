@@ -1,7 +1,8 @@
 """Time the whole-signal kernels (``dft_matmul``, ``fft4step``), the
-split-regime passes (``cols_pass``, ``rows_natural``) and the fused
-Bluestein stages (``bluestein_fwd``, ``bluestein_inv``) of one tree of this
-repository on the card, back to back.
+split-regime and 2-D column passes (``cols_pass``, ``rows_natural``,
+``cols_natural``), the fused Bluestein stages (``bluestein_fwd``,
+``bluestein_inv``) and the elementwise kernels (``bluestein_elem``, the
+recombination) of one tree of this repository on the card, back to back.
 
     python3 scripts/kernel_ab.py <tree> [label] [--forms]
 
@@ -11,7 +12,9 @@ this commit or an earlier one: the script imports that tree's
 calls each kernel's wrapper with that tree's LUTs (the DFT matrices of the
 GEMM kernels before their radix redesign, the roots table after it; for
 the Bluestein stages ``ops._bluestein_luts`` of the tree, with its
-wrappers' keywords) at the shapes ``chip_smoke.py``'s phase 2 gives them.  A kernel's time is the
+wrappers' keywords) at the shapes ``chip_smoke.py``'s phase 2 gives them
+(``cols_natural`` on a tree before its redesign through that tree's
+``ops._transform_luts``).  A kernel's time is the
 median over 5 batches of the mean of 20 back-to-back calls between two
 CUDA events, so the wrappers' host time hides behind the queued launches
 (``chip_smoke.py`` times one call per event pair, which adds it).  Each
@@ -25,7 +28,8 @@ the card's name and power limit.
 ``--forms`` (a tree whose passes are radix FFTs): also time every form each
 pass shape can take (each on-chip tile of 2^12, 2^13, 2^14 points that
 holds f, and the four-step through the scratch slab from f = 1024), beside
-the form the tree's tables pick (``"default": true``).
+the form the tree's tables pick (``"default": true``); ``cols_natural``
+too on a tree where it is one.
 
 Run parent and change in turns in one call (parent, change, change,
 parent) to compare them on one card.
@@ -64,6 +68,18 @@ CALLS = (
     ("rfft", 6000, None, -1, (8192, 6000)), ("fft2", 3000, 4096, -1, (1, 4096, 3000)),
     ("fft2", 500, 1 << 17, -1, (1, 1 << 17, 500)), ("fft", 3000, None, -2, (3000, 4096)),
 )
+
+#: (label, P, f, w): phase 2's shapes of ``cols_natural`` (B = 1): the
+#: last factors of strip-mined fft2 columns, the 2^14-tile and slab rows.
+NATURAL = (
+    ("fft2 131072x2048 last factor", 512, 256, 2048),
+    ("fft2 131072x500 last factor", 512, 256, 500),
+    ("phase 2", 2048, 2048, 32),
+    ("phase 2", 256, 4096, 64),
+)
+
+#: (batch, m): phase 2's shapes of the recombination.
+RECOMB = ((16384, 8192), (8192, 3000))
 
 #: (label, f, s, tw_every): phase 2's other column-pass shapes (R = 1):
 #: the strided factors of strip-mined fft2 columns (twiddle broadcast over
@@ -148,6 +164,19 @@ def pass_cases(plan_lib):
         yield "cols_pass", label, (1, f, s), f, n1, tw, max(tw_every, 1)
 
 
+def form_calls(pencil, table, f: int, forms: bool, launch) -> dict:
+    """{form name: (call, whether ``table`` picks it)}: the default form of
+    length f, or with ``forms`` every on-chip tile that holds f and the slab
+    from :data:`pencil.SLAB_MIN_F`; ``launch(tile)`` makes the call."""
+    default = table[f.bit_length() - 1]
+    tiles = [t for t in (12, 13, 14) if f <= 1 << t]
+    if f >= pencil.SLAB_MIN_F:
+        tiles.append(pencil.SLAB)
+    tiles = tiles if forms else [default]
+    return {"slab" if t == pencil.SLAB else f"tile 2^{t}": (launch(t), t == default)
+            for t in tiles}
+
+
 def passes(label, plan_lib, pencil, ops, dev, gen, forms: bool) -> bool:
     radix = hasattr(pencil, "COLS_TILE")
     for kernel, shape, xs, f, n1, tws, tw_every in pass_cases(plan_lib):
@@ -168,20 +197,13 @@ def passes(label, plan_lib, pencil, ops, dev, gen, forms: bool) -> bool:
         if radix:
             w = ops._roots_luts(dev, f, False)
             table = pencil.COLS_TILE if kernel == "cols_pass" else pencil.ROWS_TILE
-            default = table[f.bit_length() - 1]
-            tiles = [t for t in (12, 13, 14) if f <= 1 << t]
-            if f >= pencil.SLAB_MIN_F:
-                tiles.append(pencil.SLAB)
-            tiles = tiles if forms else [default]
-            calls = {}
-            for t in tiles:
-                if kernel == "cols_pass":
-                    calls[t] = lambda t=t: pencil._launch_cols(
-                        xr, xi, *w, tw, False, n1, tw_every, t)
-                else:
-                    calls[t] = lambda t=t: pencil._launch_rows(xr, xi, *w, False, n1, t)
-            name = {pencil.SLAB: "slab"}
-            named = {name.get(t, f"tile 2^{t}"): (c, t == default) for t, c in calls.items()}
+            if kernel == "cols_pass":
+                def launch(t):
+                    return lambda: pencil._launch_cols(xr, xi, *w, tw, False, n1, tw_every, t)
+            else:
+                def launch(t):
+                    return lambda: pencil._launch_rows(xr, xi, *w, False, n1, t)
+            named = form_calls(pencil, table, f, forms, launch)
         else:
             kind = "direct" if f <= 1024 else "fused4"
             n1_, n2_ = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
@@ -205,6 +227,88 @@ def passes(label, plan_lib, pencil, ops, dev, gen, forms: bool) -> bool:
                 "bytes": 16 * xr.numel() + (8 * tws[0] * tws[1] if tws else 0), "rel_err": err,
             }), flush=True)
         del xr, xi, tw, want, named
+        torch.cuda.empty_cache()
+    return True
+
+
+def natural(label, plan_lib, pencil, ops, dev, gen, forms: bool) -> bool:
+    """``cols_natural`` at each of :data:`NATURAL`'s shapes, against
+    ``torch.fft`` first.  A tree before its redesign calls it with
+    ``ops._transform_luts`` and the pass's kind; a radix tree with the
+    roots table, in each form with ``forms``."""
+    import inspect
+
+    old = "kind" in inspect.signature(pencil.cols_natural_call).parameters
+    for shape, pp, f, w in NATURAL:
+        xr = torch.randn(1, pp, f, w, device="cuda", generator=gen)
+        xi = torch.randn(1, pp, f, w, device="cuda", generator=gen)
+        want = torch.fft.fft(torch.complex(xr, xi), dim=2).permute(0, 2, 1, 3)
+        if old:
+            kind = "direct" if f <= 1024 else "fused4"
+            n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
+            luts = ops._transform_luts(dev, plan_lib.Pass(kind=kind, n=f, n1=n1, n2=n2), False)
+            named = {"parent": (lambda: pencil.cols_natural_call(
+                xr, xi, luts, kind=kind, n1=n1, n2=n2), True)}
+        else:
+            rr = ops._roots_luts(dev, f, False)
+            n1 = plan_lib.balanced_split(f)[0] if f >= pencil.SLAB_MIN_F else 0
+
+            def launch(t):
+                return lambda: pencil._launch_cols_natural(xr, xi, *rr, False, n1, t)
+            named = form_calls(pencil, pencil.COLS_TILE, f, forms, launch)
+        for form, (call, is_default) in named.items():
+            err = rel_err(call(), want)
+            if not err <= 1e-3:
+                print(f"kernel_ab: cols_natural {shape} {form} off by {err:.3e}", file=sys.stderr)
+                return False
+            print(json.dumps({
+                "tree": label, "kernel": "cols_natural", "shape": shape, "view": [1, pp, f, w],
+                "f": f, "form": form, "default": is_default, "ms": time_ms(call),
+                "bytes": 16 * xr.numel() + 8 * f, "rel_err": err,
+            }), flush=True)
+        del xr, xi, want, named
+        torch.cuda.empty_cache()
+    return True
+
+
+def elementwise(label, plan_lib, bluestein, pencil, ops, dev, gen) -> bool:
+    """The three ``bluestein_elem`` stages at B=64, n=100003 and both
+    recombinations at :data:`RECOMB`'s shapes, each against its plain
+    version at 1e-4 first: their times without the wrapper's host time
+    that ``chip_smoke.py``'s one call per event pair adds."""
+    b, n = 64, 100003
+    m = plan_lib.bluestein_pad(n)
+    cases = []
+    for stage in bluestein.STAGES:
+        w_in, w_out, w_lut = bluestein._elem_widths(stage, n, m)
+        lut = ops._bluestein_luts(dev, plan_lib.Pass(kind="bluestein", n=n, n1=m, stage=stage),
+                                  False)
+        kw = dict(stage=stage, n=n, m_pad=m)
+        cases.append((f"bluestein_elem {stage}", f"B={b} n={n} M={m}", (b, w_in),
+                      8 * b * (min(w_in, w_out) + w_out) + 8 * w_lut,  # post reads n of M
+                      lambda x, lut=lut, kw=kw: bluestein.bluestein_elem_call(*x, lut, **kw),
+                      lambda x, lut=lut, kw=kw: bluestein.bluestein_elem_plain(*x, lut, **kw)))
+    for b, m in RECOMB:
+        fwd, inv = ops.recomb_luts(dev, 2 * m, False), ops.recomb_luts(dev, 2 * m, True)
+        nbytes = 8 * b * (2 * m + 1) + 8 * (m + 1)
+        cases.append(("rfft_recomb", f"B={b} m={m}", (b, m), nbytes,
+                      lambda x, w=fwd: pencil.rfft_recomb_call(*x, *w),
+                      lambda x, w=fwd: pencil.rfft_recomb_plain(*x, *w)))
+        cases.append(("irfft_recomb", f"B={b} m={m}", (b, m + 1), nbytes,
+                      lambda x, w=inv: pencil.irfft_recomb_call(*x, *w),
+                      lambda x, w=inv: pencil.irfft_recomb_plain(*x, *w)))
+    for kernel, shape, xs, nbytes, call, plain in cases:
+        x = (torch.randn(*xs, device="cuda", generator=gen),
+             torch.randn(*xs, device="cuda", generator=gen))
+        err = rel_err(call(x), torch.complex(*plain(x)))
+        if not err <= 1e-4:
+            print(f"kernel_ab: {kernel} {shape} off by {err:.3e}", file=sys.stderr)
+            return False
+        print(json.dumps({
+            "tree": label, "kernel": kernel, "shape": shape, "ms": time_ms(lambda: call(x)),
+            "bytes": nbytes, "rel_err": err,
+        }), flush=True)
+        del x
         torch.cuda.empty_cache()
     return True
 
@@ -292,7 +396,11 @@ def main() -> int:
         return 1
     if not passes(label, plan_lib, pencil, ops, dev, gen, "--forms" in sys.argv):
         return 1
+    if not natural(label, plan_lib, pencil, ops, dev, gen, "--forms" in sys.argv):
+        return 1
     if not bluestein_stages(label, plan_lib, bluestein, ops, dev, gen):
+        return 1
+    if not elementwise(label, plan_lib, bluestein, pencil, ops, dev, gen):
         return 1
     call_peaks(label, F, gen)
     smi = subprocess.run(

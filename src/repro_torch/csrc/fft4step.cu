@@ -151,12 +151,6 @@ __global__ void __launch_bounds__(SL_T, 1)
   }
 }
 
-// Shared memory a four-step block needs with its intermediate on chip:
-// the GEMM tiles' figure, which cols_natural reads.
-extern "C" i64 repro_four_step_smem_bytes(i64 n, i64 lgc) {
-  return four_step_smem_bytes(n, (int)lgc);
-}
-
 // Shared memory fft4step_kernel needs for a whole length-n signal (a tile
 // of max(n, 4096) points); past the block's budget the wrapper passes a
 // scratch slab and the launch takes the slab kernel.

@@ -19,19 +19,20 @@
 //            pallas_call at :265): on a (B, P, f, w) view, a length-f
 //            transform down axis 2, written as (B, f, P, w) -- the n2-axis
 //            digit transpose of a strip-mined column program fused into the
-//            write.  Column group r = (b, p) writes rows of stride P.w at
-//            offset p.w of pencil b.
+//            write.  It is cols_pass's column engine on the (B P, f, w)
+//            view with no twiddle and another store: column group r =
+//            (b, p) writes bin k to row k of pencil b at offset p w, rows a
+//            stride P w apart (cols_pass: in place, stride s).
 //
-// cols_pass and rows_natural are radix FFTs on the engine of radix.cuh, as
-// dft_matmul and fft4step are: butterflies in registers, the exchanges
-// between stages in padded shared memory, every stage twiddle (and the
-// four-step's w_f^(k1 j2)) from the one table of f-th roots on the
-// read-only path, the inverse's 1/f at the store.  The function is bound
-// by bytes on the H100 (5 f log2 f flops over 16 f bytes per signal), so
-// the kernels move each point as few times as they can, in one of two
-// forms; the wrapper picks one per f (pencil.COLS_TILE / ROWS_TILE, the
-// fastest measured on the H100: on-chip tiles to f = 2048, the slab from
-// 4096):
+// All three are radix FFTs on the engine of radix.cuh, as dft_matmul and
+// fft4step are: butterflies in registers, the exchanges between stages in
+// padded shared memory, every stage twiddle (and the four-step's
+// w_f^(k1 j2)) from the one table of f-th roots on the read-only path, the
+// inverse's 1/f at the store.  The function is bound by bytes on the H100
+// (5 f log2 f flops over 16 f bytes per signal), so the kernels move each
+// point as few times as they can, in one of two forms; the wrapper picks
+// one per f (pencil.COLS_TILE / ROWS_TILE, the fastest measured on the
+// H100: on-chip tiles to f = 2048, the slab from 4096):
 //
 // * On-chip tile (f <= 16384): a block transforms C = 2^t / f adjacent
 //   signals, a tile of 2^t = 4096, 8192 or 16384 points (fft4step.cu's
@@ -42,10 +43,15 @@
 //   reads).  The last stage of either leaves the bins in shared memory
 //   (padded by one word per f), and the store walks the signals with unit
 //   stride, so bin k's C outputs are one contiguous run (of the column's
-//   row k, times the twiddle, or of the (B, f, p) output).  With C >= 8
-//   (f <= 2048) every run is a whole 32-byte sector; with C < 8 a run is
-//   part of a sector, which measured slower than the slab's two round
-//   trips (the L2 does not merge neighbouring blocks' parts).
+//   row k, times the twiddle, of cols_natural's output row, or of the
+//   (B, f, p) output).  With C >= 8 (f <= 2048) every run is a whole
+//   32-byte sector; with C < 8 a run is part of a sector, which measured
+//   slower than the slab's two round trips (the L2 does not merge
+//   neighbouring blocks' parts).  A width that is no multiple of C ends in
+//   a masked chunk; a width below C (cols_natural's w < 2^t / f) masks
+//   C - w columns of every tile: the block computes C / w times the
+//   transforms it stores, and its runs are w floats (part of a sector when
+//   w < 8).
 // * Scratch slab (1024 <= f <= 65536):
 //   cols_slab_kernel / rows_slab_kernel keep the planner's four-step
 //   f = n1 x n2 for 8 adjacent columns (rows), so every access is a whole
@@ -56,16 +62,15 @@
 //   each output row gets its 8 adjacent q).  Two round trips per point:
 //   at most half the byte bound.
 //
-// cols_natural keeps the DFT-matrix GEMM tiles of tile.cuh (the direct DFT
-// for f <= 1024, the four-step tile beyond, 8-column chunks, the
-// intermediate in shared memory while f.8 <= 16384 and in a scratch slab
-// otherwise).  Their times against the byte bound are in PERF.md.
+// The column kernels are instantiated twice: NAT = false for cols_pass and
+// NAT = true for cols_natural, whose group r takes one 32-bit division by
+// P for its output base, so cols_pass's build has none of it.
 #include "radix.cuh"
 
 using namespace repro;
 
 // ---------------------------------------------------------------------------
-// cols_pass and rows_natural: radix FFTs
+// The radix pass kernels
 // ---------------------------------------------------------------------------
 
 // The inter-factor twiddle of column c: T[k, c >> lgw] (lgw >= 0) or
@@ -108,12 +113,13 @@ struct StridedLoad {
   }
 };
 
-// Bin k of the tile's signal c (image column c0 + c) to y + k * s + c,
-// times the scale and the twiddle (of a column pass; none for rows).
+// Bin k of the tile's signal c (image column c0 + c) to y + k * os + c,
+// os the output's row stride, times the scale and the twiddle (of
+// cols_pass; none for cols_natural or the rows).
 struct StridedStore {
   float* yr;
   float* yi;
-  i64 s;
+  i64 os;
   int cv;
   float scale;
   i64 c0;
@@ -121,7 +127,7 @@ struct StridedStore {
   __device__ __forceinline__ void operator()(int sig, int bin, float2 v) const {
     if (sig >= cv) return;
     v = t.apply(make_float2(v.x * scale, v.y * scale), bin, c0 + sig);
-    const i64 off = (i64)bin * s + sig;
+    const i64 off = (i64)bin * os + sig;
     yr[off] = v.x;
     yi[off] = v.y;
   }
@@ -186,11 +192,12 @@ struct SlabRowLoad {
 };
 
 // Bin k2 of signal (k1, c) is bin k = k2 n1 + k1 of column c0 + c: to
-// y + k * s + c, times the scale and the twiddle.
+// y + k * os + c, os the output's row stride, times the scale and the
+// twiddle.
 struct SlabColOut {
   float* yr;
   float* yi;
-  i64 s;
+  i64 os;
   int lg1;
   int t0;
   int cv;
@@ -203,7 +210,7 @@ struct SlabColOut {
     if (c >= cv) return;
     const int k = (bin << lg1) + (g >> LGQ);
     v = t.apply(make_float2(v.x * scale, v.y * scale), k, c0 + c);
-    const i64 off = (i64)k * s + c;
+    const i64 off = (i64)k * os + c;
     yr[off] = v.x;
     yi[off] = v.y;
   }
@@ -289,13 +296,29 @@ __device__ __forceinline__ void store_by_bin(const Geo& g, int lgp, const float*
   }
 }
 
+// Where column group r of an (R, f, s) view writes, and the row stride:
+// NAT (cols_natural, R = B P): group r = (b, p) = (r / P, r % P) to row k
+// of (B, f, P, s) at (b f P + p) s, stride P s; else (cols_pass) in place,
+// r f s and s.  r < 2^31 (one block each): a 32-bit division.
+template <bool NAT>
+__device__ __forceinline__ void cols_out(i64 r, int lgf, i64 s, unsigned P, i64& out, i64& os) {
+  if constexpr (NAT) {
+    const unsigned b = (unsigned)r / P;
+    out = (((i64)b * P << lgf) + ((unsigned)r - b * P)) * s;
+    os = (i64)P * s;
+  } else {
+    out = (r << lgf) * s;
+    os = s;
+  }
+}
+
 }  // namespace
 
 // One tile of C = 2^lgc adjacent columns of view r: block b is chunk
-// b % chunks of view b / chunks.
-template <int T, int E, int MB>
+// b % chunks of view b / chunks; its bins go where cols_out<NAT> says.
+template <int T, int E, int MB, bool NAT>
 __global__ void __launch_bounds__(T, MB)
-    cols_radix_kernel(int lgf, int lgc, i64 s, i64 chunks, float scale,
+    cols_radix_kernel(int lgf, int lgc, i64 s, i64 chunks, unsigned P, float scale,
                       const float* __restrict__ xr, const float* __restrict__ xi,
                       const float* __restrict__ wr, const float* __restrict__ wi, Twiddle tw,
                       float* yr, float* yi) {
@@ -321,13 +344,17 @@ __global__ void __launch_bounds__(T, MB)
   } else {
     radix_fft<T, E>(g, roots_table(wr, wi, lgf), xre, xim, ld, NoStore(), lgp);
   }
-  store_by_bin<T>(g, lgp, xre, xim, StridedStore{yr + base, yi + base, s, cv, scale, c0, tw});
+  i64 out, os;
+  cols_out<NAT>(r, lgf, s, P, out, os);
+  out += c0;
+  store_by_bin<T>(g, lgp, xre, xim, StridedStore{yr + out, yi + out, os, cv, scale, c0, tw});
 }
 
 // Eight adjacent columns of view r as the four-step f = n1 x n2 through
-// the block's 8 f points of the slab (mr / mi).
+// the block's 8 f points of the slab (mr / mi); bins as cols_radix_kernel's.
+template <bool NAT>
 __global__ void __launch_bounds__(SL_T, 1)
-    cols_slab_kernel(int lgf, int lg1, i64 s, i64 chunks, float scale,
+    cols_slab_kernel(int lgf, int lg1, i64 s, i64 chunks, unsigned P, float scale,
                      const float* __restrict__ xr, const float* __restrict__ xi,
                      const float* __restrict__ wr, const float* __restrict__ wi, Twiddle tw,
                      float* yr, float* yi, float* mr, float* mi) {
@@ -351,11 +378,14 @@ __global__ void __launch_bounds__(SL_T, 1)
   __syncthreads();  // the block's slab is complete and visible to it
 
   // Phase 2: the n2-point FFT of every (k1, c), to bin k2 n1 + k1.
+  i64 out, os;
+  cols_out<NAT>(r, lgf, s, P, out, os);
+  out += c0;
   const int lgc2 = SL_LGM - lg2;
   for (int t0 = 0; t0 < (8 << lg1); t0 += 1 << lgc2)
     radix_fft<SL_T, SL_E>(Geo{lg2, lgc2, true}, w, xre, xim,
                           SlabRowLoad{mr + slab, mi + slab, lg2, t0, cv},
-                          SlabColOut{yr + base, yi + base, s, lg1, t0, cv, scale, c0, tw});
+                          SlabColOut{yr + out, yi + out, os, lg1, t0, cv, scale, c0, tw});
 }
 
 // One tile of C = 2^lgc adjacent rows q0 + c of view b, written
@@ -432,91 +462,6 @@ __global__ void __launch_bounds__(SL_T, 1)
 }
 
 // ---------------------------------------------------------------------------
-// cols_natural: DFT-matrix GEMM tiles
-// ---------------------------------------------------------------------------
-
-// Offset of column group r's output: pencil r / P, digit r % P.
-__device__ __forceinline__ i64 cols_out_base(i64 r, i64 P, i64 f, i64 s) {
-  return (r / P) * f * P * s + (r % P) * s;
-}
-
-template <class ST>
-__global__ void __launch_bounds__(THREADS)
-    cols_direct_kernel(int f, i64 s, i64 P, int lgw, ST st, const float* wr,
-                       const float* wi, const float* xr, const float* xi,
-                       const float* tr, const float* ti, float* yr,
-                       float* yi) {
-  __shared__ float2 smem[2 * BK * LDS];
-  const int tm = cdiv(f, BM), tn = cdiv(s, BN);
-  const i64 per_r = (i64)tm * tn;
-  const i64 r = blockIdx.x / per_r;
-  const int t = (int)(blockIdx.x % per_r);
-  const i64 base = r * f * s;
-  const i64 ob = cols_out_base(r, P, f, s);
-  const CMat Wt{wr, wi, stride(1), stride(f)};  // Wt[k, j] = W[j, k]
-  const CMat X{xr + base, xi + base, stride(s), stride(1)};
-  // Twiddle T[k, c >> lgw] of the (f, s >> lgw) grid.
-  const COut Y{yr + ob, yi + ob, stride(P * s),      stride(1),
-               tr,      ti,      stride(s >> lgw), Ix{lgw, 1, 0}};
-  cgemm_tile(f, (int)s, f, (t / tn) * BM, (t % tn) * BN, Wt, X, Y, smem,
-             PlainLoad(), PlainLoad(), st);
-}
-
-// Launched with THREADS threads; the bound of 2 * THREADS holds ptxas to
-// 128 registers, so two blocks fit an SM.  Bounded by THREADS alone it took
-// 186 (one block per SM), and the column passes whose intermediate sits in
-// the scratch slab ran 1.6-1.8x slower on the H100 (PERF.md).  DIV: the
-// twiddle column of a tile is c / w (tw_every = w no power of two), else
-// c >> lgw; cols_natural runs DIV = false with no twiddle.
-template <bool DIV>
-__global__ void __launch_bounds__(2 * THREADS)
-    cols_fused_kernel(int n1, int lg1, int n2, int lg2, int lgc, i64 s, i64 P,
-                      int lgw, i64 w, const float* w1r, const float* w1i,
-                      const float* t4r, const float* t4i, const float* w2r,
-                      const float* w2i, const float* xr, const float* xi,
-                      const float* tr, const float* ti, float* yr, float* yi,
-                      float* scr_re, float* scr_im) {
-  extern __shared__ float2 smem[];
-  const i64 f = (i64)n1 * n2;
-  const i64 C = 1LL << lgc;
-  const i64 chunks = (s + C - 1) >> lgc;
-  const i64 r = blockIdx.x / chunks;
-  const i64 c0 = (blockIdx.x % chunks) << lgc;
-  float* mid_re;
-  float* mid_im;
-  if (scr_re != nullptr) {
-    mid_re = scr_re + (i64)blockIdx.x * (f << lgc);
-    mid_im = scr_im + (i64)blockIdx.x * (f << lgc);
-  } else {
-    mid_re = reinterpret_cast<float*>(smem + 2 * BK * LDS);
-    mid_im = mid_re + (f << lgc);
-  }
-  // A whole chunk is one tile of C columns.  The ragged last chunk of a
-  // width that is no multiple of C (rfft2's m + 1 bins) takes its nc < C
-  // columns one at a time instead, so no load or store needs a mask.
-  const i64 nc = s - c0 < C ? s - c0 : C;
-  const int lgt = nc == C ? lgc : 0;
-  const i64 tiles = nc == C ? 1 : nc;
-  for (i64 t = 0; t < tiles; ++t) {
-    const i64 c = c0 + t;
-    const i64 base = r * f * s + c;
-    const i64 ob = cols_out_base(r, P, f, s) + c;
-    const Sig x{xr + base, xi + base, 1, s};
-    // A tile lies inside one run of w columns (2^lgc divides w when
-    // w > 1), so with w > 1 all its columns share twiddle column c / w.
-    // (32-bit: the division variant takes s < 2^31.)
-    const i64 tc = DIV ? (i64)((int)c / (int)w) : c >> lgw;
-    const SigOut y{yr + ob, yi + ob, 1, P * s,
-                   tr != nullptr ? tr + tc : nullptr,
-                   ti != nullptr ? ti + tc : nullptr,
-                   DIV ? 0 : (lgw == 0 ? 1 : 0), DIV ? (i64)((int)s / (int)w) : s >> lgw};
-    four_step_tile(n1, lg1, n2, lg2, lgt, w1r, w1i, t4r, t4i, w2r, w2i, x, y,
-                   true, mid_re, mid_im, smem);
-    __syncthreads();  // the next tile reuses the staging and the intermediate
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -527,18 +472,18 @@ static cudaError_t set_smem(const void* kernel, i64 smem) {
                               (int)smem);
 }
 
-template <int T, int E, int MB>
-static cudaError_t cols_tile(i64 R, int lgf, i64 s, float scale, const void* wr, const void* wi,
-                             const void* xr, const void* xi, const Twiddle& tw, void* yr,
-                             void* yi, cudaStream_t st) {
+template <int T, int E, int MB, bool NAT>
+static cudaError_t cols_tile(i64 R, int lgf, i64 s, unsigned P, float scale, const void* wr,
+                             const void* wi, const void* xr, const void* xi, const Twiddle& tw,
+                             void* yr, void* yi, cudaStream_t st) {
   const int lgc = log2_exact(T * E) - lgf;
   const i64 chunks = (s + (1LL << lgc) - 1) >> lgc;
   if (lgc < 0 || !grid_ok(R * chunks)) return cudaErrorInvalidValue;
   const i64 smem = radix_smem_bytes(T * E);
-  const cudaError_t err = set_smem((const void*)&cols_radix_kernel<T, E, MB>, smem);
+  const cudaError_t err = set_smem((const void*)&cols_radix_kernel<T, E, MB, NAT>, smem);
   if (err != cudaSuccess) return err;
-  cols_radix_kernel<T, E, MB><<<(unsigned)(R * chunks), T, (size_t)smem, st>>>(
-      lgf, lgc, s, chunks, scale, (const float*)xr, (const float*)xi, (const float*)wr,
+  cols_radix_kernel<T, E, MB, NAT><<<(unsigned)(R * chunks), T, (size_t)smem, st>>>(
+      lgf, lgc, s, chunks, P, scale, (const float*)xr, (const float*)xi, (const float*)wr,
       (const float*)wi, tw, (float*)yr, (float*)yi);
   return cudaGetLastError();
 }
@@ -566,10 +511,33 @@ static bool slab_ok(int lgf, int lg1) {
   return lgf >= 10 && lg1 >= 3 && lg1 <= 10 && lgf - lg1 >= 3 && lgf - lg1 <= 10;
 }
 
+// The column engine in the form `tile` names: log2 of the on-chip tile's
+// points (12, 13, 14), or 0 for the four-step of factor n1 through the slab
+// mr/mi (8 f points per block of 8 columns).
+template <bool NAT>
+static int cols_launch(i64 R, int lgf, i64 s, unsigned P, i64 n1, i64 tile, float scale,
+                       const void* wr, const void* wi, const void* xr, const void* xi,
+                       const Twiddle& tw, void* yr, void* yi, void* mr, void* mi,
+                       cudaStream_t st) {
+  if (tile == 12) return (int)cols_tile<T12, 4096 / T12, MB12, NAT>(R, lgf, s, P, scale, wr, wi, xr, xi, tw, yr, yi, st);
+  if (tile == 13) return (int)cols_tile<T13, 8192 / T13, MB13, NAT>(R, lgf, s, P, scale, wr, wi, xr, xi, tw, yr, yi, st);
+  if (tile == 14) return (int)cols_tile<T14, 16384 / T14, MB14, NAT>(R, lgf, s, P, scale, wr, wi, xr, xi, tw, yr, yi, st);
+  const int lg1 = log2_exact(n1);
+  const i64 chunks = (s + 7) >> LGQ;
+  if (tile != 0 || mr == nullptr || !slab_ok(lgf, lg1) || !grid_ok(R * chunks))
+    return (int)cudaErrorInvalidValue;
+  const i64 smem = radix_smem_bytes(1 << SL_LGM);
+  const cudaError_t err = set_smem((const void*)&cols_slab_kernel<NAT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cols_slab_kernel<NAT><<<(unsigned)(R * chunks), SL_T, (size_t)smem, st>>>(
+      lgf, lg1, s, chunks, P, scale, (const float*)xr, (const float*)xi, (const float*)wr,
+      (const float*)wi, tw, (float*)yr, (float*)yi, (float*)mr, (float*)mi);
+  return (int)cudaGetLastError();
+}
+
 // wr/wi: the f f-th roots of the direction; inverse != 0 scales by 1/f;
-// tr/ti: the (f, s / tw_every) twiddle grid or null; tile: log2 of the
-// on-chip tile's points (12, 13, 14), or 0 for the four-step of factor n1
-// through the slab mr/mi (8 f points per block of 8 columns).
+// tr/ti: the (f, s / tw_every) twiddle grid or null; tile and n1 as
+// cols_launch's.
 extern "C" int repro_cols_pass(i64 R, i64 f, i64 s, i64 tw_every, i64 n1, i64 tile, i64 inverse,
                                const void* wr, const void* wi, const void* xr, const void* xi,
                                const void* tr, const void* ti, void* yr, void* yi, void* mr,
@@ -582,21 +550,8 @@ extern "C" int repro_cols_pass(i64 R, i64 f, i64 s, i64 tw_every, i64 n1, i64 ti
   const Twiddle tw{(const float*)tr, (const float*)ti, lgw >= 0 ? s >> lgw : s / tw_every, lgw,
                    (int)tw_every};
   const float scale = inverse != 0 ? 1.f / (float)f : 1.f;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (tile == 12) return (int)cols_tile<T12, 4096 / T12, MB12>(R, lgf, s, scale, wr, wi, xr, xi, tw, yr, yi, st);
-  if (tile == 13) return (int)cols_tile<T13, 8192 / T13, MB13>(R, lgf, s, scale, wr, wi, xr, xi, tw, yr, yi, st);
-  if (tile == 14) return (int)cols_tile<T14, 16384 / T14, MB14>(R, lgf, s, scale, wr, wi, xr, xi, tw, yr, yi, st);
-  const int lg1 = log2_exact(n1);
-  const i64 chunks = (s + 7) >> LGQ;
-  if (tile != 0 || mr == nullptr || !slab_ok(lgf, lg1) || !grid_ok(R * chunks))
-    return (int)cudaErrorInvalidValue;
-  const i64 smem = radix_smem_bytes(1 << SL_LGM);
-  const cudaError_t err = set_smem((const void*)&cols_slab_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cols_slab_kernel<<<(unsigned)(R * chunks), SL_T, (size_t)smem, st>>>(
-      lgf, lg1, s, chunks, scale, (const float*)xr, (const float*)xi, (const float*)wr,
-      (const float*)wi, tw, (float*)yr, (float*)yi, (float*)mr, (float*)mi);
-  return (int)cudaGetLastError();
+  return cols_launch<false>(R, lgf, s, 1, n1, tile, scale, wr, wi, xr, xi, tw, yr, yi, mr, mi,
+                            (cudaStream_t)stream);
 }
 
 // As repro_cols_pass, for the (B, p, f) -> (B, f, p) row pass (f >= 2).
@@ -623,61 +578,38 @@ extern "C" int repro_rows_natural(i64 B, i64 p, i64 f, i64 n1, i64 tile, i64 inv
   return (int)cudaGetLastError();
 }
 
-extern "C" int repro_cols_natural_direct(i64 B, i64 P, i64 f, i64 w,
-                                         const void* wr, const void* wi,
-                                         const void* xr, const void* xi,
-                                         void* yr, void* yi, void* stream) {
-  const i64 R = B * P;
-  const i64 blocks = R * cdiv(f, BM) * cdiv(w, BN);
-  if (f < 1 || f > 0x7fffffff || w < 1 || w > 0x7fffffff || P < 1 || !grid_ok(blocks))
+// The (B, P, f, w) -> (B, f, P, w) column pass: cols_pass's engine over
+// the (B P, f, w) view with no twiddle, each group's bins to its rows of
+// the output (cols_out<true>); arguments as repro_cols_pass's.
+extern "C" int repro_cols_natural(i64 B, i64 P, i64 f, i64 w, i64 n1, i64 tile, i64 inverse,
+                                  const void* wr, const void* wi, const void* xr, const void* xi,
+                                  void* yr, void* yi, void* mr, void* mi, void* stream) {
+  const int lgf = log2_exact(f);
+  if (B < 1 || B > 0x7fffffff || P < 1 || P > 0x7fffffff || lgf < 0 || lgf > 16 || w < 1 ||
+      w > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  cols_direct_kernel<PlainStore><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (int)f, w, P, 0, PlainStore(), (const float*)wr, (const float*)wi, (const float*)xr,
-      (const float*)xi, nullptr, nullptr, (float*)yr, (float*)yi);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int repro_cols_natural_fused(i64 B, i64 P, i64 n1, i64 n2, i64 w,
-                                        i64 lgc, const void* w1r,
-                                        const void* w1i, const void* t4r,
-                                        const void* t4i, const void* w2r,
-                                        const void* w2i, const void* xr,
-                                        const void* xi, void* yr, void* yi,
-                                        void* scr_re, void* scr_im,
-                                        void* stream) {
-  const int lg1 = log2_exact(n1), lg2 = log2_exact(n2);
-  if (lg1 < 0 || lg2 < 0 || lgc < 0 || w < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  // One block per chunk of 2^lgc columns, the last one of each group ragged
-  // when w is no multiple of it; the scratch slab holds n1.n2.2^lgc floats
-  // per block and plane.
-  const i64 blocks = B * P * ((w + (1LL << lgc) - 1) >> lgc);
-  if (!grid_ok(blocks)) return (int)cudaErrorInvalidValue;
-  const i64 smem =
-      scr_re != nullptr ? TILE_SMEM_BYTES : four_step_smem_bytes(n1 * n2, (int)lgc);
-  const cudaError_t err = set_smem((const void*)&cols_fused_kernel<false>, smem);
-  if (err != cudaSuccess) return (int)err;
-  cols_fused_kernel<false><<<(unsigned)blocks, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (int)n1, lg1, (int)n2, lg2, (int)lgc, w, P, 0, 1, (const float*)w1r, (const float*)w1i,
-      (const float*)t4r, (const float*)t4i, (const float*)w2r, (const float*)w2i,
-      (const float*)xr, (const float*)xi, nullptr, nullptr, (float*)yr, (float*)yi,
-      (float*)scr_re, (float*)scr_im);
-  return (int)cudaGetLastError();
+  const Twiddle none{nullptr, nullptr, 0, 0, 1};
+  const float scale = inverse != 0 ? 1.f / (float)f : 1.f;
+  return cols_launch<true>(B * P, lgf, w, (unsigned)P, n1, tile, scale, wr, wi, xr, xi, none, yr,
+                           yi, mr, mi, (cudaStream_t)stream);
 }
 
 static const KernelEntry ATTRS[] = {
-    {"cols_radix_kernel<256, 16>", (const void*)&cols_radix_kernel<T12, 4096 / T12, MB12>},
-    {"cols_radix_kernel<512, 16>", (const void*)&cols_radix_kernel<T13, 8192 / T13, MB13>},
-    {"cols_radix_kernel<1024, 16>", (const void*)&cols_radix_kernel<T14, 16384 / T14, MB14>},
-    {"cols_slab_kernel", (const void*)&cols_slab_kernel},
+    {"cols_radix_kernel<256, 16>", (const void*)&cols_radix_kernel<T12, 4096 / T12, MB12, false>},
+    {"cols_radix_kernel<512, 16>", (const void*)&cols_radix_kernel<T13, 8192 / T13, MB13, false>},
+    {"cols_radix_kernel<1024, 16>", (const void*)&cols_radix_kernel<T14, 16384 / T14, MB14, false>},
+    {"cols_slab_kernel", (const void*)&cols_slab_kernel<false>},
+    {"cols_radix_kernel<256, 16, natural>", (const void*)&cols_radix_kernel<T12, 4096 / T12, MB12, true>},
+    {"cols_radix_kernel<512, 16, natural>", (const void*)&cols_radix_kernel<T13, 8192 / T13, MB13, true>},
+    {"cols_radix_kernel<1024, 16, natural>", (const void*)&cols_radix_kernel<T14, 16384 / T14, MB14, true>},
+    {"cols_slab_kernel<natural>", (const void*)&cols_slab_kernel<true>},
     {"rows_radix_kernel<256, 16>", (const void*)&rows_radix_kernel<T12, 4096 / T12, MB12>},
     {"rows_radix_kernel<512, 16>", (const void*)&rows_radix_kernel<T13, 8192 / T13, MB13>},
     {"rows_radix_kernel<1024, 16>", (const void*)&rows_radix_kernel<T14, 16384 / T14, MB14>},
     {"rows_slab_kernel", (const void*)&rows_slab_kernel},
-    {"cols_direct_kernel", (const void*)&cols_direct_kernel<PlainStore>},
-    {"cols_fused_kernel", (const void*)&cols_fused_kernel<false>},
 };
 
 extern "C" int repro_attrs_pencil(int i, const char** name, i64* regs,
                                   i64* local) {
-  return kernel_attributes(ATTRS, 10, i, name, regs, local);
+  return kernel_attributes(ATTRS, sizeof ATTRS / sizeof ATTRS[0], i, name, regs, local);
 }

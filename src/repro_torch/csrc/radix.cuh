@@ -5,8 +5,8 @@
 // writes its kernel: a butterfly FFT kept on chip, each point crossing
 // device memory once each way, the twiddles read from one table through
 // the read-only ("texture") path.  dft_matmul.cu, fft4step.cu, pencil.cu
-// (cols_pass, rows_natural) and bluestein.cu (the fused stages) run it; the
-// GEMM tiles of tile.cuh stay as they are for cols_natural.
+// (cols_pass, rows_natural, cols_natural) and bluestein.cu (the fused
+// stages) run it.
 //
 // A block transforms a tile of M = T * E points: C = 2^lgc signals of
 // length L = 2^lgl (C * L = M).  Each thread holds E points in registers.
@@ -34,7 +34,7 @@
 // over them unrolls), so nothing spills to local memory.
 #pragma once
 
-#include "tile.cuh"
+#include "common.cuh"
 
 namespace repro {
 

@@ -27,7 +27,7 @@
 // the planes out once (8 bytes per complex element each way) plus the
 // (m + 1) phasor LUT, for about 8 flops per element: far below the card's
 // 20 flop/B ridge.
-#include "tile.cuh"
+#include "common.cuh"
 
 using namespace repro;
 

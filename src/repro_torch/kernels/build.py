@@ -53,7 +53,6 @@ __all__ = [
     "check_planes",
     "kernel_attributes",
     "RECORDED_ATTRS",
-    "COLS_MAX_REGISTERS",
     "attribute_faults",
 ]
 
@@ -292,12 +291,14 @@ RECORDED_ATTRS = {
     "cols_radix_kernel<512, 16>": (64, 0),
     "cols_radix_kernel<1024, 16>": (64, 0),
     "cols_slab_kernel": (64, 0),
+    "cols_radix_kernel<256, 16, natural>": (64, 0),
+    "cols_radix_kernel<512, 16, natural>": (64, 0),
+    "cols_radix_kernel<1024, 16, natural>": (64, 0),
+    "cols_slab_kernel<natural>": (64, 0),
     "rows_radix_kernel<256, 16>": (63, 0),
     "rows_radix_kernel<512, 16>": (63, 0),
     "rows_radix_kernel<1024, 16>": (63, 0),
     "rows_slab_kernel": (64, 0),
-    "cols_direct_kernel": (94, 0),
-    "cols_fused_kernel": (127, 0),
     "rfft_recomb_kernel": (24, 0),
     "irfft_recomb_kernel": (20, 0),
     "bluestein_fwd_kernel<256, 16>": (64, 0),
@@ -311,20 +312,13 @@ RECORDED_ATTRS = {
     "bluestein_elem_kernel": (16, 0),
 }
 
-#: The fused column kernels' register bound (``__launch_bounds__(2 * THREADS)``).
-COLS_MAX_REGISTERS = 128
-
-
 def attribute_faults(attrs: dict) -> list:
     """The register guard over :func:`kernel_attributes`' rows: one message
     for each function with more local (spill) bytes than
-    :data:`RECORDED_ATTRS` gives it (none for a function it lacks), and for
-    each fused column kernel past :data:`COLS_MAX_REGISTERS` registers."""
+    :data:`RECORDED_ATTRS` gives it (none for a function it lacks)."""
     faults = []
     for name, row in sorted(attrs.items()):
         local = RECORDED_ATTRS.get(name, (0, 0))[1]
         if row["local_bytes"] > local:
             faults.append(f"{name}: {row['local_bytes']} local bytes, the recorded build had {local}")
-        if name.startswith("cols_fused_kernel") and row["registers"] > COLS_MAX_REGISTERS:
-            faults.append(f"{name}: {row['registers']} registers > {COLS_MAX_REGISTERS}")
     return faults

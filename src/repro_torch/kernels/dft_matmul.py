@@ -26,7 +26,7 @@ from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
 
-__all__ = ["COUNTS", "MAX_N", "dft_tile", "dft_matmul_plain", "dft_matmul_call"]
+__all__ = ["COUNTS", "MAX_N", "dft_matmul_plain", "dft_matmul_call"]
 
 #: Kernel launches and plain-version calls, counted where each happens.
 COUNTS = {"dft_matmul": 0, "dft_matmul_plain": 0}
@@ -35,15 +35,6 @@ COUNTS = {"dft_matmul": 0, "dft_matmul_plain": 0}
 MAX_N = 1024
 
 _ARGS = (build.I64,) * 3 + (build.PTR,) * 9
-
-
-def dft_tile(xr, xi, wr, wi):
-    """Y = X @ W on split planes — Karatsuba, 3 real GEMMs: the direct tile
-    of the pencil kernels' plain versions (``kernels/pencil.py``)."""
-    k1 = torch.matmul(xr + xi, wr)
-    k2 = torch.matmul(xr, wi - wr)
-    k3 = torch.matmul(xi, wr + wi)
-    return k1 - k3, k1 + k2
 
 
 def dft_matmul_plain(xr, xi, rr, ri, *, inverse=False, twiddle=None):

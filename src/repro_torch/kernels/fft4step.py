@@ -18,10 +18,8 @@ Stockham FFT over the kernel's own roots table, the scale, the k1-major
 permutation and the phasor.  :func:`fft4step_call` takes it for a CPU
 tensor; for a CUDA tensor it launches the kernel or raises.
 
-:func:`cgemm_tile`, :func:`four_step_tile` and :func:`scratch_planes`
-serve ``cols_natural``, whose four-step tile stays a DFT-matrix GEMM
-(``csrc/tile.cuh``); :func:`slab_needed` and :data:`MIN_FACTOR` serve the
-Bluestein stages, whose pad takes the tiles and the slab of this kernel.
+:func:`slab_needed` and :data:`MIN_FACTOR` serve the Bluestein stages,
+whose pad takes the tiles and the slab of this kernel.
 """
 
 from __future__ import annotations
@@ -37,11 +35,8 @@ from repro_torch.kernels.dft_matmul import check_length
 
 __all__ = [
     "COUNTS",
-    "cgemm_tile",
-    "four_step_tile",
     "fft4step_plain",
     "fft4step_call",
-    "scratch_planes",
     "slab_needed",
 ]
 
@@ -54,38 +49,6 @@ MAX_N = 65536
 MIN_FACTOR = 32
 
 _ARGS = (build.I64,) * 5 + (build.PTR,) * 11
-
-
-def cgemm_tile(ar, ai, br, bi):
-    """Karatsuba complex GEMM on split planes: 3 real GEMMs."""
-    k1 = torch.matmul(ar + ai, br)
-    k2 = torch.matmul(ar, bi - br)
-    k3 = torch.matmul(ai, br + bi)
-    return k1 - k3, k1 + k2
-
-
-def four_step_tile(xr, xi, w1r, w1i, tr, ti, w2r, w2i, n1: int, n2: int, natural_order: bool = True):
-    """The four-step dataflow on a (bt, n1·n2) batch of signals.
-
-    Returns (yr, yi) of shape (bt, n1·n2), in natural or pencil (k1-major)
-    order — the reference's ``four_step_tile`` in torch.
-    """
-    bt = xr.shape[0]
-    n = n1 * n2
-    # (bt, n) → (n1, bt·n2): put the contracted factor on rows.
-    xr = xr.reshape(bt, n1, n2).transpose(0, 1).reshape(n1, bt * n2)
-    xi = xi.reshape(bt, n1, n2).transpose(0, 1).reshape(n1, bt * n2)
-    ar, ai = cgemm_tile(w1r, w1i, xr, xi)  # column DFTs
-    ar = ar.reshape(n1, bt, n2)
-    ai = ai.reshape(n1, bt, n2)
-    br, bi = cmul(ar, ai, tr[:, None, :], ti[:, None, :])  # twiddle
-    cr, ci = cgemm_tile(br.reshape(n1 * bt, n2), bi.reshape(n1 * bt, n2), w2r, w2i)
-    cr = cr.reshape(n1, bt, n2)
-    ci = ci.reshape(n1, bt, n2)
-    if natural_order:
-        # Y[b, k2·n1 + k1] = C[k1, b, k2]
-        return cr.permute(1, 2, 0).reshape(bt, n), ci.permute(1, 2, 0).reshape(bt, n)
-    return cr.transpose(0, 1).reshape(bt, n), ci.transpose(0, 1).reshape(bt, n)
 
 
 def fft4step_plain(xr, xi, rr, ri, *, n1, inverse=False, natural_order=True, twiddle_after=None):
@@ -135,26 +98,6 @@ def fft4step_call(xr, xi, rr, ri, *, n1, inverse=False, natural_order=True, twid
     if xr.device.type != "cuda":
         raise PlanError(f"fft4step runs on cuda or cpu tensors, got {xr.device}")
     return _launch(xr, xi, rr, ri, er, ei, n1, inverse, natural_order)
-
-
-def scratch_planes(like, n: int, lgc: int, signals: int | None = None):
-    """A global scratch slab for the four-step intermediate, or (None, None)
-    when a chunk of 2^lgc length-n signals keeps it in shared memory of
-    ``like``'s card.
-
-    The slab holds ``signals`` length-n signals (default: as many as
-    ``like`` has — a launch whose last chunk is ragged covers more), so
-    while the call runs it holds half again the device memory of its planes
-    in and out.
-    """
-    fn = build.function("repro_four_step_smem_bytes", (build.I64, build.I64), build.I64)
-    if fn(n, lgc) <= limits.memory_budget(like.device):
-        return None, None
-    numel = like.numel() if signals is None else signals * n
-    return (
-        torch.empty(numel, dtype=like.dtype, device=like.device),
-        torch.empty(numel, dtype=like.dtype, device=like.device),
-    )
 
 
 def slab_needed(like, n: int) -> bool:

@@ -30,18 +30,15 @@ each kernel wrapper takes its plain version, so a CPU run walks the same
 program one plain call per pass.
 
 LUTs are device-resident: the float64 host tables of ``core/twiddle.py``
-are uploaded once per (device, sizes, direction) and kept.  The radix
-kernels (``dft_matmul``, ``fft4step``, ``cols_pass``, ``rows_natural``:
-every one-pass plan, both passes of a two-pass plan, every column pass of
-a 2-D program but the strip-mined last factor) read one table of f-th
-roots of their transform length (:func:`_roots_luts`, 8f bytes), and each
-applies the inverse's 1/f at its store.  ``cols_natural`` reads
-DFT-matrix LUTs with the inverse's 1/f folded into its transform LUT
-exactly as the reference folds it (W for the direct tile, W2 for the
-four-step tile).  Either way the factors of a program multiply to 1/n.  A
-fused Bluestein pass carries the chirp tables of the outer direction and
-the pad length's roots table of its own stage (forward for ``fwd``,
-inverse for ``inv``, whose kernel applies 1/M at its store).
+are uploaded once per (device, sizes, direction) and kept.  Every kernel
+of a power-of-two pass (``dft_matmul``, ``fft4step``, ``cols_pass``,
+``rows_natural``, ``cols_natural``) is a radix FFT: it reads one table of
+f-th roots of its transform length (:func:`_roots_luts`, 8f bytes) and
+applies the inverse's 1/f at its store, so the factors of a program
+multiply to 1/n.  A fused Bluestein pass carries the chirp tables of the
+outer direction and the pad length's roots table of its own stage
+(forward for ``fwd``, inverse for ``inv``, whose kernel applies 1/M at
+its store).
 """
 
 from __future__ import annotations
@@ -83,34 +80,10 @@ def _upload(planes, device: str) -> tuple:
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in planes)
 
 
-#: The kernels that read the roots table of their transform length.
-RADIX_KERNELS = ("dft_matmul", "fft4step", "cols_pass", "rows_natural")
-
-
 @functools.lru_cache(maxsize=64)
 def _roots_luts(device: str, n: int, inverse: bool) -> tuple:
     """The (n,) roots table of a radix pass (no 1/n folded)."""
     return _upload(tw.roots(n, inverse), device)
-
-
-@functools.lru_cache(maxsize=64)
-def _direct_luts(device: str, n: int, inverse: bool) -> tuple:
-    wr, wi = tw.dft_matrix(n, inverse)
-    if inverse:
-        wr = wr / np.float32(n)  # fold 1/N into the LUT
-        wi = wi / np.float32(n)
-    return _upload((wr, wi), device)
-
-
-@functools.lru_cache(maxsize=64)
-def _fused_luts(device: str, n1: int, n2: int, inverse: bool) -> tuple:
-    w1r, w1i = tw.dft_matrix(n1, inverse)
-    tr, ti = tw.twiddle_grid(n1, n2, inverse)
-    w2r, w2i = tw.dft_matrix(n2, inverse)
-    if inverse:
-        s = np.float32(1.0 / (n1 * n2))
-        w2r, w2i = w2r * s, w2i * s
-    return _upload((w1r, w1i, tr, ti, w2r, w2i), device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -124,12 +97,6 @@ def recomb_luts(device: str, n: int, inverse: bool) -> tuple:
     """The (n//2 + 1,) phasor LUT of the real-FFT recombination:
     e^{∓2πik/n}, conjugated for the inverse."""
     return _upload(tw.rfft_recomb_twiddle(n, inverse=inverse), device)
-
-
-def _transform_luts(device: str, p: plan_lib.Pass, inverse: bool) -> tuple:
-    if p.kind == "direct":
-        return _direct_luts(device, p.n, inverse)
-    return _fused_luts(device, p.n1, p.n2, inverse)
 
 
 @functools.lru_cache(maxsize=64)
@@ -213,20 +180,19 @@ def plan_kernels(fft_plan: plan_lib.FFTPlan, axis: int = -1) -> tuple:
 
 def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1) -> tuple:
     """Upload (or find) every LUT the plan's passes read on ``device`` when
-    it runs over ``axis``: the roots table for a radix pass, the chirp
-    tables and the pad's roots table for a Bluestein pass, the DFT-matrix
-    LUTs for ``cols_natural``, and each pass's inter-factor twiddle."""
+    it runs over ``axis``: the roots table of a power-of-two pass, the chirp
+    tables and the pad's roots table of a Bluestein pass, and each pass's
+    inter-factor twiddle.  Raises NotImplementedError for a pass the port
+    does not run yet."""
     dev = device_key(device)
+    plan_kernels(fft_plan, axis)  # raises for a pass the port does not run yet
     luts = []
-    for p, kernel in zip(fft_plan.passes, plan_kernels(fft_plan, axis)):
+    for p in fft_plan.passes:
         eff = _pass_inverse(p, inverse)
         if p.kind == "bluestein":
             luts.extend(_bluestein_luts(dev, p, eff))
             continue
-        if kernel in RADIX_KERNELS:
-            luts.extend(_roots_luts(dev, p.n, eff))
-        else:
-            luts.extend(_transform_luts(dev, p, eff))
+        luts.extend(_roots_luts(dev, p.n, eff))
         if p.twiddle_after is not None:
             luts.extend(_pass_twiddle_luts(dev, *p.twiddle_after, eff))
     return tuple(luts)
@@ -314,8 +280,8 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
         )
     else:
         yr, yi = pencil.cols_natural_call(
-            xr.view(b, pencils, f, w), xi.view(b, pencils, f, w), _transform_luts(dev, p, inverse),
-            kind=p.kind, n1=p.n1, n2=p.n2,
+            xr.view(b, pencils, f, w), xi.view(b, pencils, f, w), *_roots_luts(dev, f, inverse),
+            n1=p.n1, inverse=inverse,
         )
     return yr.view(b, rows, w), yi.view(b, rows, w)
 

@@ -17,23 +17,24 @@ m + 1 columns): the last chunk of columns is masked, with no padded copy.
 of every row written transposed to (B, f, p), so the program's output lands
 in natural order with no transpose pass.
 
-Both are radix FFTs, as ``dft_matmul`` and ``fft4step`` are since their
-redesign: they read the (f,) roots table of the direction
+``cols_natural_call`` — CUDA kernel in ``csrc/pencil.cu`` (engine
+``csrc/radix.cuh``), replacing ``cols_natural_call``
+(``src/repro/kernels/pencil.py:234``): on a (B, P, f, w) view, a length-f
+FFT down axis 2, written as (B, f, P, w) — the n2-axis digit transpose of
+a strip-mined column program fused into the write.  It runs the column
+engine of ``cols_pass`` over the (B·P, f, w) view with no twiddle; only
+the store differs (output rows a stride P·w apart, each group at its own
+base).
+
+All three are radix FFTs, as ``dft_matmul`` and ``fft4step`` are since
+their redesign: they read the (f,) roots table of the direction
 (:func:`repro_torch.core.twiddle.roots`) and apply the inverse's 1/f at
 the store.  A block transforms one on-chip tile of 2^t / f adjacent
 columns (rows), t = 12, 13 or 14, each point read once and written once,
 or runs the four-step f = n1·n2 for 8 adjacent columns (rows) through a
-global scratch slab (two round trips); :data:`COLS_TILE` /
-:data:`ROWS_TILE` pick the form per f (the slab from 4096 points).
-
-``cols_natural_call`` — CUDA kernel in ``csrc/pencil.cu``, replacing
-``cols_natural_call`` (``src/repro/kernels/pencil.py:234``): on a
-(B, P, f, w) view, a length-f transform down axis 2, written as
-(B, f, P, w) — the n2-axis digit transpose of a strip-mined column program
-fused into the write.  It keeps the DFT-matrix GEMM tiles (the direct
-f ≤ 1024 or the four-step tile, as the reference's ``_tile_transform``)
-and their LUTs with the inverse's 1/f folded in, 8-column chunks, the
-intermediate in shared memory while it fits and in a scratch slab beyond.
+global scratch slab (two round trips); :data:`COLS_TILE` (both column
+passes) and :data:`ROWS_TILE` pick the form per f (the slab from 4096
+points).
 
 ``rfft_recomb_call`` / ``irfft_recomb_call`` — CUDA kernels in
 ``csrc/recomb.cu``, replacing ``rfft_recomb_call`` / ``irfft_recomb_call``
@@ -58,8 +59,6 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
-from repro_torch.kernels.dft_matmul import dft_tile
-from repro_torch.kernels.fft4step import four_step_tile, scratch_planes
 
 __all__ = [
     "COUNTS",
@@ -89,11 +88,7 @@ COUNTS = {
     "irfft_recomb_plain": 0,
 }
 
-#: Signals per four-step block of ``cols_natural``: 8 floats = one 32-byte
-#: sector per plane along the contiguous axis.
-CHUNK = 8
-
-#: The form of ``cols_pass`` / ``rows_natural`` by log2 f: log2 of the
+#: The form of the column passes and of ``rows_natural`` by log2 f: log2 of the
 #: on-chip tile's points (12, 13 or 14; the tile holds 2^t / f signals), or
 #: :data:`SLAB`, the four-step through the scratch slab.  Each entry is the
 #: form measured fastest on the H100 at the lengths the programs give the
@@ -119,54 +114,8 @@ _P = build.PTR
 _I = build.I64
 _COLS = (_I,) * 7 + (_P,) * 11
 _ROWS = (_I,) * 6 + (_P,) * 9
-_NATURAL_DIRECT = (_I,) * 4 + (_P,) * 7
-_NATURAL_FUSED = (_I,) * 6 + (_P,) * 13
+_NATURAL = (_I,) * 7 + (_P,) * 9
 _RECOMB = (_I,) * 2 + (_P,) * 7
-
-
-def column_chunk_log2(s: int, want: int = CHUNK) -> int:
-    """log2 of the columns per four-step block of ``cols_natural``:
-    ``want`` (a power of two), cut to the power of two at or above ``s``.
-    A width that is no multiple of the chunk ends in a ragged chunk, whose
-    block transforms its columns one at a time."""
-    c = min(want, 1 << max(s - 1, 0).bit_length())
-    return c.bit_length() - 1
-
-
-def _fused_blocks(r: int, s: int, lgc: int) -> int:
-    return r * -(-s >> lgc)
-
-
-def _tile_transform(xr, xi, luts, kind: str, n1: int, n2: int):
-    """A (bt, f) batch of rows through the shared direct/four-step tiles."""
-    if kind == "direct":
-        wr, wi = luts
-        return dft_tile(xr, xi, wr, wi)
-    w1r, w1i, tr, ti, w2r, w2i = luts
-    return four_step_tile(xr, xi, w1r, w1i, tr, ti, w2r, w2i, n1, n2, True)
-
-
-def _lut_shapes(kind: str, f: int, n1: int, n2: int):
-    if kind == "direct":
-        return [(f, f)] * 2
-    if n1 * n2 != f:
-        raise PlanError(f"four-step factors {n1}·{n2} do not make f={f}")
-    return [(n1, n1)] * 2 + [(n1, n2)] * 2 + [(n2, n2)] * 2
-
-
-def _check(name, kind, xr, xi, x_shape, luts, n1, n2, f, twiddle=None, tw_shape=None):
-    if kind not in ("direct", "fused4"):
-        raise PlanError(f"{name}: kind must be 'direct' or 'fused4', got {kind!r}")
-    shapes = _lut_shapes(kind, f, n1, n2)
-    if len(luts) != len(shapes):
-        raise PlanError(f"{name}: {kind} takes {len(shapes)} LUT planes, got {len(luts)}")
-    ops = {"xr": (xr, x_shape), "xi": (xi, x_shape)}
-    ops.update({f"lut{i}": (t, s) for i, (t, s) in enumerate(zip(luts, shapes))})
-    if twiddle is not None:
-        ops.update(tr=(twiddle[0], tw_shape), ti=(twiddle[1], tw_shape))
-    build.check_planes(name, xr, **ops)
-    if xr.device.type not in ("cpu", "cuda"):
-        raise PlanError(f"{name} runs on cuda or cpu tensors, got {xr.device}")
 
 
 def _check_tw_every(s: int, tw_every: int) -> None:
@@ -177,7 +126,8 @@ def _check_tw_every(s: int, tw_every: int) -> None:
 def _check_radix(name, xr, xi, x_shape, rr, ri, f, n1, twiddle=None, tw_shape=None):
     """The radix passes' operands: a power-of-two f up to :data:`MAX_F`
     (rows: at least 2), its (f,) roots table, and a slab factor n1 (0: the
-    balanced split) whose two factors lie in :data:`SLAB_FACTORS`."""
+    balanced split) whose two factors lie in :data:`SLAB_FACTORS`; the
+    input planes of shape ``x_shape``."""
     least = 2 if name == "rows_natural" else 1
     if f < least or f & (f - 1) or f > MAX_F:
         raise PlanError(f"{name}: length {f} is not a power of two from {least} to {MAX_F}")
@@ -281,51 +231,51 @@ def _slab(like, numel: int):
             torch.empty(numel, dtype=like.dtype, device=like.device))
 
 
-def cols_natural_plain(xr, xi, luts, *, kind: str, n1: int = 0, n2: int = 0):
+def cols_natural_plain(xr, xi, rr, ri, *, inverse=False):
     """Plain PyTorch version of the digit-transposing column pass (any
-    device)."""
+    device): the radix-2 Stockham FFT over the roots table down every
+    column, the scale, the permute to (B, f, P, w)."""
     COUNTS["cols_natural_plain"] += 1
     b, pp, f, w = xr.shape
-    # (B, P, f, w) → (B·P·w, f): each column becomes a row of the tile.
-    tr_ = xr.transpose(2, 3).reshape(b * pp * w, f)
-    ti_ = xi.transpose(2, 3).reshape(b * pp * w, f)
-    yr, yi = _tile_transform(tr_, ti_, luts, kind, n1, n2)
+    # (B, P, f, w) → (B·P·w, f): each column becomes a row.
+    yr, yi = stockham_fft(xr.transpose(2, 3).reshape(b * pp * w, f),
+                          xi.transpose(2, 3).reshape(b * pp * w, f), roots=(rr, ri))
+    yr, yi = _scale(yr, yi, f, inverse)
     yr = yr.reshape(b, pp, w, f).permute(0, 3, 1, 2)  # → (B, f, P, w)
     yi = yi.reshape(b, pp, w, f).permute(0, 3, 1, 2)
     return yr.contiguous(), yi.contiguous()
 
 
-def cols_natural_call(xr, xi, luts, *, kind: str, n1: int = 0, n2: int = 0):
+def cols_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False):
     """Final column pass of a strip-mined 2-D program with the n2-axis digit
     transpose fused into its write: x (B, P, f, w) → y (B, f, P, w),
-    ``y[b, k, p, :] = FFT_f(x[b, p, :, :], axis=0)[k]``."""
+    ``y[b, k, p, :] = FFT_f(x[b, p, :, :], axis=0)[k]`` (scaled by 1/f for
+    ``inverse``), f a power of two up to 65536.  ``rr``, ``ri``, ``n1`` as
+    :func:`cols_pass_call`'s."""
     b, pp, f, w = xr.shape
-    _check("cols_natural", kind, xr, xi, (b, pp, f, w), luts, n1, n2, f)
+    _check_radix("cols_natural", xr, xi, (b, pp, f, w), rr, ri, f, n1)
     if xr.device.type == "cpu":
-        return cols_natural_plain(xr, xi, luts, kind=kind, n1=n1, n2=n2)
-    return _launch_cols_natural(xr, xi, luts, kind, n1, n2)
+        return cols_natural_plain(xr, xi, rr, ri, inverse=inverse)
+    return _launch_cols_natural(xr, xi, rr, ri, inverse, n1)
 
 
 @build.on_device
-def _launch_cols_natural(xr, xi, luts, kind, n1, n2):
+def _launch_cols_natural(xr, xi, rr, ri, inverse, n1=0, tile=None):
+    """The launch; ``tile`` as :func:`_launch_cols`' (:data:`COLS_TILE`)."""
     b, pp, f, w = xr.shape
+    tile = _tile_for(COLS_TILE, f, tile)
     yr = torch.empty((b, f, pp, w), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, f, pp, w), dtype=xr.dtype, device=xr.device)
     if xr.numel() == 0:  # an empty batch: nothing to launch
         return yr, yi
+    mr = mi = None
+    if tile == SLAB:
+        mr, mi = _slab(xr, b * pp * -(-w // SLAB_GROUP) * SLAB_GROUP * f)
     p = build.ptr
-    if kind == "direct":
-        wr, wi = luts
-        rc = build.function("repro_cols_natural_direct", _NATURAL_DIRECT)(
-            b, pp, f, w, p(wr), p(wi), p(xr), p(xi), p(yr), p(yi), build.stream_ptr(xr),
-        )
-    else:
-        lgc = column_chunk_log2(w)
-        sr, si = scratch_planes(xr, f, lgc, _fused_blocks(b * pp, w, lgc) << lgc)
-        rc = build.function("repro_cols_natural_fused", _NATURAL_FUSED)(
-            b, pp, n1, n2, w, lgc, *map(p, luts), p(xr), p(xi), p(yr), p(yi),
-            p(sr), p(si), build.stream_ptr(xr),
-        )
+    rc = build.function("repro_cols_natural", _NATURAL)(
+        b, pp, f, w, _slab_split(f, n1, tile), tile, int(inverse), p(rr), p(ri), p(xr), p(xi),
+        p(yr), p(yi), p(mr), p(mi), build.stream_ptr(xr),
+    )
     build.check(rc, "cols_natural")
     COUNTS["cols_natural"] += 1
     return yr, yi

@@ -98,8 +98,8 @@ def test_pass_kernels(dev, n):
                                     (16384, pencil.SLAB), (65536, pencil.SLAB)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_radix_pass_forms_kernel(dev, f, tile, inverse):
-    """Both radix passes in every form (on-chip tiles of 2^12..2^14 points,
-    the slab four-step) at a ragged width and row count."""
+    """The three radix passes in every form (on-chip tiles of 2^12..2^14
+    points, the slab four-step) at a ragged width and row count."""
     w = ops._roots_luts(dev, f, inverse)
     x = _planes(dev, 2, f, 11)
     tw = _planes(dev, f, 11, seed=3)
@@ -108,6 +108,9 @@ def test_radix_pass_forms_kernel(dev, f, tile, inverse):
            pencil.cols_pass_plain(*x, *w, tw, **kw))
     x = _planes(dev, 2, 11, f, seed=1)
     _close(pencil._launch_rows(*x, *w, inverse, 0, tile), pencil.rows_natural_plain(*x, *w, **kw))
+    x = _planes(dev, 2, 3, f, 11, seed=2)
+    _close(pencil._launch_cols_natural(*x, *w, inverse, 0, tile),
+           pencil.cols_natural_plain(*x, *w, **kw))
 
 
 @pytest.mark.parametrize("n", [2, 1024, 4096, 65536, 1 << 18, 1 << 22])
@@ -157,14 +160,18 @@ def test_cols_pass_ragged_kernel(dev, r, f, s, tile):
     _close(pencil._launch_cols(*x, *w, tw, False, 0, 1, tile), pencil.cols_pass_plain(*x, *w, tw))
 
 
-@pytest.mark.parametrize("b,p,f,w", [(1, 512, 256, 64), (2, 16, 2048, 32), (1, 4, 4096, 8)])
-def test_cols_natural_kernel(dev, b, p, f, w):
+@pytest.mark.parametrize("b,p,f,w", [(1, 512, 256, 64), (2, 16, 2048, 32), (1, 4, 4096, 8),
+                                     (2, 8, 1024, 70)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cols_natural_kernel(dev, b, p, f, w, inverse):
+    """cols_natural in each form its table picks (the 2^13 tile, the 2^14
+    tile at f = 2048, the slab from 4096) and at a ragged width, both
+    directions, on the roots table."""
     x = _planes(dev, b, p, f, w)
-    kind = "direct" if f <= 1024 else "fused4"
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = ops._direct_luts(dev, f, False) if kind == "direct" else ops._fused_luts(dev, n1, n2, False)
-    kw = dict(kind=kind, n1=n1, n2=n2)
-    _close(pencil.cols_natural_call(*x, luts, **kw), pencil.cols_natural_plain(*x, luts, **kw))
+    rr = ops._roots_luts(dev, f, inverse)
+    n1 = plan_lib.balanced_split(f)[0] if f > 1024 else 0
+    _close(pencil.cols_natural_call(*x, *rr, n1=n1, inverse=inverse),
+           pencil.cols_natural_plain(*x, *rr, inverse=inverse))
 
 
 def _launched(fn):
@@ -327,9 +334,9 @@ def test_empty_batch_on_the_card(dev, spec):
 
 
 def test_register_guard(dev):
-    """The fused column kernels stay within their 128-register bound, no
-    function uses more local memory than the recorded build gave it, and
-    the radix functions (#2, #3, #4, #7, #8) have the recorded registers."""
+    """No function uses more local memory than the recorded build gave it,
+    and the radix functions (#2, #3, #4, #5, #7, #8) have the recorded
+    registers."""
     attrs = build.kernel_attributes()
     assert build.attribute_faults(attrs) == []
     for name, row in attrs.items():

@@ -55,7 +55,7 @@ def emu_lib(tmp_path_factory):
     for src in list(build.csrc_dir().glob("*.cu")) + list(build.csrc_dir().glob("*.cuh")):
         text = src.read_text()
         text = text.replace("extern __shared__ float2 smem[];", "float2* smem = emu_dyn_smem;")
-        # A kernel name may carry template arguments (cols_fused_kernel<true>).
+        # A kernel name may carry template arguments (cols_slab_kernel<NAT>).
         text = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.+?)>>>\(", r"emu_launch(\1, \2, ", text)
         (out / src.name).write_text(text)
     cus = sorted(out.glob("*.cu"))
@@ -124,10 +124,6 @@ def _close(got, want):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert (a - b).abs().max().item() <= TOL * scale
-
-
-def _fused(f):
-    return ops._fused_luts("cpu", *plan_lib.balanced_split(f), False)
 
 
 def _roots(n, inverse=False):
@@ -259,17 +255,39 @@ def test_radix_passes_refuse_other_lengths_source(emulated):
         pencil._launch_rows(*_planes(4, 1, 2, 8192), *_roots(8192), False, tile=12)
 
 
-@BUDGETS
-@pytest.mark.parametrize("b,p,f,w,kind", [
-    (2, 4, 256, 8, "direct"), (1, 3, 100, 70, "direct"), (1, 4, 2048, 8, "fused4"),
-    (2, 2, 2048, 16, "fused4"), (1, 2, 4096, 5, "fused4"),
+@pytest.mark.parametrize("b,p,f,w,tile,inverse", [
+    (2, 3, 256, 64, 12, False), (1, 4, 256, 70, 13, True), (2, 2, 512, 40, 14, False),
+    (1, 3, 1024, 5, 13, True), (2, 2, 2048, 16, 14, False), (1, 2, 2048, 8, None, True),
+    (2, 2, 1024, 12, SLAB, False), (1, 3, 4096, 5, None, True), (1, 2, 4096, 16, SLAB, False),
+    (3, 5, 2, 70, None, False), (2, 2, 1, 3, None, True), (1, 2, 16, 300, 12, True),
+    (2, 64, 64, 8, 13, False), (1, 2, 16384, 2, None, False),
 ])
-def test_cols_natural_source(budget, b, p, f, w, kind):
+def test_cols_natural_source(emulated, b, p, f, w, tile, inverse):
+    """The digit-transposing column pass in every form (on-chip tiles of
+    2^12, 2^13, 2^14 points, the slab four-step, the table's default), B
+    and P above 1, ragged widths (70, 40, 5, 12, 300: the last chunk is
+    masked) and widths below a tile's C columns (5 of 8, 8 of 128, 70 of
+    2048), forward and inverse, f = 1 and 2."""
     x = _planes(f, b, p, f, w)
-    n1, n2 = (0, 0) if kind == "direct" else plan_lib.balanced_split(f)
-    luts = _planes(5, f, f) if kind == "direct" else _fused(f)
-    _close(pencil._launch_cols_natural(*x, luts, kind, n1, n2),
-           pencil.cols_natural_plain(*x, luts, kind=kind, n1=n1, n2=n2))
+    r = _roots(f, inverse)
+    _close(pencil._launch_cols_natural(*x, *r, inverse, 0, tile),
+           pencil.cols_natural_plain(*x, *r, inverse=inverse))
+
+
+@pytest.mark.parametrize("b,f,w,tile,inverse", [
+    (2, 256, 40, 12, False), (1, 512, 70, 13, True), (2, 2048, 24, 14, False),
+    (1, 4096, 9, SLAB, True), (2, 1024, 16, SLAB, False),
+])
+def test_cols_natural_one_group_is_cols_pass_source(emulated, b, f, w, tile, inverse):
+    """With P = 1 the digit transpose is the identity: cols_natural's launch
+    writes exactly what cols_pass's writes without a twiddle, in every
+    form (the same engine, another output base and stride)."""
+    x = _planes(f + 1, b, f, w)
+    r = _roots(f, inverse)
+    nat = pencil._launch_cols_natural(*(a.view(b, 1, f, w) for a in x), *r, inverse, 0, tile)
+    col = pencil._launch_cols(*x, *r, None, inverse, 0, 1, tile)
+    for a, c in zip(nat, col):
+        assert torch.equal(a.view(b, f, w), c)
 
 
 @pytest.mark.parametrize("b,m", [(3, 1), (2, 8), (2, 300), (1, 1024)])
@@ -359,15 +377,14 @@ def test_kernel_attribute_entries(emulated):
 @pytest.mark.parametrize("name,registers,local,faults", [
     ("cols_slab_kernel", 64, 0, 0),
     ("cols_slab_kernel", 64, 16, 1),
-    ("cols_fused_kernel", 128, 0, 0),
-    ("cols_fused_kernel", 129, 120, 2),
+    ("cols_radix_kernel<512, 16, natural>", 64, 0, 0),
+    ("cols_slab_kernel<natural>", 255, 8, 1),
     ("rows_radix_kernel<1024, 16>", 200, 0, 0),
     ("unrecorded_kernel", 32, 4, 1),
 ])
 def test_attribute_faults_rule(name, registers, local, faults):
     """The guard's rule: local bytes up to the recorded row (none for a
-    function without one), registers bounded for the fused column kernels
-    only."""
+    function without one); registers are not bounded by it."""
     row = {"source": "x.cu", "registers": registers, "local_bytes": local}
     assert len(build.attribute_faults({name: row})) == faults
 
@@ -375,7 +392,6 @@ def test_attribute_faults_rule(name, registers, local, faults):
 def _launch_calls(b):
     """{kernel: (its ``_launch*``, arguments over a batch of b, the output
     shape)} for every launcher of the wrapper modules."""
-    w = _planes(1, 16, 16)
     fwd_luts, inv_luts = _bluestein_args(5, False)[1:]
     return {
         "dft_matmul": (dft_matmul._launch, (*_planes(0, b, 16), *_roots(16), None, None, False),
@@ -386,8 +402,8 @@ def _launch_calls(b):
                       (b, 16, 2)),
         "rows_natural": (pencil._launch_rows, (*_planes(4, b, 2, 16), *_roots(16), False),
                          (b, 16, 2)),
-        "cols_natural": (pencil._launch_cols_natural, (*_planes(5, b, 2, 16, 2), w, "direct",
-                                                       0, 0), (b, 16, 2, 2)),
+        "cols_natural": (pencil._launch_cols_natural, (*_planes(5, b, 2, 16, 2), *_roots(16),
+                                                       False), (b, 16, 2, 2)),
         "rfft_recomb": (pencil._launch_recomb, (*_planes(0, b, 16),
                                                 *ops.recomb_luts("cpu", 32, False),
                                                 "rfft_recomb", 16, 17), (b, 17)),

@@ -47,7 +47,7 @@ def _close(mine, ref):
         np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=TOL * scale)
 
 
-def _fused_luts(n1, n2):
+def _ref_four_step_luts(n1, n2):
     return (*ref_tw.dft_matrix(n1), *ref_tw.twiddle_grid(n1, n2), *ref_tw.dft_matrix(n2))
 
 
@@ -85,7 +85,7 @@ def test_dft_matmul(n, epilogue):
 def test_fft4step(n1, n2, order, epilogue):
     n, b = n1 * n2, 2
     x = _planes(n, (b, n))
-    luts = _fused_luts(n1, n2)
+    luts = _ref_four_step_luts(n1, n2)
     e = _planes(n + 1, (n,)) if epilogue else None
     natural = order == "natural"
     mine = _counted("fft4step", lambda: fft4step.fft4step_call(
@@ -94,10 +94,6 @@ def test_fft4step(n1, n2, order, epilogue):
     ref = ref_fft4step(*_j(*x, *luts), batch_tile=1, natural_order=natural,
                        twiddle_after=_j(*e) if e else None, interpret=True)
     _close(mine, ref)
-
-
-def _pass_luts(kind, f, n1, n2):
-    return ref_tw.dft_matrix(f) if kind == "direct" else _fused_luts(n1, n2)
 
 
 def _ref_pass_luts(kind, f, n1, n2, inverse):
@@ -164,15 +160,17 @@ def test_cols_pass_tw_every(kind, f, n1, n2, inverse, tw_every):
     _close(mine, ref)
 
 
-@pytest.mark.parametrize("kind,f,n1,n2", [("direct", 256, 0, 0), ("fused4", 2048, 64, 32)])
-def test_cols_natural(kind, f, n1, n2):
+@pytest.mark.parametrize("kind,f,n1,n2,inverse", PASSES)
+def test_cols_natural(kind, f, n1, n2, inverse):
+    """The port's digit-transposing column pass (its plain version: the
+    Stockham FFT over the roots table, 1/f at the store) against the Pallas
+    kernel with the reference's DFT-matrix LUTs, 1/f folded as it folds it."""
     b, p, w = 2, 4, 16
     x = _planes(f + 3, (b, p, f, w))
-    luts = _pass_luts(kind, f, n1, n2)
     mine = _counted("cols_natural", lambda: pencil.cols_natural_call(
-        *_t(*x), _t(*luts), kind=kind, n1=n1, n2=n2))
-    ref = ref_pencil.cols_natural_call(*_j(*x), _j(*luts), kind=kind, n1=n1, n2=n2,
-                                       chunk=8, interpret=True)
+        *_t(*x, *tw.roots(f, inverse)), n1=n1, inverse=inverse))
+    ref = ref_pencil.cols_natural_call(*_j(*x), _j(*_ref_pass_luts(kind, f, n1, n2, inverse)),
+                                       kind=kind, n1=n1, n2=n2, chunk=8, interpret=True)
     _close(mine, ref)
 
 
@@ -203,12 +201,11 @@ def test_wrappers_validate_operands():
         dft_matmul.dft_matmul_call(xr, xi, wr[:, 0], wi[:, 0])
     with pytest.raises(PlanError, match="n1"):
         fft4step.fft4step_call(*_t(*_planes(1, (1, 2048)), *tw.roots(2048)), n1=16)
-    with pytest.raises(PlanError, match="kind"):
-        pencil.cols_natural_call(xr.view(1, 1, 16, 2), xi.view(1, 1, 16, 2), (wr, wi),
-                                 kind="bogus")
-    with pytest.raises(PlanError, match="LUT"):
-        pencil.cols_natural_call(xr.view(1, 1, 16, 2), xi.view(1, 1, 16, 2), (wr,),
-                                 kind="direct")
+    with pytest.raises(PlanError, match="power of two"):
+        pencil.cols_natural_call(xr.view(1, 2, 8, 2)[:, :, :6].contiguous(),
+                                 xi.view(1, 2, 8, 2)[:, :, :6].contiguous(), rr[:6], ri[:6])
+    with pytest.raises(PlanError, match="shape"):
+        pencil.cols_natural_call(xr.view(1, 1, 16, 2), xi.view(1, 1, 16, 2), rr[:8], ri[:8])
     with pytest.raises(PlanError, match="tw_every"):
         pencil.cols_pass_call(xr.view(1, 16, 2), xi.view(1, 16, 2), rr, ri, tw_every=3)
     with pytest.raises(PlanError, match="power of two"):
