@@ -34,9 +34,20 @@ package), in phases, and fails on the first check that does not hold:
 6. arbitrary lengths — ``fft``/``ifft``, ``rfft``/``irfft`` (odd and even),
    ``fft2``/``ifft2`` and ``fft`` down ``axis=-2`` at non-power-of-two
    SAR lengths (500 … 100003) through the Bluestein kernels, fused and
-   split regime, held as phase 5 holds its calls.
+   split regime, held as phase 5 holds its calls;
+7. convolution — ``fft_conv`` (one shot at h2o-danube-1.8b's width,
+   auto-routed to overlap-save, ``pad="exact"``), ``StreamingConv`` strip
+   ingest, ``fft_conv2d`` SAR range compression, ``fft_conv_packed``, and
+   ``SpectralMixer`` prefill plus 512 stream-decode tokens: each held against
+   a float64 reference (``np.fft`` in complex128 at sample rows, the direct
+   sum for the mixer) at 1e-3·max|ref|, to exactly Σ ``len(plan.passes)``
+   launches over the plans it runs, timed beside the same convolution
+   through ``torch.fft.rfft``/``irfft``, with its peak device memory and
+   the device time of its kernels and of everything else
+   (``torch.profiler``); the mixer's stream decode against its one-shot
+   forward and the ring decode, planning nothing new (``plan_log``).
 
-Phases 3, 5 and 6 each set the launch counts to 0 before they start and read
+Phases 3, 5, 6 and 7 each set the launch counts to 0 before they start and read
 them when they end; every kernel of a path must have launched in it.  Each
 also runs every one of its calls over a batch of 0: the output must have
 np.fft's shape, and the call launches nothing (0 launches, not
@@ -51,6 +62,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -62,9 +74,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.core import conv, overlap  # noqa: E402
 from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
+from repro_torch.core.limits import next_pow2  # noqa: E402
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
+from repro_torch.models.layers.spectral import SpectralMixer  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): FP32 on
 #: the CUDA cores and HBM3 bandwidth.
@@ -123,14 +138,16 @@ FUNCTIONS = {
 #: This build's ``build.kernel_attributes()``, read once the library loads.
 ATTRS: dict = {}
 
-#: The kernels each planned path must launch: phase 3 (1-D complex) and
-#: phase 5 (real and 2-D).
+#: The kernels each planned path must launch: phase 3 (1-D complex),
+#: phase 5 (real and 2-D), phase 6 (any length) and phase 7 (convolution).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
                "irfft_recomb"),
     "bluestein": ("bluestein_fwd", "bluestein_inv", "bluestein_elem", "cols_pass",
                   "rows_natural", "cols_natural", "rfft_recomb", "irfft_recomb"),
+    "conv": ("dft_matmul", "fft4step", "cols_pass", "rfft_recomb", "irfft_recomb", "bluestein_fwd",
+             "bluestein_inv"),
 }
 
 
@@ -802,6 +819,341 @@ def calls_phase(gen, cases, tag: str) -> None:
         empty_call(label, fwd, inv, (0,) + (shape if fspec.axis == -2 else shape[1:]))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the convolution layer and the spectral mixer
+# ---------------------------------------------------------------------------
+
+#: The kernels' ``__global__`` names, as a profiler trace shows them.
+OUR_KERNEL = re.compile(
+    r"\b(" + "|".join(sorted({f.split("<")[0] for fs in FUNCTIONS.values() for f in fs})) + r")\b"
+)
+
+
+def device_kind(name: str) -> str:
+    """A short name for a device activity of torch's: the functor of an
+    elementwise kernel (Mul, Add, Sub, Fill, …), "copy" (copies, pads'
+    bodies, cat, contiguous), "gemm", else the kernel's own name without
+    its namespace and template arguments."""
+    functor = re.findall(r"(\w+?)Functor(\w*)", name)
+    if functor:
+        head, tail = functor[-1]
+        # Add and Sub run as CUDAFunctor_add / CUDAFunctorOnSelf_add.
+        return tail.split("_")[-1].capitalize() if head.endswith("CUDA") else head.split("_")[-1]
+    for kind in ("copy", "gemm"):
+        if kind in name.lower():
+            return kind
+    head = re.sub(r"^void\s+", "", name.replace("(anonymous namespace)::", ""))
+    return head.split("<")[0].split("(")[0].split("::")[-1].strip() or name[:40]
+
+
+def device_split(fn):
+    """(kernel ms, other device ms, {short name: ms} of the other) of one
+    call of ``fn`` from a ``torch.profiler`` trace: the port's kernels by
+    name, and every other device activity (torch's elementwise kernels,
+    copies, fills, GEMMs); None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ours, others = 0.0, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = e.time_range.elapsed_us()
+                if OUR_KERNEL.search(e.name):
+                    ours += us
+                else:
+                    key = device_kind(e.name)
+                    others[key] = others.get(key, 0.0) + us / 1e3
+    except Exception as err:  # the split is a reading, not a gate: report it unmeasured
+        print(f"conv: profiler unavailable: {err!r}", flush=True)
+        return None
+    other = sum(others.values())
+    top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:8])
+    return (ours / 1e3, other, top) if ours or other else None
+
+
+def conv_ref(x: np.ndarray, h: np.ndarray, length: int) -> np.ndarray:
+    """The first ``length`` samples of the linear convolution of each row of
+    ``x`` with ``h`` (broadcast over rows), by ``np.fft`` in complex128."""
+    x, h = np.asarray(x, np.float64), np.asarray(h, np.float64)
+    n = next_pow2(x.shape[-1] + h.shape[-1] - 1)
+    return np.fft.irfft(np.fft.rfft(x, n) * np.fft.rfft(h, n), n)[..., :length]
+
+
+def rows_err(got, x, h, rows, length: int) -> float:
+    """max|Δ| / max|ref| of ``got``'s sample ``rows`` against :func:`conv_ref`."""
+    ref = conv_ref(x[rows].cpu().numpy(), h.cpu().numpy(), length)
+    return float(np.abs(got[rows].double().cpu().numpy() - ref).max() / np.abs(ref).max())
+
+
+def lib_conv(x, h, n: int, length: int):
+    """The same causal convolution along the last axis through
+    ``torch.fft.rfft``/``irfft`` (the library yardstick only)."""
+    y = torch.fft.irfft(torch.fft.rfft(x, n=n) * torch.fft.rfft(h, n=n), n=n)
+    return y[..., :length]
+
+
+def plans_launches(uses) -> dict:
+    """Kernel → launches of the plans in ``uses`` ((spec, calls) pairs), each
+    call ``len(plan.passes)`` launches: what a conv over them must run."""
+    expect = {}
+    for spec, calls in uses:
+        for k, c in launches_per_call(F.plan(spec), calls).items():
+            expect[k] = expect.get(k, 0) + c
+    return expect
+
+
+def rplans(n: int, n2=None, calls: tuple = (2, 1)) -> list:
+    """The (spec, calls) pairs of a conv at length n: the real forward plan
+    ``calls[0]`` times (signal and filter), the inverse ``calls[1]``."""
+    fwd, inv = ("rfft2", "irfft2") if n2 else ("rfft", "irfft")
+    return [(F.FFTSpec(n, kind=fwd, n2=n2), calls[0]), (F.FFTSpec(n, kind=inv, n2=n2), calls[1])]
+
+
+def held_call(label: str, fn, expect: dict):
+    """One call held to exactly ``expect``'s launches; returns its output and
+    the device bytes it held beyond what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = kernels.counts()
+    y = fn()
+    torch.cuda.synchronize()
+    check_launches(label, before, kernels.counts(), expect)
+    return y, torch.cuda.max_memory_allocated() - base
+
+
+def conv_case(label: str, run, x, expect: dict, err_of, lib, empty, empty_shape, **extra):
+    """Phase 7's rule for one call: ``run(x)`` held to ``expect`` launches,
+    ``err_of(y)`` (max|Δ| / max|ref| against the float64 reference at sample
+    rows) within FFT_TOL, every timed call launching the same, the
+    ``torch.fft`` yardstick ``lib(x)`` timed beside it, and the batch of 0;
+    returns the output."""
+    reps, warmup = 3, 1
+    at_start = kernels.counts()
+    y, peak = held_call(label, lambda: run(x), expect)
+    check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+    err = err_of(y)
+    check(err <= FFT_TOL, f"{label}: vs the float64 reference {err:.3e} > {FFT_TOL}·max|ref|")
+    ms = time_ms(lambda: run(x), reps=reps, warmup=warmup)
+    check_launches(f"{label} all calls", at_start, kernels.counts(),
+                   {k: v * (1 + warmup + reps) for k, v in expect.items()})
+    split = device_split(lambda: run(x))
+    lib_ms = time_ms(lambda: lib(x), reps=reps, warmup=warmup)
+    print("conv " + json.dumps({
+        "call": label, "launches": sum(expect.values()), "kernels": expect, "rel_err": err,
+        "ms": ms, "library_ms": lib_ms, "kernel_ms": split[0] if split else None,
+        "other_device_ms": split[1] if split else None, "other_by_kind": split[2] if split else None,
+        "outside_kernels": (ms - split[0]) / ms if split else None,
+        "input_bytes": x.numel() * x.element_size(), "call_peak_bytes": peak, **extra,
+    }), flush=True)
+    before = kernels.counts()
+    z = run(empty)
+    torch.cuda.synchronize()
+    check_launches(f"{label} empty batch", before, kernels.counts(), {})
+    check(tuple(z.shape) == empty_shape, f"{label} empty batch: {tuple(z.shape)}, expected {empty_shape}")
+    return y
+
+
+def conv_phase(gen) -> None:
+    """Calls (a)–(f): the conv layer at full size."""
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    # (a) Spectral prefill at h2o-danube-1.8b's width: (1, 32768, 2560) along
+    # the sequence axis, per-channel 1024-tap filters; n = 65536.
+    S, D, LF = 32768, 2560, 1024
+    u, filt = randn(1, S, D), randn(D, LF, scale=LF**-0.5)
+    n = next_pow2(S + LF - 1)
+    ch = [0, D // 2, D - 1]
+    conv_case(
+        "(a) fft_conv (1, 32768, 2560) axis=1 per-channel (2560, 1024)",
+        lambda v: conv.fft_conv(v, filt, axis=1), u, plans_launches(rplans(n)),
+        lambda y: rows_err(y[0].T, u[0].T, filt[ch], ch, S),
+        lambda v: torch.fft.irfft(torch.fft.rfft(v, n=n, dim=1) * torch.fft.rfft(filt.T, n=n, dim=0),
+                                  n=n, dim=1)[:, :S],
+        u[:0], (0, S, D), n=n,
+    )
+    del u, filt
+    torch.cuda.empty_cache()
+
+    # (b) A long signal auto-routed to overlap-save: (32, 2^20) ⊛ 4097 taps,
+    # block 65536, step 61440, 18 blocks; nothing planned past FUSED_MAX.
+    L, LH = 1 << 20, 4097
+    x, h = randn(32, L), randn(LH, scale=LH**-0.5)
+    block = overlap.pick_block(LH)
+    n_lib = next_pow2(L + LH - 1)
+    logged = set(F.plan_log())
+    yb = conv_case(
+        "(b) fft_conv (32, 1048576) * 4097 -> overlap-save", lambda v: conv.fft_conv(v, h), x,
+        plans_launches(rplans(block)), lambda y: rows_err(y, x, h, [0, 31], L),
+        lambda v: lib_conv(v, h, n_lib, L), x[:0], (0, L),
+        block=block, step=block - LH + 1, blocks=-(-L // (block - LH + 1)),
+    )
+    past = [s for s, name in F.plan_log()
+            if (s, name) not in logged and max(s.n, s.n2 or 0) > plan_lib.FUSED_MAX]
+    check(not past, f"(b): overlap-save planned past FUSED_MAX: {past}")
+
+    # (c) The same signal as SAR strip ingest: 16 chunks of 65536 through
+    # StreamingConv, the filter's spectrum made once at construction.
+    sc, _ = held_call("(c) StreamingConv construction", lambda: overlap.StreamingConv(h),
+                      plans_launches([(F.FFTSpec(block, kind="rfft"), 1)]))
+    chunk = 65536
+
+    def ingest(v):
+        state, outs = sc.init_state(v.shape[:-1]), []
+        for i in range(v.shape[-1] // chunk):
+            y, state = sc(v[..., i * chunk:(i + 1) * chunk], state)
+            outs.append(y)
+        return torch.cat(outs, dim=-1)
+
+    yc = conv_case(
+        "(c) StreamingConv (32, 1048576) * 4097, 16 chunks of 65536", ingest, x,
+        plans_launches(rplans(block, calls=(L // chunk, L // chunk))),
+        lambda y: rows_err(y, x, h, [0, 31], L), lambda v: lib_conv(v, h, n_lib, L), x[:0], (0, L),
+        chunks=L // chunk,
+    )
+    d = (yc - yb).abs().max().item() / yb.abs().max().item()
+    check(d <= FFT_TOL, f"(c): the chunks' concatenation is off (b) by {d:.3e}·max|(b)|")
+    del x, yb, yc, sc
+    torch.cuda.empty_cache()
+
+    # (d) SAR range compression of a 4096 x 8192 scene by a 1025-tap chirp,
+    # per row: fft_conv2d "same", rfft2 at (4096, 16384).
+    H, W = 4096, 8192
+    img, chirp = randn(H, W), randn(1, 1025, scale=1025**-0.5)
+    s2 = (next_pow2(H), next_pow2(W + 1024))
+    conv_case(
+        "(d) fft_conv2d (4096, 8192) * (1, 1025) same", lambda v: conv.fft_conv2d(v, chirp), img,
+        plans_launches(rplans(s2[1], n2=s2[0])),
+        lambda y: rows_err(y, img, chirp[0], [0, H // 2, H - 1], W),
+        lambda v: torch.fft.irfft2(torch.fft.rfft2(v, s=s2) * torch.fft.rfft2(chirp, s=s2), s=s2)[..., :H, :W],
+        img[None][:0], (0, H, W), n=s2[1], n2=s2[0],
+    )
+    del img
+    torch.cuda.empty_cache()
+
+    # (e) Complex batch packing: (1024, 16384) ⊛ 1025 taps, n = 32768.
+    x, h = randn(1024, 16384), randn(1025, scale=1025**-0.5)
+    n = next_pow2(16384 + 1024)
+    conv_case(
+        "(e) fft_conv_packed (1024, 16384) * 1025", lambda v: conv.fft_conv_packed(v, h), x,
+        plans_launches([(F.FFTSpec(n), 1), (F.FFTSpec(n, kind="ifft"), 1), (F.FFTSpec(n, kind="rfft"), 1)]),
+        lambda y: rows_err(y, x, h, [0, 1, 1023], 16384), lambda v: lib_conv(v, h, n, 16384),
+        x[:0], (0, 16384), n=n,
+    )
+
+    # (f) The exact length at the sensor line 3000 ⊛ 1001: n = 4000, a
+    # Bluestein child of 2000 and the recombination.
+    x, h = randn(4096, 3000), randn(1001, scale=1001**-0.5)
+    conv_case(
+        "(f) fft_conv (4096, 3000) * 1001 pad=exact", lambda v: conv.fft_conv(v, h, pad="exact"), x,
+        plans_launches(rplans(4000)), lambda y: rows_err(y, x, h, [0, 4095], 3000),
+        lambda v: lib_conv(v, h, 4000, 3000), x[:0], (0, 3000), n=4000,
+    )
+    del x
+    torch.cuda.empty_cache()
+    mixer_case(gen)
+
+
+def mixer_ref(m, x, ts) -> torch.Tensor:
+    """The mixer's forward in float64 at positions ``ts`` of batch row 0 of
+    ``x`` (B, S, D): the direct causal sum over the filter's taps."""
+    x64 = x[0].double()
+    u = x64 @ m.w_in.double()
+    y = torch.stack([
+        (u[t - k + 1:t + 1].flip(0) * m.filt[:, :k].double().T).sum(0)
+        for t in ts for k in [min(t + 1, m.filter_len)]
+    ])
+    g = torch.nn.functional.silu(x64[ts] @ m.w_gate.double())
+    return (y * g) @ m.w_out.double()
+
+
+def mixer_case(gen) -> None:
+    """(g): SpectralMixer at h2o-danube-1.8b's width, prefill of 4096 then
+    512 stream-decode tokens (C = 256, flush block 2048), held against a
+    float64 forward, the one-shot forward, the ring decode and the plan log."""
+    B, S, T, D, LF = 2, 4096, 512, 2560, 1024
+    m = SpectralMixer(D, LF, device="cuda", generator=torch.Generator().manual_seed(0))
+    c, block = m.grain
+    x = 0.5 * torch.randn(B, S + T, D, device="cuda", generator=gen)
+    n = next_pow2(S + LF - 1)
+    flush = plans_launches(rplans(block))
+    prefill = plans_launches(rplans(n) + rplans(block))
+    label = "(g) SpectralMixer (2, 4096, 2560) Lf=1024"
+    with torch.no_grad():
+        (out, cache), peak = held_call(f"{label} prefill", lambda: m(x[:, :S], return_cache=True), prefill)
+        ts = [0, 1, LF - 1, S // 2, S - 1]
+        ref = mixer_ref(m, x, ts)
+        err = ((out[0, ts].double() - ref).abs().max() / ref.abs().max()).item()
+        check(err <= FFT_TOL, f"{label}: prefill vs float64 {err:.3e}")
+        F.clear_plan_log()
+        outs = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = kernels.counts()
+        start.record()
+        for t in range(S, S + T):
+            y, cache = m.stream_decode(x[:, t:t + 1], cache)
+            outs.append(y)
+        end.record()
+        end.synchronize()
+        stream_ms = start.elapsed_time(end) / T
+        check_launches(f"{label} stream decode", before, kernels.counts(),
+                       {k: v * (T // c) for k, v in flush.items()})
+        check(F.plan_log() == (), f"{label}: the warm decode planned {F.plan_log()}")
+        streamed = torch.cat(outs, dim=1)
+        full = m(x)[:, S:]
+        err_full = ((streamed - full).abs().max() / full.abs().max()).item()
+        check(err_full <= FFT_TOL, f"{label}: stream decode vs one-shot forward {err_full:.3e}")
+
+        ring = SpectralMixer(D, LF, decode_mode="ring", device="cuda")
+        ring.load_state_dict(m.state_dict())
+        _, rc = ring(x[:, :S], return_cache=True)
+        ring_outs = []
+        start.record()
+        for t in range(S, S + 64):
+            y, rc = ring.decode(x[:, t:t + 1], rc)
+            ring_outs.append(y)
+        end.record()
+        end.synchronize()
+        ring_ms = start.elapsed_time(end) / 64
+        ringed = torch.cat(ring_outs, dim=1)
+        err_ring = ((ringed - streamed[:, :64]).abs().max() / ringed.abs().max()).item()
+        check(err_ring <= FFT_TOL, f"{label}: ring vs stream decode {err_ring:.3e}")
+
+        tail = cache.hist[..., c:]
+        flush_ms = time_ms(lambda: m._lookahead(tail))
+        flush_split = device_split(lambda: m._lookahead(tail))
+        prefill_ms = time_ms(lambda: m(x[:, :S], return_cache=True))
+        split = device_split(lambda: m(x[:, :S], return_cache=True))
+        u = (x[:, :S] @ m.w_in).contiguous()
+        conv_ms = time_ms(lambda: conv.fft_conv(u, m.filt, axis=1))
+        lib_ms = time_ms(lambda: torch.fft.irfft(
+            torch.fft.rfft(u, n=n, dim=1) * torch.fft.rfft(m.filt.T, n=n, dim=0), n=n, dim=1)[:, :S])
+        print("conv " + json.dumps({
+            "call": label, "launches": sum(prefill.values()) + sum(flush.values()) * (T // c),
+            "prefill_launches": prefill, "flush_launches": flush, "flushes": T // c,
+            "chunk": c, "block": block, "rel_err": err, "stream_vs_forward": err_full,
+            "ring_vs_stream": err_ring, "prefill_ms": prefill_ms,
+            "kernel_ms": split[0] if split else None, "other_device_ms": split[1] if split else None,
+            "other_by_kind": split[2] if split else None,
+            "outside_kernels": (prefill_ms - split[0]) / prefill_ms if split else None,
+            "flush_split": flush_split,
+            "conv_ms": conv_ms, "library_ms": lib_ms, "stream_ms_per_token": stream_ms,
+            "ring_ms_per_token": ring_ms, "flush_ms": flush_ms,
+            "input_bytes": x[:, :S].numel() * 4, "call_peak_bytes": peak,
+        }), flush=True)
+        before = kernels.counts()
+        z, empty_cache = m(x[:0, :S], return_cache=True)
+        z2, _ = m.stream_decode(x[:0, :1], empty_cache)
+        torch.cuda.synchronize()
+        check_launches(f"{label} empty batch", before, kernels.counts(), {})
+        check(tuple(z.shape) == (0, S, D) and tuple(z2.shape) == (0, 1, D), f"{label}: empty batch shapes")
+
+
 def path_launches(name: str, phase, gen) -> dict:
     """Drive one path with the counts at 0; every kernel of the path must
     launch in it and no plain version may run."""
@@ -847,7 +1199,8 @@ def main() -> int:
         real2d = path_launches("real2d", lambda g: calls_phase(g, REAL_2D, "real2d"), gen)
         any_length = path_launches(
             "bluestein", lambda g: calls_phase(g, ANY_LENGTH, "any_length"), gen)
-        launches = {name: main[name] + real2d[name] + any_length[name] for name in SOURCES}
+        convs = path_launches("conv", conv_phase, gen)
+        launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -10,10 +10,14 @@ to find:
                    the reference's)
   core.fft_torch   plain split-plane torch FFT math (the CPU route)
   core.fft         FFTSpec / plan() / PlannedFFT over a backend registry
+  core.conv        fft_conv, fft_conv2d, fft_conv_packed on the planned FFTs
+  core.overlap     overlap-save convolution and StreamingConv
   kernels.build    nvcc → shared library → ctypes, at first use
   kernels.*        the hand-written sm_90a CUDA kernels, each beside its
                    plain PyTorch version
   kernels.ops      the pass-program executor with device-resident LUTs
+  models.layers    the spectral mixer (an nn.Module over core.conv)
+  utils.params     the reference's parameter values into a module
 
 It imports torch and numpy only — never jax, never ``repro``.
 """

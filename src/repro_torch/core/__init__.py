@@ -6,14 +6,18 @@
   plan        the HBM-round-trip pass program (pure metadata)
   fft_torch   plain split-plane torch FFT math (CPU route, kernel oracle)
   fft         FFTSpec → plan() → PlannedFFT over a backend registry
+  conv        FFT convolution (1-D, 2-D, packed) on the planned FFTs
+  overlap     overlap-save convolution and StreamingConv
 """
 
-from repro_torch.core import faults, fft, fft_torch, limits, plan, twiddle
+from repro_torch.core import conv, faults, fft, fft_torch, limits, overlap, plan, twiddle
 from repro_torch.core.faults import KernelError, PlanError, ReproError
 from repro_torch.core.fft import FFTSpec, PlannedFFT
 from repro_torch.core.plan import FFTPlan, plan_fft
 
 __all__ = [
+    "conv",
+    "overlap",
     "faults",
     "fft",
     "fft_torch",

@@ -42,12 +42,17 @@ Complex kinds take complex tensors or split ``(real, imag)`` float32 planes
 and return whichever form was supplied; ``rfft``/``rfft2`` take a real
 signal and return planes, ``irfft``/``irfft2`` take planes (or a complex
 tensor) and return the real signal, as the reference does.  Transforms
-past 2³² points (or Bluestein pads past 2³²), ``check=`` and tuning raise
+past 2³² points (or Bluestein pads past 2³²) and tuning raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+
+``planned(x, check="nan" | "parseval")`` arms the reference's opt-in
+numerics guards over the result, and :func:`plan_log` records every plan
+created, as the reference's does.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Callable, Optional, Tuple, Union
@@ -56,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import plan as plan_lib
-from repro_torch.core.faults import PlanError
+from repro_torch.core.faults import NumericsError, PlanError
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 ArrayOrPlanes = Union[torch.Tensor, Planes]
@@ -77,6 +82,9 @@ __all__ = [
     "rfft2",
     "irfft2",
     "MAX_N",
+    "PARSEVAL_RTOL",
+    "plan_log",
+    "clear_plan_log",
 ]
 
 KINDS = ("fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2")
@@ -87,6 +95,11 @@ _2D_KINDS = ("fft2", "ifft2", "rfft2", "irfft2")
 #: Largest complex transform a two-pass program covers; longer pow2 lengths
 #: need the digit-reversal reorder pass.
 MAX_N = plan_lib.FUSED_MAX**2
+
+#: Relative tolerance of the ``check="parseval"`` energy guard.
+PARSEVAL_RTOL = 1e-2
+
+_CHECKS = ("nan", "parseval")
 
 
 def _is_pow2(n: int) -> bool:
@@ -465,22 +478,70 @@ class PlannedFFT:
         return self._interleave(zr, zi)
 
     def __call__(self, x, check: Optional[str] = None):
-        if check is not None:
-            raise NotImplementedError(
-                f"check={check!r}: the numerics guards are not ported yet: ROADMAP A4"
-            )
+        """Execute the planned transform.
+
+        ``check`` arms an opt-in numerics guard over the result, read on the
+        host after the call: ``"nan"`` raises :class:`NumericsError` on a
+        non-finite output value; ``"parseval"`` checks energy conservation
+        (complex kinds) at :data:`PARSEVAL_RTOL`."""
         kind = self.spec.kind
+        if check is not None:
+            if check not in _CHECKS:
+                raise PlanError(
+                    f"unknown numerics check {check!r}; expected 'nan' or 'parseval'",
+                    spec=self.spec, backend=self.backend.name,
+                )
+            if check == "parseval" and kind not in _COMPLEX_KINDS + ("fft2", "ifft2"):
+                raise PlanError(
+                    f'check="parseval" covers the complex kinds, not {kind!r}',
+                    spec=self.spec, backend=self.backend.name,
+                )
         if kind == "rfft":
-            return self._rfft(x)
-        if kind == "irfft":
-            return self._irfft(x)
-        if kind == "rfft2":
-            return self._rfft2(x)
-        if kind == "irfft2":
-            return self._irfft2(x)
-        xr, xi, was_c = _split(x, self.device)
-        yr, yi = self.apply_planes(xr, xi)
-        return _join(yr, yi, was_c)
+            out = self._rfft(x)
+        elif kind == "irfft":
+            out = self._irfft(x)
+        elif kind == "rfft2":
+            out = self._rfft2(x)
+        elif kind == "irfft2":
+            out = self._irfft2(x)
+        else:
+            xr, xi, was_c = _split(x, self.device)
+            out = _join(*self.apply_planes(xr, xi), was_c)
+        if check is not None:
+            self._run_check(x, out, check)
+        return out
+
+    def _run_check(self, x, out, check: str) -> None:
+        """The numerics guard ``check`` over ``out`` (and ``x`` for Parseval)."""
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if check == "nan":
+            if not all(bool(torch.isfinite(a).all()) for a in outs):
+                raise NumericsError(
+                    "non-finite values in planned FFT output",
+                    spec=self.spec, backend=self.backend.name, check="nan",
+                )
+            return
+        ins = list(x) if isinstance(x, (tuple, list)) else [x]
+        e_in, e_out = _energy(ins), _energy(outs)
+        scale = self.spec.n * (self.spec.n2 or 1)
+        expected = e_in * scale if self.spec.kind in ("fft", "fft2") else e_in / scale
+        if not np.isclose(e_out, expected, rtol=PARSEVAL_RTOL, atol=1e-30):
+            raise NumericsError(
+                f"Parseval energy mismatch: output {e_out:.6g}, expected "
+                f"{expected:.6g} (rtol {PARSEVAL_RTOL})",
+                spec=self.spec, backend=self.backend.name, check="parseval",
+            )
+
+
+def _energy(arrays) -> float:
+    """Σ|z|² over tensors or host arrays, real or complex, in float64: split
+    planes sum to the same energy as the complex array they hold."""
+    total = 0.0
+    for a in arrays:
+        t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+        t = t.to(torch.complex128) if t.is_complex() else t.to(torch.float64)
+        total += float((t.abs() ** 2).sum())
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -531,14 +592,43 @@ def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None) -> Pla
     if isinstance(spec, int):
         spec = FFTSpec(n=spec)
     if tune not in (None, "off"):
-        raise NotImplementedError(f"tune={tune!r}: the autotuner is not ported yet: ROADMAP A8")
+        raise NotImplementedError(f"tune={tune!r}: the autotuner is not ported yet: ROADMAP A3")
     _check_slice(spec)
     dev = _resolve_device(device)
     return _plan_cached(spec, str(dev))
 
 
+#: Ring-buffer capacity of the plan log.
+PLAN_LOG_MAX = 1024
+
+#: Every (FFTSpec, backend name) :func:`_plan_cached` created, in creation
+#: order, the last :data:`PLAN_LOG_MAX` of them.  A cache hit does not log,
+#: so the entries after a snapshot are exactly the plans an operation
+#: forced: how the tests show that overlap-save never plans past
+#: ``FUSED_MAX`` and that a warm decode plans nothing.
+_PLAN_LOG: collections.deque = collections.deque(maxlen=PLAN_LOG_MAX)
+
+
+def plan_log() -> tuple:
+    """Snapshot of the most recent (spec, backend name) pairs planned in
+    this process (oldest first)."""
+    return tuple(_PLAN_LOG)
+
+
+def clear_plan_log() -> None:
+    """Empty the plan log (not the plan cache: existing handles stay
+    interned)."""
+    _PLAN_LOG.clear()
+
+
 @functools.lru_cache(maxsize=256)
 def _plan_cached(spec: FFTSpec, device: str) -> PlannedFFT:
+    planned = _build_plan(spec, device)
+    _PLAN_LOG.append((spec, planned.backend.name))
+    return planned
+
+
+def _build_plan(spec: FFTSpec, device: str) -> PlannedFFT:
     from repro_torch.kernels import ops  # lazy: ops imports the kernels
 
     dev = torch.device(device)

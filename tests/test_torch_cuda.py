@@ -343,3 +343,77 @@ def test_register_guard(dev):
         if name.startswith(("cols_radix", "cols_slab", "rows_radix", "rows_slab", "fft4step",
                             "bluestein_fwd", "bluestein_inv")):
             assert (row["registers"], row["local_bytes"]) == build.RECORDED_ATTRS[name]
+
+
+# ---------------------------------------------------------------------------
+# the convolution layer on the card, against the same call on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _conv_inputs(xs, hs, seed=5):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal(xs).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(hs).astype(np.float32)))
+
+
+def _card_vs_cpu(fn):
+    """``fn(device)`` on the card (kernels only, no plain call) and on the
+    CPU, within 1e-3·max|cpu|; returns the card's launches."""
+    want = fn("cpu")
+    got, launched, plain = _launched(lambda: fn("cuda"))
+    assert plain == 0 and launched > 0
+    assert got.device.type == "cuda"
+    assert _rel(got.cpu().double().numpy(), want.double().numpy()) <= 1e-3
+    return launched
+
+
+@pytest.mark.parametrize("xs,hs,kw", [
+    ((2, 4, 3000), (4, 129), {}),
+    ((2, 300, 16), (16, 33), {"axis": 1}),
+    ((3, 3000), (1001,), {"pad": "exact"}),
+    ((1, 1 << 16), (129,), {}),  # auto-routed to overlap-save
+])
+def test_fft_conv_on_the_card(dev, xs, hs, kw):
+    from repro_torch.core import conv
+
+    x, h = _conv_inputs(xs, hs)
+    _card_vs_cpu(lambda d: conv.fft_conv(x.to(d), h.to(d), **kw))
+
+
+def test_fft_conv_os_and_streaming_on_the_card(dev):
+    from repro_torch.core import overlap
+
+    x, h = _conv_inputs((2, 20000), (257,))
+    n_os = _card_vs_cpu(lambda d: overlap.fft_conv_os(x.to(d), h.to(d), block=4096))
+    spec = [F.plan(F.FFTSpec(4096, kind=k)) for k in ("rfft", "irfft")]
+    assert n_os == 2 * len(spec[0].passes) + len(spec[1].passes)
+
+    def stream(d):
+        sc = overlap.StreamingConv(h.to(d), block=4096)
+        state, outs, pos = sc.init_state((2,)), [], 0
+        for c in (5000, 17, 9000, 5983):
+            y, state = sc(x[:, pos:pos + c].to(d), state)
+            outs.append(y)
+            pos += c
+        return torch.cat(outs, dim=-1)
+
+    _card_vs_cpu(stream)
+
+
+def test_spectral_mixer_stream_decode_on_the_card(dev):
+    from repro_torch.models.layers.spectral import SpectralMixer
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2, 300, 64))).astype(np.float32))
+
+    def run(d):
+        m = SpectralMixer(64, 128, device=d, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            _, cache = m(x[:, :200].to(d), return_cache=True)
+            outs = []
+            for t in range(200, 300):  # 100 tokens, C = 32: three flushes
+                y, cache = m.stream_decode(x[:, t:t + 1].to(d), cache)
+                outs.append(y)
+        return torch.cat(outs, dim=1)
+
+    _card_vs_cpu(run)

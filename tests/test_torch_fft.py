@@ -97,9 +97,11 @@ def test_unported_specs_raise(spec, item):
 
 def test_numerics_guards_and_tuning_raise():
     planned = F.plan(F.FFTSpec(16, kind="rfft"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        planned(torch.zeros(2, 16), check="nan")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(faults.PlanError, match="check"):
+        planned(torch.zeros(2, 16), check="bogus")
+    with pytest.raises(faults.PlanError, match="complex kinds"):
+        planned(torch.zeros(2, 16), check="parseval")
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         F.plan(F.FFTSpec(16), device="cpu", tune="measure")
     assert F.plan(F.FFTSpec(16), device="cpu", tune="off") is F.plan(F.FFTSpec(16), device="cpu")
 
@@ -224,3 +226,43 @@ def test_empty_batch(spec):
     assert y.dtype == (torch.float32 if spec.kind.startswith("irfft") else torch.complex64)
     assert sum(v for k, v in counts.items() if k.endswith("_plain")) == len(planned.passes)
     assert sum(v for k, v in counts.items() if not k.endswith("_plain")) == 0
+
+
+# ---------------------------------------------------------------------------
+# numerics guards (the reference's tests/test_faults.py, on the CPU route)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["fft", "rfft", "fft2"])
+def test_check_nan_guard(kind):
+    spec = F.FFTSpec(64, kind=kind, n2=8 if kind == "fft2" else None)
+    planned = F.plan(spec, device="cpu")
+    shape = (1, 8, 64) if kind == "fft2" else (1, 64)
+    good = torch.ones(shape, dtype=torch.float32 if kind == "rfft" else torch.complex64)
+    planned(good, check="nan")  # clean input passes
+    bad = good.clone()
+    bad[0, 3] = float("nan")
+    with pytest.raises(faults.NumericsError):
+        planned(bad, check="nan")
+
+
+@pytest.mark.parametrize("kind,n", [("fft", 128), ("ifft", 128), ("fft", 100)])
+def test_check_parseval_guard(kind, n):
+    planned = F.plan(F.FFTSpec(n, kind=kind), device="cpu")
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)) + 0j
+    planned(x, check="parseval")  # a correct transform conserves energy
+    planned((x.real.contiguous(), x.imag.contiguous()), check="parseval")  # planes too
+    with pytest.raises(faults.PlanError, match="check"):
+        planned(x, check="bogus")
+    # A corrupted result trips the guard.
+    with pytest.raises(faults.NumericsError, match="Parseval"):
+        planned._run_check(x, 1.1 * planned(x), "parseval")
+
+
+def test_check_parseval_matches_reference():
+    x = np.random.default_rng(5).standard_normal((2, 8, 16)).astype(np.complex64)
+    for kind in ("fft2", "ifft2"):
+        spec = F.FFTSpec(16, kind=kind, n2=8)
+        F.plan(spec, device="cpu")(torch.from_numpy(x), check="parseval")
+        ref_fft.plan(ref_fft.FFTSpec(16, kind=kind, n2=8), backend="xla")(x, check="parseval")

@@ -15,6 +15,8 @@ sys.path[:0] = [{repo!r}, {src!r}]
 import chip_smoke
 import repro_torch
 import repro_torch.core.fft, repro_torch.kernels.ops, repro_torch.kernels.build
+import repro_torch.core.conv, repro_torch.core.overlap
+import repro_torch.models.layers.spectral, repro_torch.utils.params
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")
