@@ -7,8 +7,8 @@ package), in phases, and fails on the first check that does not hold:
 
 1. device — the card's name and power limit, and the build of every kernel
    from ``src/repro_torch/csrc`` (its wall time);
-2. kernels — each of the ten CUDA kernels at the shapes the main paths
-   give it, against its plain PyTorch version on the same inputs
+2. kernels — each of the ten CUDA kernels at the shapes phases 3–6 give
+   it (phase 7's are recorded as it runs and held after it), against its plain PyTorch version on the same inputs
    (max|Δ| ≤ 1e-4·max|plain|), with its time, the plain version's, its bound
    (the larger of the bytes the function must move over HBM bandwidth and
    the flops it needs over the FP32 peak: 5·f·log2 f per length-f FFT and 6
@@ -38,14 +38,18 @@ package), in phases, and fails on the first check that does not hold:
 7. convolution — ``fft_conv`` (one shot at h2o-danube-1.8b's width,
    auto-routed to overlap-save, ``pad="exact"``), ``StreamingConv`` strip
    ingest, ``fft_conv2d`` SAR range compression, ``fft_conv_packed``, and
-   ``SpectralMixer`` prefill plus 512 stream-decode tokens: each held against
-   a float64 reference (``np.fft`` in complex128 at sample rows, the direct
-   sum for the mixer) at 1e-3·max|ref|, to exactly Σ ``len(plan.passes)``
-   launches over the plans it runs, timed beside the same convolution
-   through ``torch.fft.rfft``/``irfft``, with its peak device memory and
-   the device time of its kernels and of everything else
-   (``torch.profiler``); the mixer's stream decode against its one-shot
-   forward and the ring decode, planning nothing new (``plan_log``).
+   ``SpectralMixer`` prefill plus 512 stream-decode tokens: every output
+   held against the same convolution (the mixer: the same forward) through
+   ``torch.fft`` in float64 at 1e-3·max|ref|, and sample rows against
+   ``np.fft`` in complex128 (the mixer: the direct sum) as a second witness,
+   to exactly Σ ``len(plan.passes)`` launches over the plans it runs, timed
+   beside the same convolution through ``torch.fft.rfft``/``irfft`` in
+   float32, with its peak device memory and the device time of its kernels
+   and of everything else by the profiler's names (``torch.profiler``); the
+   mixer's stream decode also against its one-shot forward and the ring
+   decode, planning nothing new (``plan_log``).  Then every distinct kernel
+   call the phase made (kernel, shape, LUTs, keywords; recorded around the
+   wrappers) is held against its plain version as phase 2 holds its rows.
 
 Phases 3, 5, 6 and 7 each set the launch counts to 0 before they start and read
 them when they end; every kernel of a path must have launched in it.  Each
@@ -59,6 +63,8 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import math
 import os
@@ -829,47 +835,26 @@ OUR_KERNEL = re.compile(
 )
 
 
-def device_kind(name: str) -> str:
-    """A short name for a device activity of torch's: the functor of an
-    elementwise kernel (Mul, Add, Sub, Fill, …), "copy" (copies, pads'
-    bodies, cat, contiguous), "gemm", else the kernel's own name without
-    its namespace and template arguments."""
-    functor = re.findall(r"(\w+?)Functor(\w*)", name)
-    if functor:
-        head, tail = functor[-1]
-        # Add and Sub run as CUDAFunctor_add / CUDAFunctorOnSelf_add.
-        return tail.split("_")[-1].capitalize() if head.endswith("CUDA") else head.split("_")[-1]
-    for kind in ("copy", "gemm"):
-        if kind in name.lower():
-            return kind
-    head = re.sub(r"^void\s+", "", name.replace("(anonymous namespace)::", ""))
-    return head.split("<")[0].split("(")[0].split("::")[-1].strip() or name[:40]
-
-
 def device_split(fn):
-    """(kernel ms, other device ms, {short name: ms} of the other) of one
-    call of ``fn`` from a ``torch.profiler`` trace: the port's kernels by
-    name, and every other device activity (torch's elementwise kernels,
-    copies, fills, GEMMs); None when the trace holds no device time."""
+    """(kernel ms, other device ms, {kernel name: ms} of the other's eight
+    largest) of one call of ``fn`` from a ``torch.profiler`` trace: the
+    port's kernels by name, every other device activity (torch's elementwise
+    kernels, copies, fills, GEMMs) by the profiler's raw name; None when the
+    trace holds no device time.  A failure of the call itself propagates."""
     from torch.profiler import ProfilerActivity, profile
 
-    try:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ours, others = 0.0, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us = e.time_range.elapsed_us()
-                if OUR_KERNEL.search(e.name):
-                    ours += us
-                else:
-                    key = device_kind(e.name)
-                    others[key] = others.get(key, 0.0) + us / 1e3
-    except Exception as err:  # the split is a reading, not a gate: report it unmeasured
-        print(f"conv: profiler unavailable: {err!r}", flush=True)
-        return None
+    ours, others = 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            if OUR_KERNEL.search(e.name):
+                ours += us
+            else:
+                others[e.name] = others.get(e.name, 0.0) + us / 1e3
     other = sum(others.values())
     top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:8])
     return (ours / 1e3, other, top) if ours or other else None
@@ -891,9 +876,15 @@ def rows_err(got, x, h, rows, length: int) -> float:
 
 def lib_conv(x, h, n: int, length: int):
     """The same causal convolution along the last axis through
-    ``torch.fft.rfft``/``irfft`` (the library yardstick only)."""
+    ``torch.fft.rfft``/``irfft``: the library yardstick in float32, and in
+    float64 the full reference every output is held against."""
     y = torch.fft.irfft(torch.fft.rfft(x, n=n) * torch.fft.rfft(h, n=n), n=n)
     return y[..., :length]
+
+
+def full_err(got, ref) -> float:
+    """max|Δ| / max|ref| over every element, ``ref`` in float64."""
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
 
 
 def plans_launches(uses) -> dict:
@@ -926,27 +917,33 @@ def held_call(label: str, fn, expect: dict):
     return y, torch.cuda.max_memory_allocated() - base
 
 
-def conv_case(label: str, run, x, expect: dict, err_of, lib, empty, empty_shape, **extra):
-    """Phase 7's rule for one call: ``run(x)`` held to ``expect`` launches,
-    ``err_of(y)`` (max|Δ| / max|ref| against the float64 reference at sample
-    rows) within FFT_TOL, every timed call launching the same, the
-    ``torch.fft`` yardstick ``lib(x)`` timed beside it, and the batch of 0;
-    returns the output."""
+def conv_case(label: str, run, x, h, expect: dict, lib, rows_err_of, empty, empty_shape, **extra):
+    """Phase 7's rule for one call: ``run(x)`` held to ``expect`` launches;
+    every output within FFT_TOL of the full float64 reference ``lib(x, h)``
+    in float64 on the card, and ``rows_err_of(y)`` (sample rows against
+    ``np.fft`` in complex128, a second witness) too; every timed call
+    launching the same; the ``torch.fft`` yardstick ``lib(x, h)`` in float32
+    timed beside it; and the batch of 0.  Returns the output."""
     reps, warmup = 3, 1
     at_start = kernels.counts()
     y, peak = held_call(label, lambda: run(x), expect)
     check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
-    err = err_of(y)
+    ref = lib(x.double(), h.double())
+    err = full_err(y, ref)
+    del ref
     check(err <= FFT_TOL, f"{label}: vs the float64 reference {err:.3e} > {FFT_TOL}·max|ref|")
+    rows = rows_err_of(y)
+    check(rows <= FFT_TOL, f"{label}: sample rows vs np.fft {rows:.3e} > {FFT_TOL}·max|ref|")
     ms = time_ms(lambda: run(x), reps=reps, warmup=warmup)
     check_launches(f"{label} all calls", at_start, kernels.counts(),
                    {k: v * (1 + warmup + reps) for k, v in expect.items()})
     split = device_split(lambda: run(x))
-    lib_ms = time_ms(lambda: lib(x), reps=reps, warmup=warmup)
+    lib_ms = time_ms(lambda: lib(x, h), reps=reps, warmup=warmup)
     print("conv " + json.dumps({
         "call": label, "launches": sum(expect.values()), "kernels": expect, "rel_err": err,
-        "ms": ms, "library_ms": lib_ms, "kernel_ms": split[0] if split else None,
-        "other_device_ms": split[1] if split else None, "other_by_kind": split[2] if split else None,
+        "rows_rel_err": rows, "ms": ms, "library_ms": lib_ms,
+        "kernel_ms": split[0] if split else None, "other_device_ms": split[1] if split else None,
+        "other_top": split[2] if split else None,
         "outside_kernels": (ms - split[0]) / ms if split else None,
         "input_bytes": x.numel() * x.element_size(), "call_peak_bytes": peak, **extra,
     }), flush=True)
@@ -971,10 +968,10 @@ def conv_phase(gen) -> None:
     ch = [0, D // 2, D - 1]
     conv_case(
         "(a) fft_conv (1, 32768, 2560) axis=1 per-channel (2560, 1024)",
-        lambda v: conv.fft_conv(v, filt, axis=1), u, plans_launches(rplans(n)),
+        lambda v: conv.fft_conv(v, filt, axis=1), u, filt, plans_launches(rplans(n)),
+        lambda v, f: torch.fft.irfft(torch.fft.rfft(v, n=n, dim=1) * torch.fft.rfft(f.T, n=n, dim=0),
+                                     n=n, dim=1)[:, :S],
         lambda y: rows_err(y[0].T, u[0].T, filt[ch], ch, S),
-        lambda v: torch.fft.irfft(torch.fft.rfft(v, n=n, dim=1) * torch.fft.rfft(filt.T, n=n, dim=0),
-                                  n=n, dim=1)[:, :S],
         u[:0], (0, S, D), n=n,
     )
     del u, filt
@@ -988,9 +985,9 @@ def conv_phase(gen) -> None:
     n_lib = next_pow2(L + LH - 1)
     logged = set(F.plan_log())
     yb = conv_case(
-        "(b) fft_conv (32, 1048576) * 4097 -> overlap-save", lambda v: conv.fft_conv(v, h), x,
-        plans_launches(rplans(block)), lambda y: rows_err(y, x, h, [0, 31], L),
-        lambda v: lib_conv(v, h, n_lib, L), x[:0], (0, L),
+        "(b) fft_conv (32, 1048576) * 4097 -> overlap-save", lambda v: conv.fft_conv(v, h), x, h,
+        plans_launches(rplans(block)), lambda v, hh: lib_conv(v, hh, n_lib, L),
+        lambda y: rows_err(y, x, h, [0, 31], L), x[:0], (0, L),
         block=block, step=block - LH + 1, blocks=-(-L // (block - LH + 1)),
     )
     past = [s for s, name in F.plan_log()
@@ -1011,10 +1008,10 @@ def conv_phase(gen) -> None:
         return torch.cat(outs, dim=-1)
 
     yc = conv_case(
-        "(c) StreamingConv (32, 1048576) * 4097, 16 chunks of 65536", ingest, x,
+        "(c) StreamingConv (32, 1048576) * 4097, 16 chunks of 65536", ingest, x, h,
         plans_launches(rplans(block, calls=(L // chunk, L // chunk))),
-        lambda y: rows_err(y, x, h, [0, 31], L), lambda v: lib_conv(v, h, n_lib, L), x[:0], (0, L),
-        chunks=L // chunk,
+        lambda v, hh: lib_conv(v, hh, n_lib, L), lambda y: rows_err(y, x, h, [0, 31], L),
+        x[:0], (0, L), chunks=L // chunk,
     )
     d = (yc - yb).abs().max().item() / yb.abs().max().item()
     check(d <= FFT_TOL, f"(c): the chunks' concatenation is off (b) by {d:.3e}·max|(b)|")
@@ -1027,10 +1024,10 @@ def conv_phase(gen) -> None:
     img, chirp = randn(H, W), randn(1, 1025, scale=1025**-0.5)
     s2 = (next_pow2(H), next_pow2(W + 1024))
     conv_case(
-        "(d) fft_conv2d (4096, 8192) * (1, 1025) same", lambda v: conv.fft_conv2d(v, chirp), img,
+        "(d) fft_conv2d (4096, 8192) * (1, 1025) same", lambda v: conv.fft_conv2d(v, chirp), img, chirp,
         plans_launches(rplans(s2[1], n2=s2[0])),
+        lambda v, c: torch.fft.irfft2(torch.fft.rfft2(v, s=s2) * torch.fft.rfft2(c, s=s2), s=s2)[..., :H, :W],
         lambda y: rows_err(y, img, chirp[0], [0, H // 2, H - 1], W),
-        lambda v: torch.fft.irfft2(torch.fft.rfft2(v, s=s2) * torch.fft.rfft2(chirp, s=s2), s=s2)[..., :H, :W],
         img[None][:0], (0, H, W), n=s2[1], n2=s2[0],
     )
     del img
@@ -1040,9 +1037,9 @@ def conv_phase(gen) -> None:
     x, h = randn(1024, 16384), randn(1025, scale=1025**-0.5)
     n = next_pow2(16384 + 1024)
     conv_case(
-        "(e) fft_conv_packed (1024, 16384) * 1025", lambda v: conv.fft_conv_packed(v, h), x,
+        "(e) fft_conv_packed (1024, 16384) * 1025", lambda v: conv.fft_conv_packed(v, h), x, h,
         plans_launches([(F.FFTSpec(n), 1), (F.FFTSpec(n, kind="ifft"), 1), (F.FFTSpec(n, kind="rfft"), 1)]),
-        lambda y: rows_err(y, x, h, [0, 1, 1023], 16384), lambda v: lib_conv(v, h, n, 16384),
+        lambda v, hh: lib_conv(v, hh, n, 16384), lambda y: rows_err(y, x, h, [0, 1, 1023], 16384),
         x[:0], (0, 16384), n=n,
     )
 
@@ -1050,9 +1047,9 @@ def conv_phase(gen) -> None:
     # Bluestein child of 2000 and the recombination.
     x, h = randn(4096, 3000), randn(1001, scale=1001**-0.5)
     conv_case(
-        "(f) fft_conv (4096, 3000) * 1001 pad=exact", lambda v: conv.fft_conv(v, h, pad="exact"), x,
-        plans_launches(rplans(4000)), lambda y: rows_err(y, x, h, [0, 4095], 3000),
-        lambda v: lib_conv(v, h, 4000, 3000), x[:0], (0, 3000), n=4000,
+        "(f) fft_conv (4096, 3000) * 1001 pad=exact", lambda v: conv.fft_conv(v, h, pad="exact"), x, h,
+        plans_launches(rplans(4000)), lambda v, hh: lib_conv(v, hh, 4000, 3000),
+        lambda y: rows_err(y, x, h, [0, 4095], 3000), x[:0], (0, 3000), n=4000,
     )
     del x
     torch.cuda.empty_cache()
@@ -1072,10 +1069,24 @@ def mixer_ref(m, x, ts) -> torch.Tensor:
     return (y * g) @ m.w_out.double()
 
 
+def mixer_full_ref(m, x) -> torch.Tensor:
+    """The mixer's forward over every position and batch row of ``x``
+    (B, L, D) in float64, its causal conv through ``torch.fft``."""
+    x64 = x.double()
+    n = next_pow2(x.shape[1] + m.filter_len - 1)
+    u = x64 @ m.w_in.double()
+    y = torch.fft.irfft(torch.fft.rfft(u, n=n, dim=1) * torch.fft.rfft(m.filt.double().T, n=n, dim=0),
+                        n=n, dim=1)[:, :x.shape[1]]
+    return (y * torch.nn.functional.silu(x64 @ m.w_gate.double())) @ m.w_out.double()
+
+
 def mixer_case(gen) -> None:
     """(g): SpectralMixer at h2o-danube-1.8b's width, prefill of 4096 then
-    512 stream-decode tokens (C = 256, flush block 2048), held against a
-    float64 forward, the one-shot forward, the ring decode and the plan log."""
+    512 stream-decode tokens (C = 256, flush block 2048): the prefill, every
+    streamed token and 64 ring-decode tokens held against the float64
+    forward over all positions and both batch rows; the streamed tokens also
+    against the one-shot forward, the ring against the stream, five prefill
+    positions against the direct sum, and the plan log."""
     B, S, T, D, LF = 2, 4096, 512, 2560, 1024
     m = SpectralMixer(D, LF, device="cuda", generator=torch.Generator().manual_seed(0))
     c, block = m.grain
@@ -1086,10 +1097,13 @@ def mixer_case(gen) -> None:
     label = "(g) SpectralMixer (2, 4096, 2560) Lf=1024"
     with torch.no_grad():
         (out, cache), peak = held_call(f"{label} prefill", lambda: m(x[:, :S], return_cache=True), prefill)
-        ts = [0, 1, LF - 1, S // 2, S - 1]
-        ref = mixer_ref(m, x, ts)
-        err = ((out[0, ts].double() - ref).abs().max() / ref.abs().max()).item()
+        ref = mixer_full_ref(m, x)
+        err = full_err(out, ref[:, :S])
         check(err <= FFT_TOL, f"{label}: prefill vs float64 {err:.3e}")
+        ts = [0, 1, LF - 1, S // 2, S - 1]
+        sums = mixer_ref(m, x, ts)
+        err_sum = full_err(out[0, ts], sums)
+        check(err_sum <= FFT_TOL, f"{label}: prefill vs the float64 direct sum {err_sum:.3e}")
         F.clear_plan_log()
         outs = []
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1105,6 +1119,8 @@ def mixer_case(gen) -> None:
                        {k: v * (T // c) for k, v in flush.items()})
         check(F.plan_log() == (), f"{label}: the warm decode planned {F.plan_log()}")
         streamed = torch.cat(outs, dim=1)
+        err_stream = full_err(streamed, ref[:, S:])
+        check(err_stream <= FFT_TOL, f"{label}: stream decode vs float64 {err_stream:.3e}")
         full = m(x)[:, S:]
         err_full = ((streamed - full).abs().max() / full.abs().max()).item()
         check(err_full <= FFT_TOL, f"{label}: stream decode vs one-shot forward {err_full:.3e}")
@@ -1121,8 +1137,11 @@ def mixer_case(gen) -> None:
         end.synchronize()
         ring_ms = start.elapsed_time(end) / 64
         ringed = torch.cat(ring_outs, dim=1)
+        err_ring64 = full_err(ringed, ref[:, S:S + 64])
+        check(err_ring64 <= FFT_TOL, f"{label}: ring decode vs float64 {err_ring64:.3e}")
         err_ring = ((ringed - streamed[:, :64]).abs().max() / ringed.abs().max()).item()
         check(err_ring <= FFT_TOL, f"{label}: ring vs stream decode {err_ring:.3e}")
+        del ref
 
         tail = cache.hist[..., c:]
         flush_ms = time_ms(lambda: m._lookahead(tail))
@@ -1136,10 +1155,11 @@ def mixer_case(gen) -> None:
         print("conv " + json.dumps({
             "call": label, "launches": sum(prefill.values()) + sum(flush.values()) * (T // c),
             "prefill_launches": prefill, "flush_launches": flush, "flushes": T // c,
-            "chunk": c, "block": block, "rel_err": err, "stream_vs_forward": err_full,
-            "ring_vs_stream": err_ring, "prefill_ms": prefill_ms,
+            "chunk": c, "block": block, "rel_err": err, "direct_sum_rel_err": err_sum,
+            "stream_rel_err": err_stream, "ring_rel_err": err_ring64,
+            "stream_vs_forward": err_full, "ring_vs_stream": err_ring, "prefill_ms": prefill_ms,
             "kernel_ms": split[0] if split else None, "other_device_ms": split[1] if split else None,
-            "other_by_kind": split[2] if split else None,
+            "other_top": split[2] if split else None,
             "outside_kernels": (prefill_ms - split[0]) / prefill_ms if split else None,
             "flush_split": flush_split,
             "conv_ms": conv_ms, "library_ms": lib_ms, "stream_ms_per_token": stream_ms,
@@ -1152,6 +1172,105 @@ def mixer_case(gen) -> None:
         torch.cuda.synchronize()
         check_launches(f"{label} empty batch", before, kernels.counts(), {})
         check(tuple(z.shape) == (0, S, D) and tuple(z2.shape) == (0, 1, D), f"{label}: empty batch shapes")
+
+
+#: The module holding each kernel's wrapper (``<name>_call``) and plain
+#: version (``<name>_plain``).
+KERNEL_MODULE = {
+    "dft_matmul": dft_matmul, "fft4step": fft4step, "cols_pass": pencil, "rows_natural": pencil,
+    "cols_natural": pencil, "rfft_recomb": pencil, "irfft_recomb": pencil,
+    "bluestein_fwd": bluestein, "bluestein_inv": bluestein, "bluestein_elem": bluestein,
+}
+
+
+def _table_ids(t):
+    """A wrapper argument after the planes, by identity: a LUT's storage."""
+    if t is None or not isinstance(t, (torch.Tensor, tuple, list)):
+        return t
+    if isinstance(t, torch.Tensor):
+        return t.data_ptr()
+    return tuple(_table_ids(u) for u in t)
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Record every distinct non-empty kernel-wrapper call made inside the
+    block: (kernel, the planes' shape, the arguments after the planes, the
+    keywords), the LUTs kept by identity.  Yields the records' dict."""
+    seen = {}
+
+    def recording(name, call):
+        def wrapper(xr, xi, *tables, **kw):
+            if xr.numel():
+                key = (name, tuple(xr.shape), _table_ids(tables), tuple(sorted(kw.items())))
+                seen.setdefault(key, (name, tuple(xr.shape), tables, kw))
+            return call(xr, xi, *tables, **kw)
+        return wrapper
+
+    saved = {name: getattr(mod, f"{name}_call") for name, mod in KERNEL_MODULE.items()}
+    for name, call in saved.items():
+        setattr(KERNEL_MODULE[name], f"{name}_call", recording(name, call))
+    try:
+        yield seen
+    finally:
+        for name, call in saved.items():
+            setattr(KERNEL_MODULE[name], f"{name}_call", call)
+
+
+def _tensors(t) -> list:
+    if isinstance(t, torch.Tensor):
+        return [t]
+    if isinstance(t, (tuple, list)):
+        return [u for v in t for u in _tensors(v)]
+    return []
+
+
+def call_flops(name: str, shape: tuple, tables: tuple, kw: dict, out_shape: tuple) -> float:
+    """fp32 flops of one wrapper call, counted as phase 2 counts them."""
+    if name in ("dft_matmul", "fft4step"):
+        return shape[0] * fft_flops(shape[1])
+    if name == "cols_pass":
+        r, f, s_ = shape
+        twiddle = tables[2] if len(tables) > 2 else kw.get("twiddle")
+        return r * s_ * fft_flops(f) + (6 * r * f * s_ if twiddle is not None else 0)
+    if name == "cols_natural":
+        b, p_, f, w = shape
+        return b * p_ * w * fft_flops(f)
+    if name == "rows_natural":
+        return shape[0] * shape[1] * fft_flops(shape[2])
+    if name in ("rfft_recomb", "irfft_recomb"):
+        return recomb_flops(math.prod(out_shape))
+    if name == "bluestein_elem":
+        return 6 * shape[0] * min(shape[1], out_shape[1])
+    return shape[0] * bluestein_flops(name.split("_")[1], kw["n"], kw["m_pad"])
+
+
+def path_kernel_rows(path: str, seen: dict, launches: dict, gen) -> None:
+    """Each distinct kernel call a path made (:func:`recorded_calls`; every
+    kernel that launched on it must have one), again on fresh planes of its
+    shape with its own LUTs and keywords, against its plain version as phase
+    2 holds it (bound: every input and LUT read once, every output written
+    once).  These launches are not the path's."""
+    recorded = {name for name, *_ in seen.values()}
+    missed = [k for k in KERNEL_MODULE if launches.get(k) and k not in recorded]
+    check(not missed, f"{path}: launches of {missed} were not recorded")
+    for i, (name, shape, tables, kw) in enumerate(seen.values()):
+        mod = KERNEL_MODULE[name]
+        call, plain = getattr(mod, f"{name}_call"), getattr(mod, f"{name}_plain")
+        plain_kw = {k: v for k, v in kw.items() if k in inspect.signature(plain).parameters}
+        x = planes(gen, *shape)
+        out = call(*x, *tables, **kw)
+        nbytes = 4 * sum(t.numel() for t in _tensors((x, tables, out)))
+        flops = call_flops(name, shape, tables, kw, tuple(out[0].shape))
+        del out
+        keys = " ".join(f"{k}={v}" for k, v in sorted(kw.items()))
+        measure_kernel(
+            name, f"{path} path #{i} {'x'.join(map(str, shape))} {keys}".rstrip(),
+            lambda: call(*x, *tables, **kw), lambda: plain(*x, *tables, **plain_kw),
+            nbytes=nbytes, flops=flops,
+        )
+        del x
+    torch.cuda.empty_cache()
 
 
 def path_launches(name: str, phase, gen) -> dict:
@@ -1199,7 +1318,9 @@ def main() -> int:
         real2d = path_launches("real2d", lambda g: calls_phase(g, REAL_2D, "real2d"), gen)
         any_length = path_launches(
             "bluestein", lambda g: calls_phase(g, ANY_LENGTH, "any_length"), gen)
-        convs = path_launches("conv", conv_phase, gen)
+        with recorded_calls() as seen:
+            convs = path_launches("conv", conv_phase, gen)
+        path_kernel_rows("conv", seen, convs, gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
