@@ -49,13 +49,26 @@ package), in phases, and fails on the first check that does not hold:
    mixer's stream decode also against its one-shot forward and the ring
    decode, planning nothing new (``plan_log``).  Then every distinct kernel
    call the phase made (kernel, shape, LUTs, keywords; recorded around the
-   wrappers) is held against its plain version as phase 2 holds its rows.
+   wrappers) is held against its plain version as phase 2 holds its rows;
+8. serving — h2o-danube-1.8b with ``use_spectral_mixer`` at full width
+   (24 layers, 1.90 B fp32 parameters from a seed) built on the card and
+   served through ``ServeSession``: prompts of 4096, 1000 and 37 tokens in
+   4 slots, 96 steps, a 2048-token prompt inserted into the running batch,
+   416 steps (two stream flushes), at the config's bf16 compute (timed:
+   prefill per length, ms per decode step and per flush step, tokens/s,
+   the device-busy share of a step by the profiler, peak memory); then the
+   same requests at float32 compute on the same weights, every served
+   logit row against one teacher-forced ``logits_fn`` at 1e-3·max|ref| and
+   the bf16 prefill logits against the float32 ones at 5e-2·max|ref|,
+   launches exactly those of the plans the prefills, inserts, flushes and
+   ``logits_fn`` run, no new plan in the warm session; then each distinct
+   kernel call against its plain version, as phase 7.
 
-Phases 3, 5, 6 and 7 each set the launch counts to 0 before they start and read
-them when they end; every kernel of a path must have launched in it.  Each
-also runs every one of its calls over a batch of 0: the output must have
-np.fft's shape, and the call launches nothing (0 launches, not
-``len(plan.passes)``).  The
+Phases 3, 5, 6, 7 and 8 each set the launch counts to 0 before they start
+and read them when they end; every kernel of a path must have launched in
+it.  Phases 3–7 also run every one of their calls over a batch of 0: the
+output must have np.fft's shape, and the call launches nothing (0
+launches, not ``len(plan.passes)``).  The
 script then prints the per-kernel JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -64,6 +77,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
 import json
 import math
@@ -80,12 +94,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import conv, overlap  # noqa: E402
 from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.limits import next_pow2  # noqa: E402
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
 from repro_torch.models.layers.spectral import SpectralMixer  # noqa: E402
+from repro_torch.models.model import DecoderLM  # noqa: E402
+from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.serving.spectral_serve import ServeSession  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): FP32 on
 #: the CUDA cores and HBM3 bandwidth.
@@ -145,7 +163,8 @@ FUNCTIONS = {
 ATTRS: dict = {}
 
 #: The kernels each planned path must launch: phase 3 (1-D complex),
-#: phase 5 (real and 2-D), phase 6 (any length) and phase 7 (convolution).
+#: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution) and
+#: phase 8 (serving).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -154,6 +173,7 @@ PATH_KERNELS = {
                   "rows_natural", "cols_natural", "rfft_recomb", "irfft_recomb"),
     "conv": ("dft_matmul", "fft4step", "cols_pass", "rfft_recomb", "irfft_recomb", "bluestein_fwd",
              "bluestein_inv"),
+    "serve": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
 }
 
 
@@ -1287,6 +1307,190 @@ def path_launches(name: str, phase, gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the decoder LM served at h2o-danube-1.8b's width
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 4608
+#: Prompts admitted into an empty batch, then one inserted into the running
+#: batch after SERVE_FIRST_STEPS steps; SERVE_STEPS more follow.
+SERVE_PROMPTS, SERVE_LATE = (4096, 1000, 37), 2048
+SERVE_FIRST_STEPS, SERVE_STEPS = 96, 416
+SERVE_TOL = 1e-3  # served float32 logits vs the teacher-forced logits_fn, relative to max|ref|
+BF16_TOL = 5e-2  # bf16 prefill logits vs the float32 run's, relative to max|ref| (PERF.md §6)
+
+
+def serve_config():
+    """h2o-danube-1.8b with the paper-integration flag: ("spectral", "attn")
+    × 12 at d_model 2560, 32/8 heads, d_ff 6912, vocab 32000, Lf 1024."""
+    return dataclasses.replace(get_config("h2o-danube-1.8b"), use_spectral_mixer=True)
+
+
+def recording(model) -> dict:
+    """Keep every logit row ``model.prefill`` and ``model.decode_step``
+    return (instance attributes shadowing the methods; ``del`` restores)."""
+    rows = {"prefill": [], "decode": []}
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def rec_prefill(tokens):
+        logits, caches = prefill(tokens)
+        rows["prefill"].append(logits)
+        return logits, caches
+
+    def rec_decode(tokens, caches, t):
+        logits, caches = decode_step(tokens, caches, t)
+        rows["decode"].append(logits)
+        return logits, caches
+
+    model.prefill, model.decode_step = rec_prefill, rec_decode
+    return rows
+
+
+def serve_session(model, prompts, late) -> ServeSession:
+    """4 slots, max_len 4608, EOS outside the vocabulary (every slot decodes
+    every step): the three prompts admitted, SERVE_FIRST_STEPS steps, the
+    late prompt inserted into the running batch (re-phased)."""
+    sess = ServeSession(Engine(model, ServeConfig(eos_id=model.cfg.vocab_size)), slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN)
+    for p in prompts:
+        sess.submit(p)
+    sess.run(SERVE_FIRST_STEPS)
+    sess.submit(late)
+    return sess
+
+
+def timed_run(sess, steps: int) -> float:
+    """ms of ``sess.run(steps)`` on the host clock (it ends in the run's sync)."""
+    before = sess.phase_s["generate"]
+    sess.run(steps)
+    return (sess.phase_s["generate"] - before) * 1e3
+
+
+def serve_expect(model, seq_lens) -> dict:
+    """Kernel → launches phase 8 must make: each spectral layer runs
+    ``fft_conv`` (rfft twice, irfft once at next_pow2(S + Lf − 1)) and the
+    stream state's lookahead (rfft twice, irfft once at the flush block) per
+    prefill, the lookahead per insert and per flush, and the conv per
+    teacher-forced ``logits_fn`` of ``seq_lens``; the timed prefills four
+    times each, and the longest once more under the profiler."""
+    mixer = model.stack[0].mixer
+    lf, (_, block) = mixer.filter_len, mixer.grain
+    conv = lambda s: rplans(next_pow2(s + lf - 1))  # noqa: E731
+    lens = SERVE_PROMPTS + (SERVE_LATE,)
+    session = [u for s in lens for u in conv(s) + rplans(block)]
+    session += rplans(block, calls=(2 * (len(lens) + 2), len(lens) + 2))  # 4 inserts, 2 flushes
+    timed = [u for s in lens for u in rplans(next_pow2(s + lf - 1), calls=(8, 4)) + rplans(block, calls=(8, 4))]
+    profiled = conv(lens[0]) + rplans(block)
+    uses = 2 * session + timed + profiled + [u for s in seq_lens for u in conv(s)]
+    layers = sum(block.kind == "spectral" for block in model.stack)
+    return {k: v * layers for k, v in plans_launches(uses).items()}
+
+
+def split_keys(prefix: str, split, ms: float) -> dict:
+    """A :func:`device_split` as the serve line's keys: the port's kernels'
+    and the other device ms, the other's largest names, and the busy share
+    of a call of ``ms`` (None where the trace held no device time)."""
+    kernel, other, top = split or (None, None, None)
+    return {f"{prefix}_kernel_ms": kernel, f"{prefix}_other_device_ms": other, f"{prefix}_other_top": top,
+            f"{prefix}_busy": (kernel + other) / ms if split else None}
+
+
+def serve_phase(gen) -> None:
+    """Phase 8: build the full-width model on the card, serve four requests
+    (one inserted into the running batch) at bf16 compute, then the same
+    requests at float32 compute on the same weights, every served float32
+    logit row against one teacher-forced ``logits_fn`` and the bf16 prefill
+    logits against the float32 ones; launches exact, timed, profiled."""
+    cfg, dev = serve_config(), gen.device
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.stack[0].kind == "spectral" and len(model.stack) == cfg.num_layers,
+          f"phase 8: {len(model.stack)} layers of {cfg.num_layers}")
+    prompts = [torch.randint(4, cfg.vocab_size, (n,), device=dev, generator=gen) for n in SERVE_PROMPTS]
+    late = torch.randint(4, cfg.vocab_size, (SERVE_LATE,), device=dev, generator=gen)
+    c, block = model.stack[0].mixer.grain
+    at_start = kernels.counts()
+
+    # bf16 compute (the config's): the timed and profiled serve.
+    rows16 = recording(model)
+    sess = serve_session(model, prompts, late)
+    first_ms = sess.phase_s["generate"] * 1e3
+    flush_at = (c - 1 - SERVE_FIRST_STEPS) % c  # steps before the first flush of the second run
+    ms_a = timed_run(sess, flush_at)
+    check(sess.state.caches[0].phase == c - 1, f"phase 8: phase {sess.state.caches[0].phase} before the flush")
+    # The session's first flush is profiled (it also grows the allocator's
+    # pool), the second timed.
+    flush_split = device_split(lambda: sess.run(1))
+    step_split = device_split(lambda: sess.run(1))
+    rest = SERVE_STEPS - flush_at - 3
+    ms_b = timed_run(sess, rest)
+    check(sess.state.caches[0].phase == c - 1, "phase 8: the last step is not a flush")
+    flush_ms = timed_run(sess, 1)
+    out16 = [sess.output(s) for s in range(SERVE_SLOTS)]
+    insert_ms = sess.phase_s["insert"] * 1e3 / SERVE_SLOTS
+    del sess, model.prefill, model.decode_step
+    torch.cuda.empty_cache()
+
+    # float32 compute on the same weights and kernels.
+    m32 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32"), device="meta")
+    m32.load_state_dict(model.state_dict(), assign=True)
+    rows32 = recording(m32)
+    F.clear_plan_log()
+    sess = serve_session(m32, prompts, late)
+    sess.run(SERVE_STEPS)
+    check(F.plan_log() == (), f"phase 8: the warm session planned {F.plan_log()}")
+    out32 = [sess.output(s) for s in range(SERVE_SLOTS)]
+    del sess, m32.prefill, m32.decode_step
+
+    requests = [(p, slot, 0) for slot, p in enumerate(prompts)] + [(late, len(prompts), SERVE_FIRST_STEPS)]
+    errs, errs16, seq_lens = [], [], []
+    for j, (p, slot, start) in enumerate(requests):
+        out, out_16 = out32[slot], out16[slot]
+        want = 1 + SERVE_FIRST_STEPS + SERVE_STEPS - start
+        check(len(out) == len(out_16) == want, f"phase 8 request {j}: {len(out)}/{len(out_16)} tokens, expected {want}")
+        check(max(out + out_16) < cfg.vocab_size and min(out + out_16) >= 0, f"phase 8 request {j}: token out of vocab")
+        served = torch.cat([rows32["prefill"][j]] + [rows32["decode"][k][slot:slot + 1]
+                                                     for k in range(start, start + want - 1)])
+        check(bool(torch.isfinite(served).all()), f"phase 8 request {j}: non-finite served logits")
+        check(served.argmax(-1).tolist() == out, f"phase 8 request {j}: emitted tokens are not the greedy ones")
+        seq = torch.cat([p, torch.tensor(out[:-1], device=dev)])[None]
+        seq_lens.append(seq.shape[1])
+        hidden = m32(seq)[0, len(p) - 1:]
+        errs.append(full_err(served, m32.head(hidden, m32.embed.table)))
+        check(errs[-1] <= SERVE_TOL, f"phase 8 request {j}: served vs teacher-forced {errs[-1]:.3e} > {SERVE_TOL}")
+        errs16.append(full_err(rows16["prefill"][j], rows32["prefill"][j].double()))
+        check(errs16[-1] <= BF16_TOL, f"phase 8 request {j}: bf16 prefill vs float32 {errs16[-1]:.3e} > {BF16_TOL}")
+        del served, hidden
+    agree = [sum(a == b for a, b in zip(out16[s], out32[s])) / len(out32[s]) for s in range(SERVE_SLOTS)]
+    del rows32, m32
+    torch.cuda.empty_cache()
+
+    # Each prompt length's prefill at bf16, warm (CUDA events, median of 3).
+    eng = Engine(model, ServeConfig(eos_id=cfg.vocab_size))
+    g = eng.generator(0)
+    prefill_ms = {
+        n: time_ms(lambda p=p: eng.prefill(p[None], max_len=SERVE_MAX_LEN, generator=g), reps=3)
+        for n, p in zip(SERVE_PROMPTS + (SERVE_LATE,), prompts + [late])
+    }
+    prefill_split = device_split(lambda: eng.prefill(prompts[0][None], max_len=SERVE_MAX_LEN, generator=g))
+    check_launches("phase 8", at_start, kernels.counts(), serve_expect(model, seq_lens))
+    step_ms = (ms_a + ms_b) / (flush_at + rest)
+    print("serve " + json.dumps({
+        "config": cfg.name + " use_spectral_mixer", "layers": len(model.stack), "parameters": n_params,
+        "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "prompts": list(SERVE_PROMPTS), "late": SERVE_LATE,
+        "chunk": c, "block": block, "served_vs_teacher_forced": errs, "bf16_vs_float32_prefill": errs16,
+        "bf16_float32_token_agreement": agree, "prefill_ms": prefill_ms, "insert_ms": insert_ms,
+        "decode_ms_per_step": step_ms, "decode_tok_per_s": SERVE_SLOTS * 1e3 / step_ms,
+        "first_run_ms_per_step_3_slots": first_ms / SERVE_FIRST_STEPS, "flush_step_ms": flush_ms,
+        **split_keys("prefill", prefill_split, prefill_ms[SERVE_PROMPTS[0]]),
+        **split_keys("step", step_split, step_ms), **split_keys("flush", flush_split, flush_ms),
+        "peak_bytes": torch.cuda.max_memory_allocated(), "param_bytes": 4 * n_params,
+    }), flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -1321,7 +1525,11 @@ def main() -> int:
         with recorded_calls() as seen:
             convs = path_launches("conv", conv_phase, gen)
         path_kernel_rows("conv", seen, convs, gen)
-        launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] for name in SOURCES}
+        with recorded_calls() as seen, torch.no_grad():
+            served = path_launches("serve", serve_phase, gen)
+        path_kernel_rows("serve", seen, served, gen)
+        launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
+                    for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

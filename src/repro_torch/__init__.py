@@ -16,8 +16,16 @@ to find:
   kernels.*        the hand-written sm_90a CUDA kernels, each beside its
                    plain PyTorch version
   kernels.ops      the pass-program executor with device-resident LUTs
-  models.layers    the spectral mixer (an nn.Module over core.conv)
-  utils.params     the reference's parameter values into a module
+  configs          ModelConfig / ShapeConfig, the registry, make_reduced
+  models.layers    norms, rope, embedding and head, MLP, attention, and the
+                   spectral mixer (an nn.Module over core.conv)
+  models.blocks    the residual blocks (attn, attn_local, spectral)
+  models.stack     one block per layer in an nn.ModuleList
+  models.model     DecoderLM: forward, logits, prefill, decode, caches
+  serving          sampling, the prefill / insert / decode Engine and the
+                   ServeSession slot pool
+  launch.serve     the serving CLI (python -m repro_torch.launch.serve)
+  utils.params     parameter init; the reference's values into a module
 
 It imports torch and numpy only — never jax, never ``repro``.
 """

@@ -1,1 +1,1 @@
-"""The LM stack's layers, ported module by module (``models.layers``)."""
+"""The decoder LM: layers, blocks, the stack and the model (``models.model``)."""

@@ -1,0 +1,97 @@
+"""Residual blocks: one mixer and one MLP per kind.
+
+Port of ``repro/models/blocks.py`` for the kinds the ported configurations
+run:
+
+attn          pre-norm global attention + pre-norm MLP
+attn_local    same, sliding-window (``cfg.sliding_window``)
+spectral      pre-norm FFT long-conv mixer (:class:`SpectralMixer`) + pre-norm MLP
+
+``moe``, ``mamba2``, ``mlstm``, ``slstm`` and ``shared_attn`` raise
+``NotImplementedError`` naming ``ROADMAP.md`` A4.  ``forward`` returns
+``(x, cache or None)``, ``decode`` returns ``(x, new_cache)``; the caches
+are the layers' own (:class:`KVCache`, :class:`SpectralStreamCache`,
+:class:`SpectralCache`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers.mlp import MLP
+from repro_torch.models.layers.norms import RMSNorm
+from repro_torch.models.layers.spectral import SpectralMixer, SpectralStreamCache
+
+__all__ = ["Block", "KINDS"]
+
+KINDS = ("attn", "attn_local", "spectral")
+NOT_PORTED = ("moe", "mamba2", "mlstm", "slstm", "shared_attn")
+
+
+def _ff_dim(cfg) -> int:
+    return cfg.d_ff if cfg.d_ff > 0 else 2 * cfg.d_model
+
+
+class Block(nn.Module):
+    """Parameters ``norm1.scale``, ``mixer.*``, ``norm2.scale``, ``mlp.*``:
+    the reference's ``block_init`` tree for the kind."""
+
+    def __init__(self, kind: str, cfg, *, dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if kind in NOT_PORTED:
+            raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP.md A4)")
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
+        self.kind, self.cfg = kind, cfg
+        d = cfg.d_model
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.norm1 = RMSNorm(d, eps=cfg.norm_eps, device=device)
+        if kind == "spectral":
+            self.mixer = SpectralMixer(
+                d, cfg.spectral_filter_len, decode_chunk=cfg.spectral_decode_chunk,
+                decode_mode=cfg.spectral_decode_mode, **kw,
+            )
+        else:
+            window = cfg.sliding_window if kind == "attn_local" else None
+            self.mixer = attn_lib.Attention(cfg, window=window, **kw)
+        self.norm2 = RMSNorm(d, eps=cfg.norm_eps, device=device)
+        self.mlp = MLP(d, _ff_dim(cfg), act=cfg.act, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
+        h = self.norm1(x)
+        if self.kind == "spectral":
+            res = self.mixer(h, return_cache=return_cache)
+        else:
+            res = self.mixer(h, positions, return_cache=return_cache)
+        res, cache = res if return_cache else (res, None)
+        x = x + res
+        return x + self.mlp(self.norm2(x)), cache
+
+    def decode(self, x: torch.Tensor, cache, t):
+        """One token, x (B, 1, D), at position ``t`` (an int or (B,))."""
+        h = self.norm1(x)
+        if self.kind != "spectral":
+            res, cache = self.mixer.decode(h, cache, t)
+        elif isinstance(cache, SpectralStreamCache):
+            # Dispatch on the cache's layout, not the config: a prepared cache
+            # of either mode decodes (the ring is the exactness oracle).
+            res, cache = self.mixer.stream_decode(h, cache)
+        else:
+            res, cache = self.mixer.decode(h, cache)
+        x = x + res
+        return x + self.mlp(self.norm2(x)), cache
+
+    def cache_init(self, batch: int, max_len: int, dtype: torch.dtype):
+        """The empty decode state of this layer (the spectral mixer's in
+        float32, a KV cache in ``dtype`` or int8)."""
+        if self.kind == "spectral":
+            if self.mixer.decode_mode == "ring":
+                return self.mixer.init_cache(batch)
+            return self.mixer.init_stream_cache(batch)
+        return attn_lib.init_kv_cache(self.cfg, batch, max_len, window=self.mixer.window, dtype=dtype,
+                                      device=self.norm1.scale.device)

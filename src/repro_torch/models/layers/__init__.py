@@ -1,1 +1,2 @@
-"""LM layers: ``spectral`` (the gated FFT long-convolution mixer)."""
+"""LM layers: ``norms``, ``rope``, ``embedding``, ``mlp``, ``attention`` and
+``spectral`` (the gated FFT long-convolution mixer)."""

@@ -1,0 +1,53 @@
+"""Token embedding and output head.
+
+Port of ``repro/models/layers/embedding.py``: the lookup scaled by
+√d_model in the compute dtype, and the head's logits in float32 (tied to
+the embedding table or its own ``w``), optionally final-softcapped.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.utils.params import normal
+
+__all__ = ["Embedding", "Head"]
+
+
+class Embedding(nn.Module):
+    """``table`` (vocab, d_model), drawn at scale 1."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.d_model = cfg.d_model
+        self.table = normal((cfg.vocab_size, cfg.d_model), scale=1.0, dtype=dtype, device=device,
+                            generator=generator)
+
+    def forward(self, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+        # gemma-style scale, rounded to the compute dtype first as the
+        # reference multiplies by it
+        scale = torch.tensor(self.d_model**0.5, dtype=compute_dtype).item()
+        return self.table[tokens].to(compute_dtype) * scale
+
+
+class Head(nn.Module):
+    """Logits in float32: ``x @ w`` with ``w`` (d_model, vocab), or the
+    embedding table's transpose when the config ties them (then this module
+    has no parameter, as the reference's empty ``head``)."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.tied = cfg.tie_embeddings
+        self.softcap = cfg.final_logit_softcap
+        if not self.tied:
+            self.w = normal((cfg.d_model, cfg.vocab_size), dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        w = table.float().T if self.tied else self.w.float()
+        logits = x.float() @ w
+        if self.softcap:
+            logits = torch.tanh(logits / self.softcap) * self.softcap
+        return logits

@@ -1,0 +1,45 @@
+"""Gated MLP (SwiGLU / GeGLU) and the plain variant.
+
+Port of ``repro/models/layers/mlp.py``.  ``gelu`` is the tanh approximation
+(the reference's default gelu); the weights are cast to the activation's dtype
+at each use, as the reference writes ``params[...].astype(cd)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as tF
+from torch import nn
+
+from repro_torch.utils.params import normal
+
+__all__ = ["MLP", "ACTIVATIONS"]
+
+ACTIVATIONS = {
+    "silu": tF.silu,
+    "gelu": lambda x: tF.gelu(x, approximate="tanh"),
+    "relu": tF.relu,
+}
+
+
+class MLP(nn.Module):
+    """``act(x @ wi_gate) * (x @ wi_up) @ wo``; ``wi_*`` (d_model, d_ff) at
+    fan-in scale, ``wo`` (d_ff, d_model) at d_ff^-0.5."""
+
+    def __init__(self, d_model: int, d_ff: int, *, act: str = "silu", dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if act not in ACTIVATIONS:
+            raise ValueError(f"act must be one of {sorted(ACTIVATIONS)}, got {act!r}")
+        self.act = act
+        self.wi_gate = normal((d_model, d_ff), dtype=dtype, device=device, generator=generator)
+        self.wi_up = normal((d_model, d_ff), dtype=dtype, device=device, generator=generator)
+        self.wo = normal((d_ff, d_model), scale=d_ff**-0.5, dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = x.dtype
+        g = x @ self.wi_gate.to(cd)
+        u = x @ self.wi_up.to(cd)
+        return (ACTIVATIONS[self.act](g) * u) @ self.wo.to(cd)

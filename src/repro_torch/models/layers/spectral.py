@@ -34,6 +34,7 @@ from repro_torch.core import fft as fft_lib
 from repro_torch.core import overlap as ov_lib
 from repro_torch.core.conv import fft_conv
 from repro_torch.core.limits import next_pow2
+from repro_torch.utils.params import normal
 
 __all__ = [
     "SpectralMixer",
@@ -89,8 +90,8 @@ class SpectralMixer(nn.Module):
     ``decode_mode`` (``spectral_decode_mode``: the cache ``forward`` returns).
     Parameters: ``filt`` (D, Lf) float32 with the reference's decaying
     envelope, and ``w_gate``, ``w_in``, ``w_out`` (D, D) in ``dtype``, drawn
-    from ``generator``.  ``device=None`` puts them on the card (raising
-    without one); ``device="cpu"`` runs the plain route.
+    from ``generator`` on its own device.  ``device=None`` puts them on the
+    card (raising without one); ``device="cpu"`` runs the plain route.
     """
 
     def __init__(
@@ -114,15 +115,12 @@ class SpectralMixer(nn.Module):
         # Smooth decaying filter: h[d, j] ~ N(0, 1/Lf) · exp(−j/τ_d).
         j = np.arange(Lf, dtype=np.float32)
         tau = np.logspace(1.0, np.log10(Lf), D, dtype=np.float32)
-        envelope = torch.from_numpy(np.exp(-j[None, :] / tau[:, None]))
-        base = torch.randn(D, Lf, generator=generator) * Lf**-0.5
+        at = generator.device if generator is not None else dev
+        envelope = torch.from_numpy(np.exp(-j[None, :] / tau[:, None])).to(at)
+        base = torch.randn(D, Lf, generator=generator, device=at) * Lf**-0.5
         self.filt = nn.Parameter((base * envelope).to(dev))
-
-        def proj():
-            w = torch.randn(D, D, generator=generator) * D**-0.5
-            return nn.Parameter(w.to(dev, dtype))
-
-        self.w_gate, self.w_in, self.w_out = proj(), proj(), proj()
+        kw = dict(dtype=dtype, device=dev, generator=generator)
+        self.w_gate, self.w_in, self.w_out = normal((D, D), **kw), normal((D, D), **kw), normal((D, D), **kw)
 
     @property
     def grain(self) -> Tuple[int, int]:

@@ -1,0 +1,137 @@
+"""The decoder LM: embed → stack (pattern-driven blocks) → final norm → head.
+
+Port of ``repro/models/model.py`` as an ``nn.Module`` whose parameter names
+are the reference's tree, the stack unrolled to one entry per layer
+(``embed.table``, ``stack.<layer>.<block param>``, ``final_norm.scale``,
+``head.w``; see :func:`repro_torch.utils.params.load_reference_model`).
+Parameters are in ``cfg.param_dtype``; activations in
+``cfg.compute_dtype``, each weight cast to it at its use as the reference
+writes ``params[...].astype(cd)``; logits in float32.
+
+The spectral layers' convolutions run through the planned FFTs, so on the
+card through the hand-written kernels; everything else is plain PyTorch.
+``device=None`` builds the model on the card (raising without one),
+``device="cpu"`` on the plain route.  ``loss_fn`` comes with training
+(``ROADMAP.md`` A6); the modality frontends with A4.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as tF
+from torch import nn
+
+from repro_torch.core import fft as fft_lib
+from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers.embedding import Embedding, Head
+from repro_torch.models.layers.norms import RMSNorm
+from repro_torch.models.stack import Stack
+
+__all__ = ["DecoderLM"]
+
+
+class DecoderLM(nn.Module):
+    """The LM of one ``ModelConfig``, its parameters drawn from ``generator``
+    (on the generator's own device) at the reference's shapes and scales."""
+
+    def __init__(self, cfg, *, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.frontend:
+            raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet (ROADMAP.md A4)")
+        dev = fft_lib._resolve_device(device)
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=dev, generator=generator)
+        self.cfg = cfg
+        self.embed = Embedding(cfg, **kw)
+        self.stack = Stack(cfg, **kw)
+        self.final_norm = RMSNorm(cfg.d_model, eps=cfg.norm_eps, device=dev)
+        self.head = Head(cfg, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.scale.device
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def forward(self, tokens, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) → the final-normed hidden states (B, S, D).
+        ``positions`` (B, S) default to 0 … S − 1."""
+        tokens = self._tokens(tokens)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=self.device).expand(tokens.shape)
+        x = self.embed(tokens, self.compute_dtype)
+        x, _ = self.stack(x, positions)
+        return self.final_norm(x)
+
+    def logits_fn(self, tokens, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S, vocab) float32 logits: the small-model and check path."""
+        return self.head(self(tokens, positions), self.embed.table)
+
+    @torch.no_grad()
+    def prefill(self, tokens) -> Tuple[torch.Tensor, List]:
+        """The prompt's last-position logits (B, vocab) and the per-layer
+        caches it leaves (KV in natural order, length S; spectral states
+        already in decode layout)."""
+        tokens = self._tokens(tokens)
+        positions = torch.arange(tokens.shape[1], device=self.device).expand(tokens.shape)
+        x = self.embed(tokens, self.compute_dtype)
+        x, caches = self.stack(x, positions, return_cache=True)
+        x = self.final_norm(x[:, -1:])
+        return self.head(x, self.embed.table)[:, 0], caches
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches: List, t) -> Tuple[torch.Tensor, List]:
+        """One decode step.  tokens (B,); ``t`` the position being written,
+        an int (one timeline) or a (B,) tensor of per-slot positions.
+        Returns (logits (B, vocab), new caches); KV caches are written in
+        place."""
+        x = self.embed(self._tokens(tokens)[:, None], self.compute_dtype)
+        x, caches = self.stack.decode(x, caches, t)
+        return self.head(self.final_norm(x), self.embed.table)[:, 0], caches
+
+    def cache_init(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None) -> List:
+        """Empty per-layer decode caches for ``batch`` rows and ``max_len``
+        positions (KV in ``dtype``, default the compute dtype)."""
+        return self.stack.cache_init(batch, max_len, dtype or self.compute_dtype)
+
+    @torch.no_grad()
+    def prepare_decode_caches(self, caches: List, max_len: int) -> List:
+        """Prefill caches (natural order, length S) into decode layout.
+
+        Global-attention layers: the KV axis padded out to ``max_len``
+        slots.  Sliding-window layers: the last ``window`` positions
+        re-scattered into ring order (slot = position % slots), with
+        ``min(window, max_len)`` slots as :func:`init_kv_cache` makes them.
+        Quantised to int8 where ``cfg.kv_cache_dtype`` says so.  Spectral
+        states pass through: the prefill built them in decode layout.
+        """
+        out = []
+        for block, cache in zip(self.stack, caches, strict=True):
+            if not isinstance(cache, attn_lib.KVCache):
+                out.append(cache)
+                continue
+            k, v = cache.k, cache.v  # (B, S, KV, hd)
+            s = k.shape[1]
+            window = block.mixer.window
+            if window:
+                slots = min(window, max_len)
+                keep = min(window, s)
+                at = torch.arange(s - keep, s, device=k.device) % slots
+                kw = k.new_zeros((k.shape[0], slots) + k.shape[2:])
+                vw = torch.zeros_like(kw)
+                kw[:, at], vw[:, at] = k[:, s - keep:], v[:, s - keep:]
+                k, v = kw, vw
+            elif max_len > s:
+                k, v = (tF.pad(t, (0, 0, 0, 0, 0, max_len - s)) for t in (k, v))
+            if self.cfg.kv_cache_dtype == "int8":
+                (kq, ks), (vq, vs) = attn_lib.quant_tok(k), attn_lib.quant_tok(v)
+                out.append(attn_lib.KVCache(k=kq, v=vq, k_scale=ks, v_scale=vs))
+            else:
+                out.append(attn_lib.KVCache(k=k, v=v))
+        return out

@@ -1,0 +1,60 @@
+"""The layer stack: one block module per layer.
+
+Port of ``repro/models/stack.py``.  The reference stacks the parameters of
+each position of the pattern's repeating unit over the repeats and runs the
+stack as one ``lax.scan`` (with checkpointed remat for training); in
+eager PyTorch a :class:`Stack` is an ``nn.ModuleList`` of the layers in
+pattern order and a Python loop over them.  Caches are a list with one
+entry per layer, batch at axis 0 (the reference's are stacked per unit
+position, repeats leading).  :func:`find_unit` is the reference's, which
+``load_reference_model`` uses to unstack the reference's parameters.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.blocks import Block
+
+__all__ = ["Stack", "find_unit"]
+
+
+def find_unit(pattern: tuple) -> tuple:
+    """The smallest prefix whose repeats make up ``pattern``."""
+    n = len(pattern)
+    for u in range(1, n + 1):
+        if n % u == 0 and tuple(pattern[:u]) * (n // u) == tuple(pattern):
+            return tuple(pattern[:u])
+    return tuple(pattern)
+
+
+class Stack(nn.ModuleList):
+    """``cfg.pattern()``'s blocks, layer ``l`` at index ``l``."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(
+            Block(kind, cfg, dtype=dtype, device=device, generator=generator) for kind in cfg.pattern()
+        )
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
+        """x: (B, S, D) → (x, per-layer caches or None)."""
+        caches = []
+        for block in self:
+            x, cache = block(x, positions, return_cache=return_cache)
+            caches.append(cache)
+        return x, (caches if return_cache else None)
+
+    def decode(self, x: torch.Tensor, caches: List, t):
+        """One decode step through every layer; returns (x, new caches)."""
+        new = []
+        for block, cache in zip(self, caches, strict=True):
+            x, cache = block.decode(x, cache, t)
+            new.append(cache)
+        return x, new
+
+    def cache_init(self, batch: int, max_len: int, dtype: torch.dtype) -> List:
+        return [block.cache_init(batch, max_len, dtype) for block in self]

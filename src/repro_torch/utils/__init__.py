@@ -1,1 +1,2 @@
-"""Helpers: ``params`` (the reference's parameter values into a module)."""
+"""Helpers: ``params`` (parameter init, and the reference's parameter values
+into a module)."""

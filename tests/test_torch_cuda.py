@@ -417,3 +417,36 @@ def test_spectral_mixer_stream_decode_on_the_card(dev):
         return torch.cat(outs, dim=1)
 
     _card_vs_cpu(run)
+
+
+def test_served_lm_on_the_card(dev):
+    """The reduced spectral hybrid served on the card (a request inserted
+    into the running batch, past a stream flush): the same tokens as the
+    CPU route, and the teacher-forced logits within 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.reduce import make_reduced
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.spectral_serve import ServeSession
+
+    cfg = make_reduced(dataclasses.replace(get_config("h2o-danube-1.8b"), use_spectral_mixer=True))
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    prompts = np.random.default_rng(7).integers(4, 512, (2, 40))
+    served = {}
+
+    def run(d):
+        model = DecoderLM(cfg, device=d, generator=torch.Generator().manual_seed(0))
+        sess = ServeSession(Engine(model, ServeConfig(eos_id=-1)), slots=2, max_len=80)
+        sess.submit(prompts[0])
+        sess.run(5)
+        sess.submit(prompts[1])
+        sess.run(12)
+        served[d] = [sess.output(s) for s in range(2)]
+        seq = torch.tensor([list(prompts[0]) + served[d][0][:-1]], device=d)
+        with torch.no_grad():
+            return model.logits_fn(seq)
+
+    _card_vs_cpu(run)
+    assert served["cuda"] == served["cpu"]

@@ -17,6 +17,12 @@ import repro_torch
 import repro_torch.core.fft, repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.core.conv, repro_torch.core.overlap
 import repro_torch.models.layers.spectral, repro_torch.utils.params
+import repro_torch.configs.base, repro_torch.configs.reduce, repro_torch.configs.h2o_danube_1p8b
+import repro_torch.models.layers.attention, repro_torch.models.layers.embedding
+import repro_torch.models.layers.mlp, repro_torch.models.layers.norms, repro_torch.models.layers.rope
+import repro_torch.models.blocks, repro_torch.models.stack, repro_torch.models.model
+import repro_torch.serving.sampling, repro_torch.serving.engine, repro_torch.serving.spectral_serve
+import repro_torch.launch.serve
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")
