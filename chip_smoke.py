@@ -62,13 +62,33 @@ package), in phases, and fails on the first check that does not hold:
    the bf16 prefill logits against the float32 ones at 5e-2·max|ref|,
    launches exactly those of the plans the prefills, inserts, flushes and
    ``logits_fn`` run, no new plan in the warm session; then each distinct
-   kernel call against its plain version, as phase 7.
+   kernel call against its plain version, as phase 7;
+9. the tuner — each spec planned with ``tune="off"``, ``"model"`` and
+   ``"measure"`` (CUDA-event timing of the pruned candidates on the card,
+   the shipped seed set aside so the first measure plan measures) at the
+   sizes users run and phases 3–7 use: the Table 1 lengths 1024 … 65536,
+   2^17 and 2^20 at phase 3's batches, the SAR scene ``fft2`` (4096, 8192),
+   ``fft`` 3000 and 100003 with their pad alternatives, phase 7's
+   overlap-save block of (32, 2^20) ⊛ 4097, a ``StreamingConv`` keyed to
+   65536-sample chunks, and ``stream_plan_info`` of h2o-danube-1.8b.  Each
+   plan's output against ``torch.fft`` in float64 at 1e-3·max|ref|, exactly
+   ``len(passes)`` launches (0 over a batch of 0), its forward ms (CUDA
+   events, median of 3, warm) and the measurements its planning made; a
+   second ``plan()`` and one through a fresh ``TuningCache`` over the same
+   file make none.  Then each distinct kernel call the phase made, every
+   form the tuner timed included, against its plain version
+   ("kernel_check ... tune path #i" lines, not timed).
 
-Phases 3, 5, 6, 7 and 8 each set the launch counts to 0 before they start
-and read them when they end; every kernel of a path must have launched in
-it.  Phases 3–7 also run every one of their calls over a batch of 0: the
-output must have np.fft's shape, and the call launches nothing (0
-launches, not ``len(plan.passes)``).  The
+Phases 2–8 run with ``REPRO_FFT_TUNE=off``: their expectations (launches,
+kernels, forms, the overlap-save block) are the heuristic plans'; phase 9
+names each mode itself.  The tuning cache is a throwaway file under
+``build/`` named through ``REPRO_TUNING_CACHE``.
+
+Phases 3, 5, 6, 7, 8 and 9 each set the launch counts to 0 before they
+start and read them when they end; every kernel of a path must have
+launched in it.  Phases 3–7 and 9 also run every one of their calls over a
+batch of 0: the output must have np.fft's shape, and the call launches
+nothing (0 launches, not ``len(plan.passes)``).  The
 script then prints the per-kernel JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -95,12 +115,12 @@ import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core import conv, overlap  # noqa: E402
+from repro_torch.core import conv, overlap, tuning  # noqa: E402
 from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.limits import next_pow2  # noqa: E402
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
-from repro_torch.models.layers.spectral import SpectralMixer  # noqa: E402
+from repro_torch.models.layers.spectral import SpectralMixer, stream_plan_info  # noqa: E402
 from repro_torch.models.model import DecoderLM  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.serving.spectral_serve import ServeSession  # noqa: E402
@@ -174,6 +194,8 @@ PATH_KERNELS = {
     "conv": ("dft_matmul", "fft4step", "cols_pass", "rfft_recomb", "irfft_recomb", "bluestein_fwd",
              "bluestein_inv"),
     "serve": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
+    "tune": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "rfft_recomb", "irfft_recomb",
+             "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
 }
 
 
@@ -239,14 +261,20 @@ def roots_bytes(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def measure_kernel(name, label, call, plain, nbytes, flops, library=None):
+def check_kernel(label, call, plain) -> tuple:
+    """One kernel call against its plain version on the same inputs, held
+    to KERNEL_TOL·max|plain|; returns (max|Δ|, max|plain|)."""
     got = call()
     want = plain()
     torch.cuda.synchronize()
     err, scale = max_err(got, want)
     check(err <= KERNEL_TOL * scale,
           f"{label}: kernel vs plain max|Δ| {err:.3e} > {KERNEL_TOL}·{scale:.3e}")
-    del got, want
+    return err, scale
+
+
+def measure_kernel(name, label, call, plain, nbytes, flops, library=None):
+    err, scale = check_kernel(label, call, plain)
     ms = time_ms(call)
     plain_ms = time_ms(plain)
     lib_ms = time_ms(library) if library is not None else None
@@ -287,6 +315,14 @@ def pencil_pair(gen, dev, n: int, b: int) -> tuple:
         nbytes=16 * b * n + 8 * f * s + roots_bytes(f),
         flops=b * s * fft_flops(f) + 6 * b * n,
     )
+    # No torch call computes the pass with its twiddle; without it, the
+    # column FFT is one torch.fft call: the pass's yardstick beside it.
+    xc = torch.complex(*xv)
+    cols_row["library_without_twiddle_ms"] = time_ms(lambda: torch.fft.fft(xc, dim=-2))
+    print("library_without_twiddle " + json.dumps({"shape": cols_row["shape"],
+                                                   "ms": cols_row["library_without_twiddle_ms"]}),
+          flush=True)
+    del xc
     # Row pass: (B, p, f) → (B, f, p) transposed write.
     p_, _, f = rows_p.view_in
     w = ops._roots_luts(dev, f, False)
@@ -1265,12 +1301,13 @@ def call_flops(name: str, shape: tuple, tables: tuple, kw: dict, out_shape: tupl
     return shape[0] * bluestein_flops(name.split("_")[1], kw["n"], kw["m_pad"])
 
 
-def path_kernel_rows(path: str, seen: dict, launches: dict, gen) -> None:
+def path_kernel_rows(path: str, seen: dict, launches: dict, gen, timed: bool = True) -> None:
     """Each distinct kernel call a path made (:func:`recorded_calls`; every
     kernel that launched on it must have one), again on fresh planes of its
     shape with its own LUTs and keywords, against its plain version as phase
     2 holds it (bound: every input and LUT read once, every output written
-    once).  These launches are not the path's."""
+    once); ``timed=False`` holds them without timing them ("kernel_check"
+    lines).  These launches are not the path's."""
     recorded = {name for name, *_ in seen.values()}
     missed = [k for k in KERNEL_MODULE if launches.get(k) and k not in recorded]
     check(not missed, f"{path}: launches of {missed} were not recorded")
@@ -1279,16 +1316,19 @@ def path_kernel_rows(path: str, seen: dict, launches: dict, gen) -> None:
         call, plain = getattr(mod, f"{name}_call"), getattr(mod, f"{name}_plain")
         plain_kw = {k: v for k, v in kw.items() if k in inspect.signature(plain).parameters}
         x = planes(gen, *shape)
-        out = call(*x, *tables, **kw)
-        nbytes = 4 * sum(t.numel() for t in _tensors((x, tables, out)))
-        flops = call_flops(name, shape, tables, kw, tuple(out[0].shape))
-        del out
         keys = " ".join(f"{k}={v}" for k, v in sorted(kw.items()))
-        measure_kernel(
-            name, f"{path} path #{i} {'x'.join(map(str, shape))} {keys}".rstrip(),
-            lambda: call(*x, *tables, **kw), lambda: plain(*x, *tables, **plain_kw),
-            nbytes=nbytes, flops=flops,
-        )
+        label = f"{path} path #{i} {'x'.join(map(str, shape))} {keys}".rstrip()
+        run, run_plain = (lambda: call(*x, *tables, **kw)), (lambda: plain(*x, *tables, **plain_kw))
+        if timed:
+            out = run()
+            nbytes = 4 * sum(t.numel() for t in _tensors((x, tables, out)))
+            flops = call_flops(name, shape, tables, kw, tuple(out[0].shape))
+            del out
+            measure_kernel(name, label, run, run_plain, nbytes=nbytes, flops=flops)
+        else:
+            err, scale = check_kernel(label, run, run_plain)
+            print("kernel_check " + json.dumps({"name": name, "shape": label, "max_abs_err": err,
+                                                "rel_err": err / scale}), flush=True)
         del x
     torch.cuda.empty_cache()
 
@@ -1491,6 +1531,179 @@ def serve_phase(gen) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the tuner on the card
+# ---------------------------------------------------------------------------
+
+TUNE_MODES = ("off", "model", "measure")
+
+#: Phase 9's plan specs, each at the batch it runs at (``batch_hint``, which
+#: the tuner measures at): the Table 1 lengths of phase 3 at its batches,
+#: 2^17 (0.27 GB) and 2^20, the SAR scene of phase 7 (d) (4096 lines of 8192
+#: samples), and phase 6's any-length lines, whose pads the tuner doubles.
+TUNE_SPECS = (
+    F.FFTSpec(1024, batch_hint=16384),
+    F.FFTSpec(4096, batch_hint=4096),
+    F.FFTSpec(16384, batch_hint=4096),
+    F.FFTSpec(65536, batch_hint=1024),
+    F.FFTSpec(1 << 17, batch_hint=256),
+    F.FFTSpec(1 << 20, batch_hint=64),
+    F.FFTSpec(8192, kind="fft2", n2=4096, batch_hint=1),
+    F.FFTSpec(3000, batch_hint=8192),
+    F.FFTSpec(100003, batch_hint=64),
+)
+
+
+@contextlib.contextmanager
+def tune_env(mode: str):
+    """``REPRO_FFT_TUNE=mode`` inside the block: the mode of every plan made
+    without naming one (a convolution's own plans)."""
+    was = os.environ.get("REPRO_FFT_TUNE")
+    os.environ["REPRO_FFT_TUNE"] = mode
+    try:
+        yield
+    finally:
+        if was is None:
+            os.environ.pop("REPRO_FFT_TUNE")
+        else:
+            os.environ["REPRO_FFT_TUNE"] = was
+
+
+def measured(fn) -> tuple:
+    """``fn()`` and the number of tuner measurements it made."""
+    before = len(tuning.measure_log())
+    out = fn()
+    return out, len(tuning.measure_log()) - before
+
+
+def replan(label: str, spec, mode: str, cfg) -> None:
+    """Plan ``spec`` again with the interned plans dropped, through the
+    process's tuning cache and then through a fresh ``TuningCache`` over the
+    same file: both find ``cfg`` and measure nothing."""
+    F._plan_cached.cache_clear()
+    again, made = measured(lambda: F.plan(spec, tune=mode))
+    check(made == 0 and again.tuned == cfg, f"{label} {mode}: a second plan() measured {made} times")
+    tuning.cache = tuning.TuningCache()
+    F._plan_cached.cache_clear()
+    fresh, made = measured(lambda: F.plan(spec, tune=mode))
+    check(made == 0 and fresh.tuned == cfg,
+          f"{label} {mode}: a fresh TuningCache measured {made} times, config {fresh.tuned}")
+
+
+def complex_err(y, ref) -> float:
+    """max|Δ| / max|ref| of a complex64 output against a complex128 one."""
+    return ((y.to(torch.complex128) - ref).abs().max() / ref.abs().max()).item()
+
+
+def tuned_plans(gen, spec) -> dict:
+    """One spec planned in each mode, each plan held and timed; returns the
+    phase-9 line's fields."""
+    b, n2 = spec.batch_hint, spec.n2
+    shape = (b, n2, spec.n) if n2 else (b, spec.n)
+    label = f"{spec.kind} {'x'.join(map(str, shape))}"
+    x = torch.complex(*planes(gen, *shape))
+    lib = torch.fft.fft2 if n2 else torch.fft.fft
+    ref = lib(x.to(torch.complex128))
+    row = {"spec": label, "configs": {}, "kernels": {}, "ms": {}, "measurements": {}, "plan_s": {},
+           "rel_err": {}}
+    for mode in TUNE_MODES:
+        t0 = time.perf_counter()
+        planned, made = measured(lambda: F.plan(spec, tune=mode))
+        row["plan_s"][mode] = time.perf_counter() - t0
+        check(made == 0 or mode == "measure", f"{label} {mode}: planning measured {made} times")
+        check((planned.tuned is None) == (mode == "off"), f"{label} {mode}: tuned {planned.tuned}")
+        y, _ = counted_call(f"{label} {mode}", planned, x)
+        err = complex_err(y, ref)
+        check(err <= FFT_TOL, f"{label} {mode}: vs torch.fft in float64 {err:.3e} > {FFT_TOL}·max|ref|")
+        del y
+        before = kernels.counts()
+        z = planned(x[:0])
+        torch.cuda.synchronize()
+        check_launches(f"{label} {mode} empty batch", before, kernels.counts(), {})
+        check(tuple(z.shape) == (0,) + shape[1:], f"{label} {mode} empty batch: {tuple(z.shape)}")
+        row["ms"][mode] = time_ms(lambda: planned(x), reps=3, warmup=1)
+        row["configs"][mode] = planned.tuned
+        row["kernels"][mode] = list(planned.kernels)
+        row["measurements"][mode] = made
+        row["rel_err"][mode] = err
+        if mode != "off":
+            replan(label, spec, mode, planned.tuned)
+    row["library_ms"] = time_ms(lambda: lib(x), reps=3, warmup=1)  # the yardstick only
+    del x, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def tuned_convs(gen) -> None:
+    """Phase 7 (b)'s overlap-save conv and (c)'s ingest with a StreamingConv
+    keyed to its 65536-sample chunks, each mode throughout (the block and
+    the conv's own plans): the tuned block, the output against the float64
+    conv through ``torch.fft``, exact launches, ms."""
+    L, LH, B, chunk = 1 << 20, 4097, 32, 65536
+    x = torch.randn(B, L, device="cuda", generator=gen)
+    h = LH**-0.5 * torch.randn(LH, device="cuda", generator=gen)
+    n_lib = next_pow2(L + LH - 1)
+    ref = lib_conv(x.double(), h.double(), n_lib, L)
+    for mode in TUNE_MODES:
+        with tune_env(mode):
+            block, made = measured(lambda: tuning.tuned_block(L, LH, B, x.device, mode))
+            label = f"(b) fft_conv_os (32, 1048576) * 4097 tune={mode}"
+            y, peak = held_call(label, lambda: overlap.fft_conv_os(x, h, tune=mode),
+                                plans_launches(rplans(block)))
+            err = full_err(y, ref)
+            check(err <= FFT_TOL, f"{label}: vs the float64 reference {err:.3e} > {FFT_TOL}·max|ref|")
+            del y
+            ms = time_ms(lambda: overlap.fft_conv_os(x, h, tune=mode), reps=3, warmup=1)
+            _, again = measured(lambda: tuning.tuned_block(L, LH, B, x.device, mode))
+            check(again == 0, f"{label}: a second decision measured {again} times")
+            held_call(f"{label} empty batch", lambda: overlap.fft_conv_os(x[:0], h, tune=mode), {})
+            print("tune_conv " + json.dumps({"call": label, "block": block, "measurements": made,
+                                             "rel_err": err, "ms": ms, "call_peak_bytes": peak}),
+                  flush=True)
+
+            sc, made = measured(lambda: overlap.StreamingConv(h, tune=mode, chunk_hint=chunk))
+
+            def ingest(v):
+                state, outs = sc.init_state(v.shape[:-1]), []
+                for i in range(v.shape[-1] // chunk):
+                    yc, state = sc(v[..., i * chunk:(i + 1) * chunk], state)
+                    outs.append(yc)
+                return torch.cat(outs, dim=-1)
+
+            label = f"(c) StreamingConv chunk_hint=65536, 16 chunks tune={mode}"
+            calls = L // chunk
+            y, _ = held_call(label, lambda: ingest(x), plans_launches(rplans(sc.block, calls=(calls, calls))))
+            err = full_err(y, ref)
+            check(err <= FFT_TOL, f"{label}: vs the float64 reference {err:.3e} > {FFT_TOL}·max|ref|")
+            del y
+            ms = time_ms(lambda: ingest(x), reps=3, warmup=1)
+            print("tune_conv " + json.dumps({"call": label, "block": sc.block, "measurements": made,
+                                             "rel_err": err, "ms": ms}), flush=True)
+    del x, ref
+    torch.cuda.empty_cache()
+
+
+def tune_phase(gen) -> None:
+    """Phase 9: every spec in each mode, the tuned convolutions, the stream
+    plan of h2o-danube-1.8b; the shipped seed is set aside so that the
+    first "measure" plan of each spec measures on this card."""
+    seed, tuning._SEED_CACHE = tuning.seed_cache(), {}
+    try:
+        for spec in TUNE_SPECS:
+            print("tune " + json.dumps(tuned_plans(gen, spec)), flush=True)
+        tuned_convs(gen)
+    finally:
+        tuning._SEED_CACHE = seed
+    info = stream_plan_info(serve_config(), batch=SERVE_SLOTS)
+    print("tune_stream_plan " + json.dumps(info), flush=True)
+    # The winners this run measured, beside the shipped seed's.
+    entries = tuning.TuningCache()._read_file(tuning.cache_path())
+    won = {k: v for k, v in entries.items() if v.get("mode") == "measure"}
+    agree = sum(seed.get(k, {}).get("config") == v["config"] for k, v in won.items())
+    print("tune_cache " + json.dumps({"measured": won, "seed_entries": len(seed),
+                                      "seed_agrees": agree}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -1513,23 +1726,34 @@ def main() -> int:
             print("ptxas: " + line.strip(), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # A throwaway tuning cache inside the checkout's build directory.
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(cache_dir, exist_ok=True)
+    os.environ["REPRO_TUNING_CACHE"] = os.path.join(cache_dir, "tuning.json")
+    tuning.cache.clear()
     try:
         ATTRS.update(build.kernel_attributes())
         register_guard()
-        rows = kernel_phase(gen)
-        main = path_launches("main_path", main_path_phase, gen)
-        offsets_phase(gen)
-        real2d = path_launches("real2d", lambda g: calls_phase(g, REAL_2D, "real2d"), gen)
-        any_length = path_launches(
-            "bluestein", lambda g: calls_phase(g, ANY_LENGTH, "any_length"), gen)
+        with tune_env("off"):  # phases 2–8 hold the heuristic plans
+            rows = kernel_phase(gen)
+            main = path_launches("main_path", main_path_phase, gen)
+            offsets_phase(gen)
+            real2d = path_launches("real2d", lambda g: calls_phase(g, REAL_2D, "real2d"), gen)
+            any_length = path_launches(
+                "bluestein", lambda g: calls_phase(g, ANY_LENGTH, "any_length"), gen)
+            with recorded_calls() as seen:
+                convs = path_launches("conv", conv_phase, gen)
+            path_kernel_rows("conv", seen, convs, gen)
+            with recorded_calls() as seen, torch.no_grad():
+                served = path_launches("serve", serve_phase, gen)
+            path_kernel_rows("serve", seen, served, gen)
+        t9 = time.perf_counter()
         with recorded_calls() as seen:
-            convs = path_launches("conv", conv_phase, gen)
-        path_kernel_rows("conv", seen, convs, gen)
-        with recorded_calls() as seen, torch.no_grad():
-            served = path_launches("serve", serve_phase, gen)
-        path_kernel_rows("serve", seen, served, gen)
+            tuned = path_launches("tune", tune_phase, gen)
+        print(f"phase 9: {time.perf_counter() - t9:.1f} s, {len(seen)} distinct kernel calls", flush=True)
+        path_kernel_rows("tune", seen, tuned, gen, timed=False)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
-                    for name in SOURCES}
+                    + tuned[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -1542,6 +1766,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            **{k: r[k] for k in ("library_without_twiddle_ms",) if k in r},
             "registers": r["registers"], "local_bytes": r["local_bytes"],
         })
     print(json.dumps({"kernels": out}), flush=True)

@@ -12,6 +12,10 @@ to find:
   core.fft         FFTSpec / plan() / PlannedFFT over a backend registry
   core.conv        fft_conv, fft_conv2d, fft_conv_packed on the planned FFTs
   core.overlap     overlap-save convolution and StreamingConv
+  core.tuning      the autotuner: modes, roofline pruning, the seeded
+                   persistent cache, CUDA-event measurement on the card
+  analysis         the roofline model: modelled HBM bytes of programs
+  data             package data: the tuner's seed
   kernels.build    nvcc → shared library → ctypes, at first use
   kernels.*        the hand-written sm_90a CUDA kernels, each beside its
                    plain PyTorch version

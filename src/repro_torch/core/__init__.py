@@ -8,9 +8,10 @@
   fft         FFTSpec → plan() → PlannedFFT over a backend registry
   conv        FFT convolution (1-D, 2-D, packed) on the planned FFTs
   overlap     overlap-save convolution and StreamingConv
+  tuning      the autotuner: modes, roofline pruning, the persistent cache
 """
 
-from repro_torch.core import conv, faults, fft, fft_torch, limits, overlap, plan, twiddle
+from repro_torch.core import conv, faults, fft, fft_torch, limits, overlap, plan, tuning, twiddle
 from repro_torch.core.faults import KernelError, PlanError, ReproError
 from repro_torch.core.fft import FFTSpec, PlannedFFT
 from repro_torch.core.plan import FFTPlan, plan_fft
@@ -24,6 +25,7 @@ __all__ = [
     "limits",
     "plan",
     "twiddle",
+    "tuning",
     "KernelError",
     "PlanError",
     "ReproError",

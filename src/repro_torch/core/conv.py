@@ -94,8 +94,9 @@ def fft_conv(
     :func:`repro_torch.core.overlap.fft_conv_os` when the padded length
     would leave the fused one-pass regime (n > ``FUSED_MAX``); ``True``
     forces overlap-save, ``False`` one shot.  ``tune`` is overlap-save's
-    block choice: None or ``"off"``, the fixed heuristic (no tuner is
-    ported: ``"model"`` and ``"measure"`` raise).
+    block decision (:mod:`repro_torch.core.tuning`): ``"off"`` the fixed
+    heuristic, ``"model"`` (the default) the roofline's pick, ``"measure"``
+    the measured winner.
 
     ``h`` is indexed over its last axis and broadcasts against ``x`` with the
     convolution axis moved last: per-channel filters (D, Lh) against

@@ -42,8 +42,15 @@ Complex kinds take complex tensors or split ``(real, imag)`` float32 planes
 and return whichever form was supplied; ``rfft``/``rfft2`` take a real
 signal and return planes, ``irfft``/``irfft2`` take planes (or a complex
 tensor) and return the real signal, as the reference does.  Transforms
-past 2³² points (or Bluestein pads past 2³²) and tuning raise
-``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+past 2³² points (or Bluestein pads past 2³²) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` queue item.
+
+``plan(spec, tune=)`` takes the reference's modes (:mod:`repro_torch.core.tuning`):
+``None`` resolves to ``REPRO_FFT_TUNE``, else ``"model"``.  On the card the
+program comes from the tuner's config (``fused_max``, ``direct_max``,
+``bluestein_pad`` and the column and row passes' ``forms``); the CPU route
+runs the heuristic program whatever the mode, as the reference's ``xla``
+backend does.
 
 ``planned(x, check="nan" | "parseval")`` arms the reference's opt-in
 numerics guards over the result, and :func:`plan_log` records every plan
@@ -55,6 +62,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import json
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -245,9 +253,10 @@ class PlannedFFT:
     """A frozen, executable transform schedule on one device.
 
     Carries the :class:`FFTSpec`, the :class:`Backend`, the
-    :class:`~repro_torch.core.plan.FFTPlan` and the device-resident LUTs of
-    its passes.  The real-packing kinds carry no plan of their own: they
-    hold child handles for their complex transforms and an ``epilogue``
+    :class:`~repro_torch.core.plan.FFTPlan`, the device-resident LUTs of its
+    passes and the tuner's config it was built from (``tuned``; None: the
+    fixed heuristics) with the column and row passes' ``forms``.  The
+    real-packing kinds carry no plan of their own: they hold child handles for their complex transforms and an ``epilogue``
     :class:`~repro_torch.core.plan.Pass` — the Hermitian recombination, one
     kernel launch — with its phasor LUT in ``luts``.  Calling it runs the
     transform; instances are interned by :func:`plan`, so
@@ -256,7 +265,7 @@ class PlannedFFT:
 
     def __init__(self, spec: FFTSpec, backend: Backend, fft_plan: Optional[plan_lib.FFTPlan],
                  device: torch.device, luts: tuple = (), *, children: tuple = (),
-                 epilogue: Optional[plan_lib.Pass] = None):
+                 epilogue: Optional[plan_lib.Pass] = None, tuned: Optional[dict] = None):
         self.spec = spec
         self.backend = backend
         self.fft_plan = fft_plan
@@ -264,17 +273,20 @@ class PlannedFFT:
         self.luts = luts
         self.children = children
         self.epilogue = epilogue
+        #: The tuning config this plan was built from (None: the heuristics).
+        self.tuned = tuned
+        #: Pass index → form of its column or row pass (empty: the table's).
+        self.forms = {int(k): int(v) for k, v in (tuned or {}).get("forms", {}).items()}
+
+    def _key(self) -> tuple:
+        tuned = json.dumps(self.tuned, sort_keys=True) if self.tuned else None
+        return (self.spec, self.backend.name, str(self.device), tuned)
 
     def __hash__(self):
-        return hash((self.spec, self.backend.name, str(self.device)))
+        return hash(self._key())
 
     def __eq__(self, other):
-        return (
-            isinstance(other, PlannedFFT)
-            and self.spec == other.spec
-            and self.backend.name == other.backend.name
-            and self.device == other.device
-        )
+        return isinstance(other, PlannedFFT) and self._key() == other._key()
 
     def __repr__(self):
         return f"PlannedFFT({self.spec}, backend={self.backend.name!r}, device={str(self.device)!r})"
@@ -332,20 +344,41 @@ class PlannedFFT:
         head = f"{spec.kind} {size} backend={self.backend.name} device={self.device}: "
         calls = "; kernels: " + ", ".join(f"pass {i} {k}" for i, k in enumerate(self.kernels))
         if self.fft_plan is not None:
-            return head + plan_lib.describe_program(self.fft_plan) + self._describe_bluestein() + calls
+            return (head + plan_lib.describe_program(self.fft_plan) + self._describe_tuned()
+                    + self._describe_bluestein() + calls)
         text = head + " | ".join(plan_lib.describe_program(c.fft_plan) for c in self.children)
         if self.epilogue is not None:
             text += f"; epilogue pass: {self.epilogue.kind} n={self.epilogue.n}"
         return text + self._describe_bluestein() + calls
 
     def _describe_bluestein(self) -> str:
-        """The chirp convolution's pad and pad ratio, for a plan that runs a
-        Bluestein program (the reference's modelled flops tax needs
-        ``analysis/roofline.py``, which is not ported: ROADMAP A8)."""
+        """The chirp convolution of a plan that runs a Bluestein program: its
+        length, pad and pad ratio, and the reference's modelled tax against
+        a mixed-radix transform (:func:`~repro_torch.analysis.roofline.bluestein_report`)."""
+        from repro_torch.analysis import roofline as rl  # lazy: analysis plans through here
+
         for p in self.passes:
             if p.kind == "bluestein":
-                return f"; bluestein: n={p.n} pad {p.n1} ({p.n1 / p.n:.2f}x)"
+                rep = rl.bluestein_report(p.n, pad=p.n1)
+                return (
+                    f"; bluestein: n={p.n} pad {rep['pad']} ({rep['pad_ratio']:.2f}x), "
+                    f"{rep['flops_overhead']:.1f}x flops vs mixed-radix, "
+                    f"{rep['hbm_round_trips']} hbm round trips"
+                )
         return ""
+
+    def _describe_tuned(self) -> str:
+        """The tuned choices, beside the schedule they shape."""
+        if not self.tuned:
+            return ""
+        parts = [
+            f"fused_max={self.tuned['fused_max']}",
+            f"direct_max={self.tuned.get('direct_max', plan_lib.DIRECT_MAX)}",
+        ]
+        if "bluestein_pad" in self.tuned:
+            parts.append(f"bluestein_pad={self.tuned['bluestein_pad']}")
+        parts += [f"pass {i} form={'slab' if f == 0 else f'2^{f}'}" for i, f in sorted(self.forms.items())]
+        return "; tuned: " + ", ".join(parts)
 
     # -- execution ---------------------------------------------------------
 
@@ -576,7 +609,9 @@ def _check_slice(spec: FFTSpec) -> None:
         size = m if _is_pow2(m) else plan_lib.bluestein_pad(m)
         if size > MAX_N:
             what = f"a {m}-point transform" if size == m else f"a {m}-point transform's Bluestein pad {size}"
-            raise NotImplementedError(f"{what} > 2^32 needs the reorder pass: ROADMAP A3")
+            raise NotImplementedError(
+                f"{what} > 2^32 needs the digit-reversal reorder pass: ROADMAP A, pass-program executor"
+            )
     if spec.precision != "float32":
         raise NotImplementedError(f"precision {spec.precision!r}: only float32 is ported")
 
@@ -586,16 +621,22 @@ def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None) -> Pla
 
     ``device=None`` means the current CUDA device and raises when there is
     none; ``device="cpu"`` runs the plain route.  The device picks the
-    backend.  ``tune`` other than None/"off" (the fixed heuristics) is not
-    ported.
+    backend.  ``tune`` picks how the program's knobs are chosen, as the
+    reference's: ``"off"`` the fixed heuristics, ``"model"`` (the default,
+    also through ``REPRO_FFT_TUNE``) the roofline model's pick with no
+    measurement, ``"measure"`` the winner of the model's survivors timed
+    once on the card and kept in the persistent tuning cache
+    (:mod:`repro_torch.core.tuning`).  Plans are interned per (spec,
+    device, mode).
     """
+    from repro_torch.core import tuning  # lazy: tuning plans through this module
+
     if isinstance(spec, int):
         spec = FFTSpec(n=spec)
-    if tune not in (None, "off"):
-        raise NotImplementedError(f"tune={tune!r}: the autotuner is not ported yet: ROADMAP A3")
+    mode = tuning.resolve_mode(tune)
     _check_slice(spec)
     dev = _resolve_device(device)
-    return _plan_cached(spec, str(dev))
+    return _plan_cached(spec, str(dev), mode)
 
 
 #: Ring-buffer capacity of the plan log.
@@ -622,38 +663,60 @@ def clear_plan_log() -> None:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_cached(spec: FFTSpec, device: str) -> PlannedFFT:
-    planned = _build_plan(spec, device)
+def _plan_cached(spec: FFTSpec, device: str, tune: str = "model") -> PlannedFFT:
+    planned = _build_plan(spec, device, tune)
     _PLAN_LOG.append((spec, planned.backend.name))
     return planned
 
 
-def _build_plan(spec: FFTSpec, device: str) -> PlannedFFT:
+def _tuned_plan(spec: FFTSpec, entry: Backend, dev: torch.device, tune: str):
+    """The program of a complex or 2-D complex spec under ``tune`` and the
+    config it came from: the card's backend builds it from
+    :func:`~repro_torch.core.tuning.plan_config` and checks its forms
+    against the block's shared memory here, at plan time."""
+    from repro_torch.core import limits, tuning
+    from repro_torch.kernels import ops  # lazy: ops imports the kernels
+
+    cfg = tuning.plan_config(spec, entry.name, tune, device=dev)
+    knobs = cfg or {}
+    fused_max = knobs.get("fused_max", plan_lib.FUSED_MAX)
+    direct_max = knobs.get("direct_max", plan_lib.DIRECT_MAX)
+    if spec.n2 is not None:
+        # ONE joint program: rows, then the columns in place (strip-mined
+        # beyond the fused regime); every n2 <= 2^32 compiles jointly.
+        fft_plan = plan_lib.plan_fft2(spec.n, spec.n2, fused_max, direct_max)
+    else:
+        fft_plan = plan_lib.plan_fft(spec.n, fused_max, direct_max, pad=knobs.get("bluestein_pad"))
+    if cfg:
+        forms = {int(k): int(v) for k, v in cfg.get("forms", {}).items()}
+        ops.check_forms(fft_plan, forms, -2 if spec.axis == -2 else -1, limits.memory_budget(dev))
+    return fft_plan, cfg
+
+
+def _build_plan(spec: FFTSpec, device: str, tune: str = "model") -> PlannedFFT:
     from repro_torch.kernels import ops  # lazy: ops imports the kernels
 
     dev = torch.device(device)
     entry = _backend_for(dev)
     kind = spec.kind
-    if kind in _COMPLEX_KINDS:
-        fft_plan = plan_lib.plan_fft(spec.n)
-        luts = ops.plan_luts(fft_plan, kind == "ifft", dev, spec.axis)
-        return PlannedFFT(spec, entry, fft_plan, dev, luts)
-    if kind in ("fft2", "ifft2"):
-        # ONE joint program: rows, then the columns in place (strip-mined
-        # beyond the fused regime); every n2 <= 2^32 compiles jointly.
-        fft_plan = plan_lib.plan_fft2(spec.n, spec.n2)
-        return PlannedFFT(spec, entry, fft_plan, dev, ops.plan_luts(fft_plan, kind == "ifft2", dev))
+    if kind in _COMPLEX_KINDS + ("fft2", "ifft2"):
+        fft_plan, cfg = _tuned_plan(spec, entry, dev, tune)
+        inverse = kind in ("ifft", "ifft2")
+        luts = ops.plan_luts(fft_plan, inverse, dev, spec.axis)
+        return PlannedFFT(spec, entry, fft_plan, dev, luts, tuned=cfg)
 
     inverse = kind in ("irfft", "irfft2")
 
-    def child(n: int, axis: int = -1) -> PlannedFFT:
-        return _plan_cached(FFTSpec(n=n, kind="ifft" if inverse else "fft", axis=axis), device)
+    def child(n: int, axis: int = -1, batch_hint: Optional[int] = None) -> PlannedFFT:
+        return _plan_cached(
+            FFTSpec(n=n, kind="ifft" if inverse else "fft", axis=axis, batch_hint=batch_hint), device, tune
+        )
 
     if kind in ("rfft", "irfft") and spec.n % 2:
         # Odd length: the even/odd packing needs an even split, so the real
         # transform runs as one full-length complex Bluestein child (imaginary
         # plane zero) sliced to the n//2 + 1 bins: no recombination epilogue.
-        return PlannedFFT(spec, entry, None, dev, children=(child(spec.n),))
+        return PlannedFFT(spec, entry, None, dev, children=(child(spec.n, batch_hint=spec.batch_hint),))
     m = spec.n // 2
     bins = (1, 1, m + 1)
     epilogue = plan_lib.Pass(
@@ -664,8 +727,12 @@ def _build_plan(spec: FFTSpec, device: str) -> PlannedFFT:
         order="natural",
     )
     luts = ops.recomb_luts(ops.device_key(dev), spec.n, inverse)
-    # rfft2 / irfft2: the column child runs in place over the m + 1 bins.
-    children = (child(m),) if kind in ("rfft", "irfft") else (child(m), child(spec.n2, axis=-2))
+    # The packed row transform sees the caller's batch; rfft2 / irfft2's
+    # column child runs in place over the m + 1 bins.
+    if kind in ("rfft", "irfft"):
+        children = (child(m, batch_hint=spec.batch_hint),)
+    else:
+        children = (child(m), child(spec.n2, axis=-2))
     return PlannedFFT(spec, entry, None, dev, luts, children=children, epilogue=epilogue)
 
 
@@ -679,7 +746,7 @@ def _pass_program(xr, xi, *, inverse, planned, axis=-1):
     kernel on a CUDA tensor and takes its plain version on a CPU one."""
     from repro_torch.kernels import ops
 
-    return ops.execute_plan(xr, xi, planned.fft_plan, inverse=inverse, axis=axis)
+    return ops.execute_plan(xr, xi, planned.fft_plan, inverse=inverse, axis=axis, forms=planned.forms)
 
 
 register_backend("torch", _pass_program, {"cpu"})

@@ -11,21 +11,25 @@ once and broadcast, and keeps each block's valid tail.
 so chunked calls (serving decode, SAR strip ingest) compose to the one-shot
 result, ragged last chunks and chunks shorter than the filter included.
 
-Deliberate differences from the reference: no autotuner is ported, so
-``tune=None`` and ``"off"`` take :func:`pick_block`'s fixed heuristic and
-``"model"``/``"measure"`` raise ``NotImplementedError`` (ROADMAP A3);
-``spmd=True`` raises as well (ROADMAP A7).  Framing is ``F.pad`` and
-``Tensor.unfold`` (a strided view, materialised once by the plan) where the
-reference gathers.
+With ``block=None`` the block is a tuned decision
+(:func:`repro_torch.core.tuning.tuned_block`), as in the reference:
+``tune="off"`` keeps :func:`pick_block`'s heuristic, ``"model"`` (the
+default) the roofline's modelled minimum, ``"measure"`` the winner timed
+once per (device, L, Lh, batch) and kept in the persistent cache.
+
+Deliberate differences from the reference: ``spmd=True`` raises (ROADMAP
+A7).  Framing is ``F.pad`` and ``Tensor.unfold`` (a strided view,
+materialised once by the plan) where the reference gathers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import faults, tuning
 from repro_torch.core import fft as fft_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.conv import as_filter, as_signal, empty_result, pad_last, resolve_device
@@ -44,8 +48,6 @@ __all__ = [
     "stream_lookahead",
     "StreamingConv",
 ]
-
-TUNE_MODES = ("off", "model", "measure")
 
 
 def pick_block(filter_len: int, block: Optional[int] = None) -> int:
@@ -72,19 +74,18 @@ def pick_block(filter_len: int, block: Optional[int] = None) -> int:
     return max(min(p * OS_FACTOR, plan_lib.FUSED_MAX), 2 * p, 2)
 
 
-def _resolve_block(filter_len: int, block: Optional[int], tune: Optional[str]) -> int:
+def _resolve_block(filter_len: int, block: Optional[int], L: int, batch: int, device,
+                   tune: Optional[str], chunk: Optional[int] = None) -> int:
     """The block an overlap-save call uses: an explicit ``block`` is
-    validated and wins; otherwise the fixed heuristic (``tune`` None or
-    ``"off"``)."""
+    validated and wins; otherwise the tuner decides for a ``(batch, L)``
+    signal on ``device`` (``"off"`` or a one-tap filter: :func:`pick_block`).
+    ``chunk`` keys the decision to a streaming call grain."""
     if block is not None:
         return pick_block(filter_len, block)
-    if tune is not None and tune not in TUNE_MODES:
-        raise faults.PlanError(f"tune must be one of {TUNE_MODES}, got {tune!r}")
-    if tune in ("model", "measure"):
-        raise NotImplementedError(
-            f"tune={tune!r}: the overlap-save block autotuner is not ported yet: ROADMAP A3"
-        )
-    return pick_block(filter_len)
+    mode = tuning.resolve_mode(tune)
+    if mode == "off" or filter_len < 2:
+        return pick_block(filter_len)
+    return tuning.tuned_block(L, filter_len, batch, device, mode, chunk=chunk)
 
 
 def frame_signal(x: torch.Tensor, block: int, step: int, num_blocks: int) -> torch.Tensor:
@@ -143,7 +144,8 @@ def fft_conv_os(
 
     Matches :func:`repro_torch.core.conv.fft_conv` at tolerance while never
     planning a transform longer than the block (≤ ``FUSED_MAX`` by default).
-    ``h`` broadcasts as in ``fft_conv``.
+    ``h`` broadcasts as in ``fft_conv``.  ``block=None``: the tuned block
+    (``tune``, see the module docstring).
     """
     dev = resolve_device(x, device)
     x = as_signal(x, dev)
@@ -151,7 +153,8 @@ def fft_conv_os(
     x = x.to(torch.float32).movedim(axis, -1)
     h = as_filter(h, dev)
     L, Lh = x.shape[-1], h.shape[-1]
-    B = _resolve_block(Lh, block, tune)
+    batch = math.prod(x.shape[:-1])
+    B = _resolve_block(Lh, block, L, batch, dev, tune)
     overlap = Lh - 1
     step = B - overlap
     L_out = L if causal else L + Lh - 1
@@ -207,12 +210,14 @@ class StreamingConv:
         y2, state = sc(x[..., 4096:], state)
         # torch.cat([y1, y2], -1) == fft_conv_os(x, h)
 
-    The block is fixed at construction (:func:`pick_block`, or ``block=``)
-    and the filter's spectrum is computed here once: per-chunk work is the
-    chunk's own frames.  ``device``: as the convolutions' (the filter
-    tensor's own device, the card for a host array).  ``tune`` other than
-    None/``"off"`` and ``spmd=True`` raise: neither the tuner nor the
-    distributed engine is ported.
+    The block is fixed at construction and the filter's spectrum is
+    computed here once: per-chunk work is the chunk's own frames.  With
+    ``block=None`` the block is tuned as :func:`fft_conv_os`'s; ``chunk_hint``
+    is the expected chunk length, to which the decision is keyed (its
+    measurement times chunk calls); without it the tuner models a long
+    ingest of 8 heuristic blocks.  ``device``: as the convolutions' (the
+    filter tensor's own device, the card for a host array).  ``spmd=True``
+    raises: the distributed engine is not ported.
     """
 
     def __init__(
@@ -222,6 +227,7 @@ class StreamingConv:
         block: Optional[int] = None,
         device=None,
         tune: Optional[str] = None,
+        chunk_hint: Optional[int] = None,
         spmd: bool = False,
     ):
         if spmd:
@@ -233,7 +239,9 @@ class StreamingConv:
         self.h = as_filter(h, self.device)
         self.filter_len = int(self.h.shape[-1])
         self.overlap = self.filter_len - 1
-        self.block = _resolve_block(self.filter_len, block, tune)
+        self.chunk_hint = chunk_hint
+        L_tune = chunk_hint or 8 * pick_block(self.filter_len)
+        self.block = _resolve_block(self.filter_len, block, L_tune, 1, self.device, tune, chunk=chunk_hint)
         self._Hr, self._Hi = filter_spectrum(self.h, self.block, self.device)
 
     def init_state(self, lead: tuple = (), dtype=torch.float32) -> torch.Tensor:

@@ -22,6 +22,9 @@ call (one HBM round trip):
   :func:`~repro_torch.kernels.pencil.cols_natural_call` for the last factor
   of strip-mined columns, which writes the n2 axis in natural order.
 
+A tuned plan's ``forms`` (pass index → form, :func:`check_forms`) pick the
+column and row passes' on-chip tile or slab on the card.
+
 Between passes there are views only (``Tensor.view``) — no transpose, copy
 or twiddle multiply of its own.  The one exception is the reference's: a
 multi-pass plan run down ``axis=-2`` of a 1-D spec goes through a transpose
@@ -62,6 +65,8 @@ __all__ = [
     "recomb_luts",
     "pass_kernel",
     "plan_kernels",
+    "form_passes",
+    "check_forms",
     "execute_program",
     "execute_program2d",
     "execute_plan",
@@ -146,12 +151,14 @@ def _pass_inverse(p: plan_lib.Pass, inverse: bool) -> bool:
 def _check_supported(p: plan_lib.Pass) -> None:
     if p.kind == "reorder":
         raise NotImplementedError(
-            "the digit-reversal reorder pass (n > 2^32) is not ported yet: ROADMAP A3"
+            "the digit-reversal reorder pass (n > 2^32) is not ported yet: "
+            "ROADMAP A, pass-program executor"
         )
     pencils, stride, _f = p.view_in
     if pencils > 1 and stride == 1 and p.view_out == p.view_in:
         raise NotImplementedError(
-            "pencil-order row passes (order='pencil' programs) are not ported yet: ROADMAP A3"
+            "pencil-order row passes (order='pencil' programs) are not ported yet: "
+            "ROADMAP A, pass-program executor"
         )
 
 
@@ -176,6 +183,39 @@ def plan_kernels(fft_plan: plan_lib.FFTPlan, axis: int = -1) -> tuple:
     if axis == -2 and fft_plan.n2 is None and len(fft_plan.passes) == 1:
         return ("cols_pass",)  # one in-place whole-column pass
     return tuple(pass_kernel(p) for p in fft_plan.passes)
+
+
+def form_passes(fft_plan: plan_lib.FFTPlan, axis: int = -1) -> dict:
+    """``{pass index: (kernel, f)}`` of the passes that take a form (the
+    column and row passes, :data:`~repro_torch.kernels.pencil.FORMS`) when
+    ``fft_plan`` runs over ``axis``; a one-pass plan down axis -2 is one
+    whole-column pass of length n."""
+    kernels = plan_kernels(fft_plan, axis)
+    out = {}
+    for i, (p, kernel) in enumerate(zip(fft_plan.passes, kernels)):
+        if kernel in ("cols_pass", "rows_natural", "cols_natural"):
+            out[i] = (kernel, p.view_in[2] if p.view_in else p.n)
+    return out
+
+
+def check_forms(fft_plan: plan_lib.FFTPlan, forms: dict, axis: int = -1, budget=None) -> None:
+    """Raise :class:`~repro_torch.core.faults.PlanError` unless every entry of
+    ``forms`` (pass index → form) names a column or row pass of the program,
+    fits its length, and takes no more shared memory than ``budget`` bytes
+    (None: no limit)."""
+    takes = form_passes(fft_plan, axis)
+    for i, form in forms.items():
+        if i not in takes:
+            raise faults.PlanError(f"pass {i} takes no form: the forms are for passes {sorted(takes)}")
+        kernel, f = takes[i]
+        if not pencil.form_fits(f, form):
+            raise faults.PlanError(f"pass {i} ({kernel}, f={f}): form {form} does not fit; "
+                                   f"one of {pencil.FORMS} with room for f")
+        if budget is not None and pencil.form_smem_bytes(form) > budget:
+            raise faults.PlanError(
+                f"pass {i} ({kernel}, f={f}): form {form} takes {pencil.form_smem_bytes(form)} B "
+                f"of shared memory, the block may take {budget} B"
+            )
 
 
 def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1) -> tuple:
@@ -209,10 +249,11 @@ def _bluestein_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     return call(xr, xi, luts, in1=plan_lib._leaf_pass(p.n1).n1, **kw)
 
 
-def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
+def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None) -> Planes:
     """One row-axis program pass over (B, width) split planes: exactly one
     kernel call.  A pass that pins its direction (:attr:`Pass.inverse`, the
-    inner conv of a split-regime Bluestein program) runs in it."""
+    inner conv of a split-regime Bluestein program) runs in it; ``form`` is
+    a column or row pass's tuned form (None: the table's)."""
     kernel = pass_kernel(p)
     faults.maybe_fail("kernel.launch", backend=xr.device.type, pass_kind=p.kind)
     inverse = _pass_inverse(p, inverse)
@@ -233,6 +274,7 @@ def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
         # (b, p, f) → (b, f, p) flattens to natural order.
         yr, yi = pencil.rows_natural_call(
             xr.view(b, pencils, f), xi.view(b, pencils, f), *roots, n1=p.n1, inverse=inverse,
+            tile=form,
         )
         return yr.view(b, n), yi.view(b, n)
     groups = pencils // stride
@@ -241,12 +283,12 @@ def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
         twiddle = _pass_twiddle_luts(dev, *p.twiddle_after, inverse)
     yr, yi = pencil.cols_pass_call(
         xr.view(b * groups, f, stride), xi.view(b * groups, f, stride), *roots, twiddle,
-        n1=p.n1, inverse=inverse,
+        n1=p.n1, inverse=inverse, tile=form,
     )
     return yr.view(b, n), yi.view(b, n)
 
 
-def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
+def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None) -> Planes:
     """Column pass of a 2-D program: transform axis -2 of the (B, rows, w)
     image through the column kernels, over the whole width at once (any
     width: the kernel handles a ragged last chunk, so the reference's pad
@@ -258,7 +300,7 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     the strided factor runs in place on the (B, f, stride·w) view with its
     (f, stride) twiddle broadcast over runs of w columns, and the last
     factor writes (B, P, f, w) as (B, f, P, w), the n2 axis in natural
-    order."""
+    order.  ``form`` as :func:`_apply_pass`'s."""
     kernel = pass_kernel(p)
     faults.maybe_fail("kernel.launch", backend=xr.device.type, pass_kind=p.kind)
     dev = device_key(xr.device)
@@ -266,7 +308,7 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     pencils, stride, f = p.view_in
     if pencils == 1 or f == rows:
         return pencil.cols_pass_call(xr, xi, *_roots_luts(dev, f, inverse), n1=p.n1,
-                                     inverse=inverse)
+                                     inverse=inverse, tile=form)
     if kernel == "cols_pass":
         # Strided column factor (strip-mined columns have two factors):
         # n2-index t·stride + r, transform over t; the twiddle phase depends
@@ -276,24 +318,28 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
             twiddle = _pass_twiddle_luts(dev, *p.twiddle_after, inverse)
         yr, yi = pencil.cols_pass_call(
             xr.view(b, f, stride * w), xi.view(b, f, stride * w), *_roots_luts(dev, f, inverse),
-            twiddle, n1=p.n1, inverse=inverse, tw_every=w,
+            twiddle, n1=p.n1, inverse=inverse, tw_every=w, tile=form,
         )
     else:
         yr, yi = pencil.cols_natural_call(
             xr.view(b, pencils, f, w), xi.view(b, pencils, f, w), *_roots_luts(dev, f, inverse),
-            n1=p.n1, inverse=inverse,
+            n1=p.n1, inverse=inverse, tile=form,
         )
     return yr.view(b, rows, w), yi.view(b, rows, w)
 
 
-def execute_program(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False) -> Planes:
-    """Walk a linearized pass program over 2-D (B, n) split planes."""
-    for p in passes:
-        xr, xi = _apply_pass(xr, xi, p, inverse)
+def execute_program(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False,
+                    forms=None) -> Planes:
+    """Walk a linearized pass program over 2-D (B, n) split planes;
+    ``forms`` maps a pass index to its form (see :func:`form_passes`)."""
+    forms = forms or {}
+    for i, p in enumerate(passes):
+        xr, xi = _apply_pass(xr, xi, p, inverse, forms.get(i))
     return xr, xi
 
 
-def execute_program2d(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False) -> Planes:
+def execute_program2d(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False,
+                      forms=None) -> Planes:
     """Walk a mixed-axis pass program over 3-D (B, n2, n) image planes.
 
     ``axis=-1`` passes run the 1-D machinery over the (B·n2, width) row
@@ -301,13 +347,14 @@ def execute_program2d(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool 
     :func:`_cols_image_pass`.  The row → column handoff is a view: a planned
     ``fft2`` is exactly its rows' and columns' kernel calls.  The row width
     is read from each pass's output: a Bluestein row program changes it
-    mid-program (n → M → n)."""
-    for p in passes:
+    mid-program (n → M → n).  ``forms`` as :func:`execute_program`'s."""
+    forms = forms or {}
+    for i, p in enumerate(passes):
         b, rows, n = xr.shape
         if p.axis == -2:
-            xr, xi = _cols_image_pass(xr, xi, p, inverse)
+            xr, xi = _cols_image_pass(xr, xi, p, inverse, forms.get(i))
             continue
-        yr, yi = _apply_pass(xr.view(b * rows, n), xi.view(b * rows, n), p, inverse)
+        yr, yi = _apply_pass(xr.view(b * rows, n), xi.view(b * rows, n), p, inverse, forms.get(i))
         w = yr.shape[-1]
         xr, xi = yr.view(b, rows, w), yi.view(b, rows, w)
     return xr, xi
@@ -333,14 +380,17 @@ def _lead(shape) -> int:
     return int(np.prod(shape)) if shape else 1
 
 
-def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, axis: int = -1) -> Planes:
+def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, axis: int = -1,
+                 forms=None) -> Planes:
     """Execute ``fft_plan`` over ``axis`` (-1 or -2) of split float32 planes
     with any leading batch dims.
 
     A multi-axis plan (``fft_plan.n2`` set) takes (..., n2, n) images and
     walks its joint program with :func:`execute_program2d`.  ``axis=-2``
     runs a one-pass plan as one in-place column pass and a longer plan
-    through the reference's transpose sandwich."""
+    through the reference's transpose sandwich.  ``forms`` (pass index →
+    form, :func:`check_forms`) picks the column and row passes' forms on
+    the card; the plain versions have none, so the CPU route ignores it."""
     # The planes go to the first pass as contiguous temporaries (no name
     # here keeps them alive past it).
     if xi.shape != xr.shape:
@@ -357,7 +407,7 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
         b = _lead(lead)
         yr, yi = execute_program2d(
             xr.contiguous().view(b, rows, n), xi.contiguous().view(b, rows, n),
-            fft_plan.passes, inverse=inverse,
+            fft_plan.passes, inverse=inverse, forms=forms,
         )
         return yr.view(*lead, rows, n), yi.view(*lead, rows, n)
     if axis == -2:
@@ -369,10 +419,11 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
             b = _lead(lead)
             yr, yi = _cols_image_pass(
                 xr.contiguous().view(b, n, q), xi.contiguous().view(b, n, q),
-                _cols_plan_pass(fft_plan, q), inverse,
+                _cols_plan_pass(fft_plan, q), inverse, (forms or {}).get(0),
             )
             return yr.view(*lead, n, q), yi.view(*lead, n, q)
-        yr, yi = execute_plan(xr.transpose(-1, -2), xi.transpose(-1, -2), fft_plan, inverse=inverse)
+        yr, yi = execute_plan(xr.transpose(-1, -2), xi.transpose(-1, -2), fft_plan, inverse=inverse,
+                              forms=forms)
         return yr.transpose(-1, -2).contiguous(), yi.transpose(-1, -2).contiguous()
     if axis != -1:
         raise faults.PlanError(f"execute_plan handles axis -1 or -2, got {axis}")
@@ -382,6 +433,7 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
     lead = xr.shape[:-1]
     b = _lead(lead)
     yr, yi = execute_program(
-        xr.contiguous().view(b, n), xi.contiguous().view(b, n), fft_plan.passes, inverse=inverse
+        xr.contiguous().view(b, n), xi.contiguous().view(b, n), fft_plan.passes, inverse=inverse,
+        forms=forms,
     )
     return yr.view(*lead, n), yi.view(*lead, n)

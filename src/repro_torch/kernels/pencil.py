@@ -62,6 +62,10 @@ from repro_torch.kernels import build
 
 __all__ = [
     "COUNTS",
+    "FORMS",
+    "form_fits",
+    "form_smem_bytes",
+    "table_form",
     "cols_pass_plain",
     "cols_pass_call",
     "cols_natural_plain",
@@ -110,6 +114,37 @@ SLAB_MIN_F = 1024
 #: Columns (rows) per block of the slab form: one 32-byte sector per plane.
 SLAB_GROUP = 8
 
+#: Every form a column or row pass can take, smallest first: the on-chip
+#: tiles of 2^12, 2^13 and 2^14 points, then the slab.  The tuner's
+#: candidates for a pass are the table's form and its neighbours here.
+FORMS = (12, 13, 14, SLAB)
+
+#: log2 of the points of the slab form's on-chip tiles (radix.cuh SL_LGM).
+SLAB_TILE = 13
+
+
+def table_form(kernel: str, f: int) -> int:
+    """The form :data:`COLS_TILE` (the column passes) or :data:`ROWS_TILE`
+    (``rows_natural``) gives a length-f pass."""
+    return (ROWS_TILE if kernel == "rows_natural" else COLS_TILE)[f.bit_length() - 1]
+
+
+def form_fits(f: int, form: int) -> bool:
+    """Whether a length-f pass can run in ``form``: an on-chip tile holds at
+    least one whole signal; the slab's four-step factors lie in
+    :data:`SLAB_FACTORS`."""
+    if form == SLAB:
+        return SLAB_MIN_F <= f <= MAX_F
+    return form in FORMS and f <= 1 << form
+
+
+def form_smem_bytes(form: int) -> int:
+    """Shared memory one block of ``form`` takes: the exchange buffer of its
+    tile, both planes padded by one word per 32 (radix.cuh
+    ``radix_smem_bytes``)."""
+    m = 1 << (SLAB_TILE if form == SLAB else form)
+    return 2 * (m + (m >> 5)) * 4
+
 _P = build.PTR
 _I = build.I64
 _COLS = (_I,) * 7 + (_P,) * 11
@@ -123,11 +158,12 @@ def _check_tw_every(s: int, tw_every: int) -> None:
         raise PlanError(f"cols_pass: tw_every={tw_every} must divide the width {s}")
 
 
-def _check_radix(name, xr, xi, x_shape, rr, ri, f, n1, twiddle=None, tw_shape=None):
+def _check_radix(name, xr, xi, x_shape, rr, ri, f, n1, twiddle=None, tw_shape=None, tile=None):
     """The radix passes' operands: a power-of-two f up to :data:`MAX_F`
-    (rows: at least 2), its (f,) roots table, and a slab factor n1 (0: the
-    balanced split) whose two factors lie in :data:`SLAB_FACTORS`; the
-    input planes of shape ``x_shape``."""
+    (rows: at least 2), its (f,) roots table, a slab factor n1 (0: the
+    balanced split) whose two factors lie in :data:`SLAB_FACTORS`, a form
+    (None: the table's) that fits f; the input planes of shape
+    ``x_shape``."""
     least = 2 if name == "rows_natural" else 1
     if f < least or f & (f - 1) or f > MAX_F:
         raise PlanError(f"{name}: length {f} is not a power of two from {least} to {MAX_F}")
@@ -135,6 +171,8 @@ def _check_radix(name, xr, xi, x_shape, rr, ri, f, n1, twiddle=None, tw_shape=No
     if n1 and (n1 & (n1 - 1) or not lo <= n1 <= hi or not lo <= f // n1 <= hi):
         raise PlanError(f"{name}: n1={n1} is not a power-of-two factor of f={f} "
                         f"with both factors from {lo} to {hi}")
+    if tile is not None and not form_fits(f, tile):
+        raise PlanError(f"{name}: form {tile} does not fit length {f}; one of {FORMS}")
     ops = {"xr": (xr, x_shape), "xi": (xi, x_shape), "rr": (rr, (f,)), "ri": (ri, (f,))}
     if twiddle is not None:
         ops.update(tr=(twiddle[0], tw_shape), ti=(twiddle[1], tw_shape))
@@ -181,7 +219,7 @@ def cols_pass_plain(xr, xi, rr, ri, twiddle=None, *, inverse=False, tw_every: in
 
 
 def cols_pass_call(xr, xi, rr, ri, twiddle=None, *, n1: int = 0, inverse=False,
-                   tw_every: int = 1):
+                   tw_every: int = 1, tile=None):
     """Strided-column transform pass: x (R, f, s) → y (R, f, s) with
     ``y[r, :, c] = FFT_f(x[r, :, c]) ⊙ T[:, c // tw_every]`` (scaled by 1/f
     for ``inverse``), f a power of two up to 65536.
@@ -189,21 +227,23 @@ def cols_pass_call(xr, xi, rr, ri, twiddle=None, *, n1: int = 0, inverse=False,
     ``rr``, ``ri`` — the (f,) roots table of the direction; ``twiddle`` —
     the (f, s / tw_every) inter-factor grid as split planes, or None;
     ``n1`` — the planner's first factor, the four-step split of the slab
-    form (0: the balanced split).
+    form (0: the balanced split); ``tile`` — the form (one of
+    :data:`FORMS`; None: :data:`COLS_TILE`'s), which the plain version
+    has no use for.
     """
     r, f, s = xr.shape
     _check_tw_every(s, tw_every)
-    _check_radix("cols_pass", xr, xi, (r, f, s), rr, ri, f, n1, twiddle, (f, s // tw_every))
+    _check_radix("cols_pass", xr, xi, (r, f, s), rr, ri, f, n1, twiddle, (f, s // tw_every), tile)
     if xr.device.type == "cpu":
         return cols_pass_plain(xr, xi, rr, ri, twiddle, inverse=inverse, tw_every=tw_every)
-    return _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1, tw_every)
+    return _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1, tw_every, tile)
 
 
 @build.on_device
 def _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1=0, tw_every=1, tile=None):
     """The launch; ``tile`` (12, 13, 14: the on-chip tile's log2 points, or
-    :data:`SLAB`) overrides :data:`COLS_TILE`'s form, for the tests and the
-    form sweep of ``scripts/kernel_ab.py``."""
+    :data:`SLAB`) overrides :data:`COLS_TILE`'s form: a tuned plan's form,
+    the tests' and the form sweep of ``scripts/kernel_ab.py``."""
     r, f, s = xr.shape
     tile = _tile_for(COLS_TILE, f, tile)
     yr = torch.empty_like(xr)
@@ -246,17 +286,17 @@ def cols_natural_plain(xr, xi, rr, ri, *, inverse=False):
     return yr.contiguous(), yi.contiguous()
 
 
-def cols_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False):
+def cols_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False, tile=None):
     """Final column pass of a strip-mined 2-D program with the n2-axis digit
     transpose fused into its write: x (B, P, f, w) → y (B, f, P, w),
     ``y[b, k, p, :] = FFT_f(x[b, p, :, :], axis=0)[k]`` (scaled by 1/f for
-    ``inverse``), f a power of two up to 65536.  ``rr``, ``ri``, ``n1`` as
-    :func:`cols_pass_call`'s."""
+    ``inverse``), f a power of two up to 65536.  ``rr``, ``ri``, ``n1`` and
+    ``tile`` as :func:`cols_pass_call`'s."""
     b, pp, f, w = xr.shape
-    _check_radix("cols_natural", xr, xi, (b, pp, f, w), rr, ri, f, n1)
+    _check_radix("cols_natural", xr, xi, (b, pp, f, w), rr, ri, f, n1, tile=tile)
     if xr.device.type == "cpu":
         return cols_natural_plain(xr, xi, rr, ri, inverse=inverse)
-    return _launch_cols_natural(xr, xi, rr, ri, inverse, n1)
+    return _launch_cols_natural(xr, xi, rr, ri, inverse, n1, tile)
 
 
 @build.on_device
@@ -294,16 +334,17 @@ def rows_natural_plain(xr, xi, rr, ri, *, inverse=False):
     return yr, yi
 
 
-def rows_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False):
+def rows_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False, tile=None):
     """Contiguous-row transform pass with the natural-order transpose fused
     into its write: x (B, p, f) → y (B, f, p), y[b, k, q] = FFT_f(x[b, q])[k]
     (scaled by 1/f for ``inverse``), f a power of two from 2 to 65536.
-    ``rr``, ``ri``, ``n1`` as :func:`cols_pass_call`'s."""
+    ``rr``, ``ri``, ``n1`` and ``tile`` (None: :data:`ROWS_TILE`'s) as
+    :func:`cols_pass_call`'s."""
     b, pp, f = xr.shape
-    _check_radix("rows_natural", xr, xi, (b, pp, f), rr, ri, f, n1)
+    _check_radix("rows_natural", xr, xi, (b, pp, f), rr, ri, f, n1, tile=tile)
     if xr.device.type == "cpu":
         return rows_natural_plain(xr, xi, rr, ri, inverse=inverse)
-    return _launch_rows(xr, xi, rr, ri, inverse, n1)
+    return _launch_rows(xr, xi, rr, ri, inverse, n1, tile)
 
 
 @build.on_device

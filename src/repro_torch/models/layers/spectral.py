@@ -41,6 +41,7 @@ __all__ = [
     "SpectralCache",
     "SpectralStreamCache",
     "stream_grain",
+    "stream_plan_info",
 ]
 
 DECODE_MODES = ("stream", "ring")
@@ -79,6 +80,27 @@ def stream_grain(filter_len: int, decode_chunk: int = 0) -> Tuple[int, int]:
     single frame through one cached rfft/irfft pair."""
     c = decode_chunk or max(8, next_pow2(filter_len) // 4)
     return c, next_pow2(max(filter_len - 1 + c, 2))
+
+
+def stream_plan_info(cfg, batch: int = 1) -> dict:
+    """The streaming decode's plan metadata for a ``ModelConfig``: the
+    decode grain, the flush plan's schedule and the modelled HBM bytes of
+    one flush at that grain (:func:`repro_torch.analysis.roofline.conv_report`),
+    as the reference's."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.core import plan as plan_lib
+
+    lf = cfg.spectral_filter_len
+    c, block = stream_grain(lf, cfg.spectral_decode_chunk)
+    report = rl.conv_report(lf - 1 + c, lf, batch=batch, block=block)
+    return {
+        "filter_len": lf,
+        "chunk": c,
+        "block": block,
+        "flushes_per_token": 1.0 / c,
+        "flush_schedule": plan_lib.describe(block),
+        "flush_hbm_bytes": report["overlap_save"]["hbm_bytes"],
+    }
 
 
 class SpectralMixer(nn.Module):

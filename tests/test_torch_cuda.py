@@ -450,3 +450,30 @@ def test_served_lm_on_the_card(dev):
 
     _card_vs_cpu(run)
     assert served["cuda"] == served["cpu"]
+
+
+def test_measured_plan_matches_the_heuristic_plan(dev, tmp_path, monkeypatch):
+    # tune="measure" times its candidates on the card (CUDA events) and
+    # returns a plan whose output is the heuristic plan's; planning it
+    # again measures nothing.
+    from repro_torch.core import tuning
+
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
+    tuning.cache.clear()
+    tuning.clear_measure_log()
+    for spec in (F.FFTSpec(1024, batch_hint=256), F.FFTSpec(1 << 17, kind="ifft", batch_hint=4),
+                 F.FFTSpec(512, kind="fft2", n2=1 << 17, batch_hint=1)):
+        measured = F.plan(spec, device=dev, tune="measure")
+        off = F.plan(spec, device=dev, tune="off")
+        assert measured.tuned is not None and off.tuned is None
+        shape = (1, spec.n2, spec.n) if spec.n2 else (spec.batch_hint, spec.n)
+        x = torch.complex(*_planes(dev, *shape))
+        got, want = measured(x), off(x)
+        _close((got.real, got.imag), (want.real, want.imag))
+        logged = len(tuning.measure_log())
+        assert logged > 0
+        monkeypatch.setattr(tuning, "cache", tuning.TuningCache())  # a fresh object reads the file
+        F._plan_cached.cache_clear()
+        F.plan(spec, device=dev, tune="measure")
+        assert len(tuning.measure_log()) == logged
+    tuning.cache.clear()

@@ -76,18 +76,22 @@ def test_plans_are_interned_and_describe_their_kernels():
     assert "2 HBM round trip" in text and "pass 0 cols_pass" in text and "pass 1 rows_natural" in text
 
 
+#: The queue item that the reorder pass (n > 2^32) waits for.
+EXECUTOR = "A, pass-program executor"
+
+
 @pytest.mark.parametrize(
     "spec,item",
     [
         # Non-power-of-two lengths whose Bluestein pad passes 2^32.
-        (F.FFTSpec((1 << 32) + 1, kind="rfft"), "A3"),
-        (F.FFTSpec((1 << 32) + 1, kind="irfft"), "A3"),
-        (F.FFTSpec((1 << 31) + 1, kind="fft2", n2=8), "A3"),
-        (F.FFTSpec(16, kind="irfft2", n2=1 << 33), "A3"),
-        (F.FFTSpec(1 << 34, kind="rfft"), "A3"),
-        (F.FFTSpec((1 << 31) + 1), "A3"),
-        (F.FFTSpec(1 << 33), "A3"),
-        (F.FFTSpec((1 << 31) + 1, axis=-2), "A3"),
+        (F.FFTSpec((1 << 32) + 1, kind="rfft"), EXECUTOR),
+        (F.FFTSpec((1 << 32) + 1, kind="irfft"), EXECUTOR),
+        (F.FFTSpec((1 << 31) + 1, kind="fft2", n2=8), EXECUTOR),
+        (F.FFTSpec(16, kind="irfft2", n2=1 << 33), EXECUTOR),
+        (F.FFTSpec(1 << 34, kind="rfft"), EXECUTOR),
+        (F.FFTSpec((1 << 31) + 1), EXECUTOR),
+        (F.FFTSpec(1 << 33), EXECUTOR),
+        (F.FFTSpec((1 << 31) + 1, axis=-2), EXECUTOR),
     ],
 )
 def test_unported_specs_raise(spec, item):
@@ -101,9 +105,17 @@ def test_numerics_guards_and_tuning_raise():
         planned(torch.zeros(2, 16), check="bogus")
     with pytest.raises(faults.PlanError, match="complex kinds"):
         planned(torch.zeros(2, 16), check="parseval")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        F.plan(F.FFTSpec(16), device="cpu", tune="measure")
-    assert F.plan(F.FFTSpec(16), device="cpu", tune="off") is F.plan(F.FFTSpec(16), device="cpu")
+    # Every tune mode plans; the CPU route is untuned (the reference's xla
+    # backend), so each mode runs the heuristic program, interned per mode.
+    with pytest.raises(faults.PlanError, match="tune must be"):
+        F.plan(F.FFTSpec(16), device="cpu", tune="fastest")
+    measured = F.plan(F.FFTSpec(16), device="cpu", tune="measure")
+    off = F.plan(F.FFTSpec(16), device="cpu", tune="off")
+    assert measured is F.plan(F.FFTSpec(16), device="cpu", tune="measure")
+    assert measured.tuned is None and off.tuned is None
+    assert measured.passes == off.passes
+    x = torch.randn(3, 16, dtype=torch.complex64)
+    assert torch.equal(measured(x), off(x))
 
 
 def test_plan_without_a_device_needs_the_card(monkeypatch):

@@ -5,7 +5,7 @@ Mirrors ``tests/test_overlap.py``: block sizing and framing against the
 reference's, ``fft_conv_os`` against the reference (``backend="xla"``,
 ``tune="off"``) and against the one-shot conv, the plan log's proof that
 nothing is planned past ``FUSED_MAX``, StreamingConv's schedules against
-one shot, and the deliberate ``tune``/``spmd`` difference.
+one shot, the tuned blocks, and the deliberate ``spmd`` difference.
 """
 
 import functools
@@ -57,9 +57,13 @@ def _new_specs(snapshot):
 
 
 @pytest.mark.parametrize("lh", [1, 2, 17, 129, 1024, 4097, plan_lib.FUSED_MAX // 2 + 1])
-def test_pick_block_is_the_reference_one(lh):
+def test_pick_block_is_the_reference_one(lh, monkeypatch):
     assert O.pick_block(lh) == ref_ov.pick_block(lh)
-    assert O._resolve_block(lh, None, "off") == O.pick_block(lh) == O._resolve_block(lh, None, None)
+    L = 2**16
+    assert O._resolve_block(lh, None, L, 1, "cpu", "off") == O.pick_block(lh)
+    # tune=None is the model's pick in both packages.
+    monkeypatch.delenv("REPRO_FFT_TUNE", raising=False)
+    assert O._resolve_block(lh, None, L, 1, "cpu", None) == ref_ov._resolve_block(lh, None, L, 1, "xla", None)
 
 
 def test_pick_block_defaults():
@@ -250,7 +254,7 @@ def _ref_stream(sc, x, schedule):
 def test_streaming_matches_one_shot(schedule):
     L, Lh = sum(schedule), 129
     x, h = _real((2, L)), _real((Lh,), seed=1)
-    sc = O.StreamingConv(_t(h))
+    sc = O.StreamingConv(_t(h), tune="off")
     assert sc.block == ref_ov.StreamingConv(jnp.asarray(h), tune="off").block
     y_stream, state = _stream(sc, x, schedule)
     assert tuple(state.shape) == (2, Lh - 1)
@@ -318,21 +322,32 @@ def test_streaming_empty_batch_runs_nothing():
 
 
 # ---------------------------------------------------------------------------
-# the deliberate differences: no tuner, no spmd
+# tuned blocks and the deliberate difference: no spmd
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("tune", ["model", "measure"])
-def test_tuning_modes_raise(tune):
+def test_tuning_modes_raise(tune, tmp_path, monkeypatch):
+    # Once a refusal, now the tuned result: the block is the tuner's pick
+    # (model: the reference's own; measure: timed on the CPU), the output
+    # the heuristic block's at tolerance.
+    from repro.core import tuning as ref_tuning
+    from repro_torch.core import tuning
+
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
+    tuning.cache.clear()
     x, h = _t(_real((1, 2**16))), _t(_real((129,), seed=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        O.fft_conv_os(x, h, tune=tune)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        C.fft_conv(x, h, tune=tune)  # auto-routed to overlap-save
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        O.StreamingConv(h, tune=tune)
+    blk = tuning.tuned_block(2**16, 129, 1, "cpu", tune)
+    if tune == "model":
+        assert blk == ref_tuning.tuned_block(2**16, 129, 1, "xla", "model")
+    off = O.fft_conv_os(x, h, tune="off")
+    assert _rel(O.fft_conv_os(x, h, tune=tune), off.numpy()) <= TOL
+    assert _rel(C.fft_conv(x, h, tune=tune), off.numpy()) <= TOL  # auto-routed to overlap-save
+    assert O.StreamingConv(h, tune=tune).block == tuning.tuned_block(
+        8 * O.pick_block(129), 129, 1, "cpu", tune)
     # An explicit block needs no tuner, as in the reference.
     assert O.StreamingConv(h, tune=tune, block=512).block == 512
+    tuning.cache.clear()
 
 
 def test_unknown_tune_and_spmd_raise():
