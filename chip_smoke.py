@@ -77,14 +77,33 @@ package), in phases, and fails on the first check that does not hold:
    second ``plan()`` and one through a fresh ``TuningCache`` over the same
    file make none.  Then each distinct kernel call the phase made, every
    form the tuner timed included, against its plain version
-   ("kernel_check ... tune path #i" lines, not timed).
+   ("kernel_check ... tune path #i" lines, not timed);
+10. gradients and training — (a) the backward of every kind at the
+   batches of phases 3, 5 and 6 (fft 1024, 16384, 2^20; fft2 with
+   strip-mined columns; rfft / irfft 8192; fft 3000; fft 100003): the vjp
+   through the kernels against ``torch.fft``'s autograd in float64 (irfft:
+   the port's CPU route on sample rows), the dot test ⟨F x, g⟩ = ⟨x, Fᴴ g⟩
+   in float64, exactly the opposite direction's launches and no plain
+   call, timed beside ``torch.fft``'s backward ("grad" lines); (b)
+   ``SpectralMixer`` (2, 4096, 2560), Lf 1024, forward and backward, every
+   gradient against the same module with its convolution through
+   ``torch.fft`` in float64, fwd+bwd ms beside the float32 swap, the FFT
+   kernels' share ("grad_mixer"); (c) h2o-danube-1.8b + use_spectral_mixer
+   at full width trained at bf16 with remat and AdamW, B = 2, S = 4096,
+   8 steps on one repeated batch: finite and falling loss, each step's
+   launches exactly its plans' (forward, recompute, backward), no plan
+   after the first step, one float32 step's loss and gradients against
+   the float64 conv swap, step ms, tokens/s, busy share, FFT kernel ms,
+   optimizer ms, peak memory; then a checkpoint save and resume mid-run at
+   2 layers of the same width ("train" line).  Then each distinct kernel
+   call of the phase against its plain version, as phase 7.
 
-Phases 2–8 run with ``REPRO_FFT_TUNE=off``: their expectations (launches,
-kernels, forms, the overlap-save block) are the heuristic plans'; phase 9
-names each mode itself.  The tuning cache is a throwaway file under
+Phases 2–8 and 10 run with ``REPRO_FFT_TUNE=off``: their expectations
+(launches, kernels, forms, the overlap-save block) are the heuristic
+plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8 and 9 each set the launch counts to 0 before they
+Phases 3, 5, 6, 7, 8, 9 and 10 each set the launch counts to 0 before they
 start and read them when they end; every kernel of a path must have
 launched in it.  Phases 3–7 and 9 also run every one of their calls over a
 batch of 0: the output must have np.fft's shape, and the call launches
@@ -183,8 +202,9 @@ FUNCTIONS = {
 ATTRS: dict = {}
 
 #: The kernels each planned path must launch: phase 3 (1-D complex),
-#: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution) and
-#: phase 8 (serving).
+#: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution),
+#: phase 8 (serving), phase 9 (the tuner) and phase 10 (gradients and
+#: training).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -196,6 +216,8 @@ PATH_KERNELS = {
     "serve": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "tune": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "rfft_recomb", "irfft_recomb",
              "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
+    "train": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
+              "irfft_recomb", "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
 }
 
 
@@ -916,6 +938,38 @@ def device_split(fn):
     return (ours / 1e3, other, top) if ours or other else None
 
 
+#: Device activity of a training step by class, from the profiler's raw
+#: names: cuBLAS / CUTLASS matrix products, the attention's masked softmax,
+#: copies and dtype casts, and every other elementwise or reduction kernel.
+DEVICE_CLASSES = (
+    ("gemm", re.compile(r"gemm|nvjet|cutlass|xmma|sm90_", re.I)),
+    ("softmax_mask", re.compile(r"softmax|masked_fill", re.I)),
+    ("copy_cast", re.compile(r"copy|memcpy|memset|cat", re.I)),
+)
+
+
+def device_classes(fn):
+    """ms of each device class (and the port's kernels as ``fft_kernels``)
+    in one call of ``fn``, by ``torch.profiler``; None without device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"fft_kernels": 0.0, **{name: 0.0 for name, _ in DEVICE_CLASSES}, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if OUR_KERNEL.search(e.name):
+            out["fft_kernels"] += ms
+            continue
+        out[next((name for name, pat in DEVICE_CLASSES if pat.search(e.name)), "other")] += ms
+    return out if any(out.values()) else None
+
+
 def conv_ref(x: np.ndarray, h: np.ndarray, length: int) -> np.ndarray:
     """The first ``length`` samples of the linear convolution of each row of
     ``x`` with ``h`` (broadcast over rows), by ``np.fft`` in complex128."""
@@ -1257,7 +1311,7 @@ def recorded_calls():
 
     def recording(name, call):
         def wrapper(xr, xi, *tables, **kw):
-            if xr.numel():
+            if xr.numel() and xr.is_cuda:
                 key = (name, tuple(xr.shape), _table_ids(tables), tuple(sorted(kw.items())))
                 seen.setdefault(key, (name, tuple(xr.shape), tables, kw))
             return call(xr, xi, *tables, **kw)
@@ -1704,6 +1758,376 @@ def tune_phase(gen) -> None:
                                       "seed_agrees": agree}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: gradients through the kernels, and training
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = 1e-3  # a vjp through the kernels vs float64, relative to max|ref|
+DOT_TOL = 1e-5  # |⟨F x, g⟩ − ⟨x, Fᴴ g⟩| relative to ‖F x‖·‖g‖
+
+#: (spec, input shape): the backward of every kind at the batches of phases
+#: 3, 5 and 6, the 2-D columns cut to 512-point rows.  fft 1024 (#1), 16384
+#: (#2), 2^20 (#3, #4); fft2 with strip-mined columns (#5); rfft / irfft
+#: 8192 (#6); fft 3000 (#7, #8); fft 100003, the split regime (#9).
+GRAD_CASES = (
+    (F.FFTSpec(1024), (16384, 1024)),
+    (F.FFTSpec(16384), (4096, 16384)),
+    (F.FFTSpec(1 << 20), (64, 1 << 20)),
+    (F.FFTSpec(512, kind="fft2", n2=1 << 17), (1, 1 << 17, 512)),
+    (F.FFTSpec(8192, kind="rfft"), (8192, 8192)),
+    (F.FFTSpec(8192, kind="irfft"), (8192, 4097)),
+    (F.FFTSpec(3000), (8192, 3000)),
+    (F.FFTSpec(100003), (64, 100003)),
+)
+#: Rows of the irfft case held against the port's CPU route.
+IRFFT_ROWS = 64
+
+OPPOSITE = {"fft": "ifft", "ifft": "fft", "rfft": "irfft", "irfft": "rfft", "fft2": "ifft2",
+            "ifft2": "fft2", "rfft2": "irfft2", "irfft2": "rfft2"}
+
+
+def opposite(spec):
+    return F.plan(dataclasses.replace(spec, kind=OPPOSITE[spec.kind]))
+
+
+def _inner(a, b) -> float:
+    """Σ a·b over planes, in float64."""
+    return sum(float((u.double() * v.double()).sum()) for u, v in zip(a, b))
+
+
+def _norm(a) -> float:
+    return math.sqrt(sum(float(u.double().square().sum()) for u in a))
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Every counter set back after the block to what it was before it."""
+    saved = [dict(mod.COUNTS) for mod in kernels.KERNEL_MODULES]
+    try:
+        yield
+    finally:
+        for mod, counts in zip(kernels.KERNEL_MODULES, saved):
+            mod.COUNTS.update(counts)
+
+
+def grad_case(gen, spec, shape) -> dict:
+    """One kind's backward on the card: the vjp through the kernels against
+    ``torch.fft``'s autograd in float64 (irfft: the port's CPU route on
+    sample rows, since ``torch.fft.irfft`` drops the imaginary parts of
+    bins 0 and n/2 that this package's irfft reads), the dot test, exactly
+    the opposite direction's launches and no plain call, timed beside
+    ``torch.fft``'s backward in float32."""
+    reps, warmup = 3, 1
+    planned = F.plan(spec)
+    real_in, real_out = spec.kind == "rfft", spec.kind == "irfft"
+    label = f"{spec.kind} {'x'.join(map(str, shape))} backward"
+    xs = [torch.randn(*shape, device="cuda", generator=gen) for _ in range(1 if real_in else 2)]
+    for t in xs:
+        t.requires_grad_(True)
+    y = planned(xs[0]) if real_in else planned(tuple(xs))
+    ys = [y] if real_out else list(y)
+    check(all(t.requires_grad for t in ys), f"{label}: the output is not attached to the graph")
+    gs = [torch.randn(*t.shape, device="cuda", generator=gen) for t in ys]
+    expect = launches_per_call(opposite(spec))
+    before = kernels.counts()
+    vjp = torch.autograd.grad(ys, xs, gs, retain_graph=True)
+    torch.cuda.synchronize()
+    check_launches(label, before, kernels.counts(), expect)
+    check(all(bool(torch.isfinite(v).all()) for v in vjp), f"{label}: non-finite gradient")
+
+    ys_, xs_ = [t.detach() for t in ys], [t.detach() for t in xs]
+    dot = abs(_inner(ys_, gs) - _inner(xs_, vjp)) / (_norm(ys_) * _norm(gs))
+    check(dot <= DOT_TOL, f"{label}: dot test {dot:.3e} > {DOT_TOL}")
+    if real_out:
+        rows = slice(0, IRFFT_ROWS)
+        cpu = F.plan(spec, device="cpu")
+        xc = [t.detach()[rows].cpu().requires_grad_(True) for t in xs]
+        with uncounted():  # the reference's plain calls are not the path's
+            ref = torch.autograd.grad(cpu(tuple(xc)), xc, gs[0][rows].cpu())
+        err = max(full_err(v[rows].cpu(), r.double()) for v, r in zip(vjp, ref))
+    else:
+        lib = library_call(spec)
+        x64 = (xs[0].detach().double() if real_in
+               else torch.complex(xs[0].detach().double(), xs[1].detach().double())).requires_grad_(True)
+        y64 = lib(x64)
+        g64 = torch.complex(gs[0].double(), gs[1].double())
+        (r64,) = torch.autograd.grad(y64, x64, g64)
+        ref = [r64] if real_in else [r64.real, r64.imag]
+        err = max(full_err(v, r) for v, r in zip(vjp, ref))
+        del x64, y64, g64, r64
+    check(err <= GRAD_TOL, f"{label}: vjp vs the float64 reference {err:.3e} > {GRAD_TOL}·max|ref|")
+    del ref
+    ms = time_ms(lambda: torch.autograd.grad(ys, xs, gs, retain_graph=True), reps=reps, warmup=warmup)
+    fwd_ms = time_ms(lambda: planned(xs[0].detach()) if real_in else planned(tuple(t.detach() for t in xs)),
+                     reps=reps, warmup=warmup)
+    # The library's backward in float32 on the same shapes (the yardstick).
+    lib = library_call(spec)
+    xl = (xs[0].detach().clone() if real_in else torch.complex(xs[0].detach(), xs[1].detach())).requires_grad_(True)
+    yl, gl = lib(xl), (gs[0] if real_out else torch.complex(*gs))
+    lib_ms = time_ms(lambda: torch.autograd.grad(yl, xl, gl, retain_graph=True), reps=reps, warmup=warmup)
+    row = {"call": label, "kernels": expect, "rel_err": err, "dot_rel_err": dot, "backward_ms": ms,
+           "forward_ms": fwd_ms, "library_backward_ms": lib_ms,
+           "reference": "port CPU route, sample rows" if real_out else "torch.fft autograd, float64"}
+    print("grad " + json.dumps(row), flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def swapped_conv(dtype):
+    """The spectral mixer's convolution replaced by the same causal conv
+    through ``torch.fft`` in ``dtype`` (float64: the reference the
+    gradients are held against; float32: the library yardstick)."""
+    from repro_torch.models.layers import spectral as spectral_mod
+
+    def conv_lib(x, h, axis=1):
+        L = x.shape[axis]
+        n = next_pow2(L + h.shape[-1] - 1)
+        X = torch.fft.rfft(x.to(dtype), n=n, dim=axis)
+        H = torch.fft.rfft(h.to(dtype).T, n=n, dim=0)
+        return torch.fft.irfft(X * H, n=n, dim=axis).narrow(axis, 0, L).to(torch.float32)
+
+    was = spectral_mod.fft_conv
+    spectral_mod.fft_conv = conv_lib
+    try:
+        yield
+    finally:
+        spectral_mod.fft_conv = was
+
+
+def tensor_errs(got: dict, ref: dict) -> dict:
+    """max|Δ|/max|ref| of each named tensor."""
+    return {k: full_err(got[k], ref[k].double()) for k in ref}
+
+
+def mixer_grad_case(gen) -> None:
+    """(b): SpectralMixer at h2o-danube-1.8b's width, forward and backward:
+    the gradients of x, filt and the three projections against the same
+    module with its convolution through ``torch.fft`` in float64, exact
+    launches, fwd+bwd ms beside the swapped module in float32, the FFT
+    kernels' share of the device time."""
+    B, S, D, LF = 2, 4096, 2560, 1024
+    m = SpectralMixer(D, LF, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = (0.5 * torch.randn(B, S, D, device="cuda", generator=gen)).requires_grad_(True)
+    cot = torch.randn(B, S, D, device="cuda", generator=gen)
+    names = ["x"] + [n for n, _ in m.named_parameters()]
+    wrt = [x] + list(m.parameters())
+
+    def fwd_bwd():
+        return dict(zip(names, torch.autograd.grad(m(x), wrt, cot)))
+
+    n = next_pow2(S + LF - 1)
+    expect = plans_launches(rplans(n, calls=(3, 3)))  # forward 2 rfft + irfft; backward the opposite
+    label = f"(b) SpectralMixer ({B}, {S}, {D}) Lf={LF} forward + backward"
+    got, peak = held_call(label, fwd_bwd, expect)
+    with swapped_conv(torch.float64):
+        ref = fwd_bwd()
+    errs = tensor_errs(got, ref)
+    worst = max(errs.values())
+    check(worst <= GRAD_TOL, f"{label}: gradients vs float64 {errs}")
+    del got, ref
+    ms = time_ms(fwd_bwd, reps=3)
+    split = device_split(fwd_bwd)
+    with swapped_conv(torch.float32):
+        lib_ms = time_ms(fwd_bwd, reps=3)
+    print("grad_mixer " + json.dumps({
+        "call": label, "launches": expect, "rel_err": errs, "fwd_bwd_ms": ms,
+        "library_fwd_bwd_ms": lib_ms, "kernel_ms": split[0] if split else None,
+        "other_device_ms": split[1] if split else None, "other_top": split[2] if split else None,
+        "fft_kernel_share": split[0] / (split[0] + split[1]) if split else None,
+        "call_peak_bytes": peak,
+    }), flush=True)
+    del m, x, cot
+    torch.cuda.empty_cache()
+
+
+#: Phase 10 (c): h2o-danube-1.8b + use_spectral_mixer at full width, bf16
+#: compute, remat, AdamW, TRAIN_STEPS steps on one repeated batch of
+#: TRAIN_BATCH sequences of the reference's train_4k length.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 8
+#: The save-and-resume check: the same width at TRAIN_CKPT_LAYERS layers.
+TRAIN_CKPT_LAYERS, TRAIN_CKPT_STEPS = 2, 4
+
+
+def train_config():
+    from repro_torch.configs.base import TrainConfig
+
+    return TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS,
+                       batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+
+
+def step_expect(model, seq: int) -> dict:
+    """Kernel → launches of one train step: each spectral layer's conv
+    (rfft twice, irfft once) in the forward and again in the remat
+    recompute, and the backward's opposite directions (irfft twice, rfft
+    once)."""
+    lf = model.stack[0].mixer.filter_len
+    calls = (5, 4) if model.cfg.remat else (3, 3)
+    layers = sum(block.kind == "spectral" for block in model.stack)
+    return {k: v * layers for k, v in plans_launches(rplans(next_pow2(seq + lf - 1), calls=calls)).items()}
+
+
+def loss_and_grads(model, batch) -> tuple:
+    from repro_torch.models.model import loss_fn
+
+    names, params = zip(*model.named_parameters())
+    loss, _ = loss_fn(model, batch)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def float32_check(model, batch) -> dict:
+    """One float32 step's loss and every parameter's gradient (the same
+    weights at float32 compute) against the same step with the mixers'
+    convolution through ``torch.fft`` in float64."""
+    from repro_torch.models.model import DecoderLM
+
+    m32 = DecoderLM(dataclasses.replace(model.cfg, compute_dtype="float32"), device="meta")
+    m32.load_state_dict(model.state_dict(), assign=True)
+    loss, grads = loss_and_grads(m32, batch)
+    with swapped_conv(torch.float64):
+        ref_loss, ref = loss_and_grads(m32, batch)
+    errs = tensor_errs(grads, ref)
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst = max(errs, key=errs.get)
+    check(loss_err <= GRAD_TOL, f"phase 10 float32 loss vs the float64 conv swap {loss_err:.3e}")
+    check(errs[worst] <= GRAD_TOL, f"phase 10 float32 gradient {worst} vs the float64 conv swap {errs[worst]:.3e}")
+    del m32, grads, ref
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "loss_rel_err": loss_err, "grad_worst": worst, "grad_worst_rel_err": errs[worst],
+            "grad_median_rel_err": statistics.median(errs.values()), "tensors": len(errs)}
+
+
+def resume_check(cfg, tc, batches) -> dict:
+    """TRAIN_CKPT_STEPS steps straight at TRAIN_CKPT_LAYERS layers of the
+    same width, against half of them, an async checkpoint, a fresh state
+    restored from it (every tensor equal to the saved one) and the other
+    half: the same losses at 1e-3."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    small = dataclasses.replace(cfg, num_layers=TRAIN_CKPT_LAYERS)
+    step = make_train_step(small, tc)
+
+    def fresh(seed):
+        return init_train_state(small, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    straight, losses = fresh(0), []
+    for i in range(TRAIN_CKPT_STEPS):
+        straight, met = step(straight, batches(i))
+        losses.append(met["loss"])
+    half = TRAIN_CKPT_STEPS // 2
+    run = fresh(0)
+    for i in range(half):
+        run, _ = step(run, batches(i))
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    mgr = CheckpointManager(directory, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(half, run, extra={"data_step": half}, blocking=False)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(directory) for f in fs)
+    t0 = time.perf_counter()
+    resumed, extra = mgr.restore(mgr.latest_step(), fresh(1))
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(resumed.model.named_parameters(),
+                                                            run.model.named_parameters()))
+    same &= all(torch.equal(resumed.opt_state.inner[k][n], run.opt_state.inner[k][n])
+                for k in ("m", "v") for n in run.opt_state.inner[k])
+    check(same and resumed.step == half == extra["data_step"], "phase 10: the restored state is not the saved one")
+    del run
+    resumed_losses = []
+    for i in range(half, TRAIN_CKPT_STEPS):
+        resumed, met = step(resumed, batches(i))
+        resumed_losses.append(met["loss"])
+    errs = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(resumed_losses, losses[half:])]
+    check(max(errs) <= GRAD_TOL, f"phase 10: resumed losses {resumed_losses} vs straight {losses[half:]}")
+    shutil.rmtree(directory, ignore_errors=True)
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return {"layers": TRAIN_CKPT_LAYERS, "steps": TRAIN_CKPT_STEPS, "resumed_at": half,
+            "checkpoint_bytes": disk, "save_s": save_s, "restore_s": restore_s, "loss_rel_errs": errs}
+
+
+def train_case(gen) -> None:
+    """(c): train h2o-danube-1.8b + use_spectral_mixer at full width."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    cfg, tc = serve_config(), train_config()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model = state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(model.stack) == cfg.num_layers == 24 and model.cfg.remat, "phase 10: not the full model")
+    dcfg = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = {k: v.cuda() for k, v in make_batch(dcfg, 0).items()}
+
+    f32 = float32_check(model, batch)
+    step = make_train_step(cfg, tc)
+    expect = step_expect(model, TRAIN_SEQ)
+    losses, step_counts = [], []
+    F.clear_plan_log()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t_first) * 1e3
+            planned_first = F.plan_log()
+            F.clear_plan_log()
+            t0 = time.perf_counter()
+        before = kernels.counts()
+        state, met = step(state, batch)
+        check_launches(f"phase 10 train step {i}", before, kernels.counts(), expect)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    check(F.plan_log() == (), f"phase 10: steps after the first planned {F.plan_log()}")
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"phase 10: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"phase 10: the loss did not fall on a repeated batch: {losses}")
+    step_ms = run_ms / (TRAIN_STEPS - 1)
+    split = device_split(lambda: step(state, batch))
+    classes = device_classes(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+
+    # The optimizer alone: AdamW's update over every parameter at lr 0 (m
+    # and v move, the parameters do not), CUDA events.
+    _, opt_update = make_optimizer(tc)
+    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    opt_ms = time_ms(lambda: opt_update(zeros, state.opt_state, model, 0.0), reps=3)
+    del zeros, state, model, batch
+    torch.cuda.empty_cache()
+
+    resume = resume_check(cfg, tc, lambda i: {k: v.cuda() for k, v in make_batch(dcfg, i).items()})
+    print("train " + json.dumps({
+        "config": cfg.name + " use_spectral_mixer", "layers": cfg.num_layers, "parameters": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "compute": cfg.compute_dtype,
+        "remat": cfg.remat, "optimizer": tc.optimizer, "losses": losses,
+        "launches_per_step": expect, "plans_first_step": len(planned_first),
+        "first_step_ms": first_ms, "step_ms": step_ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms,
+        "fft_kernel_ms": split[0] if split else None, "other_device_ms": split[1] if split else None,
+        "other_top": split[2] if split else None,
+        "fft_kernel_share": split[0] / step_ms if split else None,
+        "busy": (split[0] + split[1]) / step_ms if split else None, "device_ms_by_class": classes,
+        "optimizer_ms": opt_ms, "peak_bytes": peak, "param_bytes": 4 * n_params,
+        "float32_vs_float64_conv": f32, "resume": resume,
+    }), flush=True)
+
+
+def grad_phase(gen) -> None:
+    """Phase 10: (a) the backward of every kind, (b) the mixer's gradients
+    at full width, (c) training the full-width model."""
+    for spec, shape in GRAD_CASES:
+        grad_case(gen, spec, shape)
+        torch.cuda.empty_cache()
+    mixer_grad_case(gen)
+    train_case(gen)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -1752,8 +2176,13 @@ def main() -> int:
             tuned = path_launches("tune", tune_phase, gen)
         print(f"phase 9: {time.perf_counter() - t9:.1f} s, {len(seen)} distinct kernel calls", flush=True)
         path_kernel_rows("tune", seen, tuned, gen, timed=False)
+        t10 = time.perf_counter()
+        with tune_env("off"), recorded_calls() as seen:
+            trained = path_launches("train", grad_phase, gen)
+        print(f"phase 10: {time.perf_counter() - t10:.1f} s, {len(seen)} distinct kernel calls", flush=True)
+        path_kernel_rows("train", seen, trained, gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
-                    + tuned[name] for name in SOURCES}
+                    + tuned[name] + trained[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -1763,7 +2192,8 @@ def main() -> int:
         r = rows[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": launches[name], "train_launches": trained[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("library_without_twiddle_ms",) if k in r},

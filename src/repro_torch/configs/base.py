@@ -1,16 +1,18 @@
 """Config system: model and shape definitions.
 
 Port of ``repro/configs/base.py``, a copy of its data: ``ModelConfig`` field
-for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``get_config(arch_id)``
-resolves a registry name to the ``ModelConfig`` in its own module under
-``repro_torch.configs``.  The registry knows every name the reference
-knows; a name whose block kinds the port does not run yet raises
-``NotImplementedError`` naming ``ROADMAP.md`` A4.  The reference's
-``ParallelConfig`` and ``TrainConfig`` come with training (A6).
+for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``ParallelConfig`` (its fields only: the
+mesh it maps is ``ROADMAP.md`` A6, sharding) and ``TrainConfig`` with the
+reference's defaults.  ``get_config(arch_id)`` resolves a registry name to
+the ``ModelConfig`` in its own module under ``repro_torch.configs``.  The
+registry knows every name the reference knows; a name whose block kinds
+the port does not run yet raises ``NotImplementedError`` naming
+``ROADMAP.md`` A4 (``fftbench``: A1, the paper's benchmark).
 
 Of the execution fields the port reads ``compute_dtype``, ``param_dtype``,
-``attn_chunk``, ``attn_chunk_threshold`` and ``kv_cache_dtype``;
-``remat``, ``scan_layers``, ``decode_cache_mode`` and ``loss_chunk`` shape
+``attn_chunk``, ``attn_chunk_threshold``, ``kv_cache_dtype``,
+``loss_chunk`` (the chunked cross-entropy) and ``remat`` (each block
+checkpointed in training); ``scan_layers`` and ``decode_cache_mode`` shape
 the reference's XLA program and have no counterpart in eager PyTorch.
 """
 
@@ -22,6 +24,8 @@ from typing import Optional, Tuple
 
 __all__ = [
     "ModelConfig",
+    "ParallelConfig",
+    "TrainConfig",
     "ShapeConfig",
     "LM_SHAPES",
     "get_config",
@@ -131,6 +135,40 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How logical axes map onto the mesh: the reference's fields and
+    defaults.  The port trains on one card; a mesh is ``ROADMAP.md`` A6."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pod_axis: Optional[str] = None  # present on the multi-pod mesh
+    fsdp: bool = False              # shard params over the data axis too
+    sequence_parallel: bool = False  # shard long KV caches over data
+    remat_policy: str = "minimal"   # minimal | full | none
+    decode_weight_stationary: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"  # adamw | adafactor | sgd
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    batch_size: int = 8
+    seq_len: int = 512
+    microbatches: int = 1        # gradient accumulation
+    grad_compression: bool = False  # int8 + error feedback
+    z_loss: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -148,15 +186,16 @@ LM_SHAPES: dict[str, ShapeConfig] = {
 
 #: Registry names whose configurations the port resolves.
 _REGISTRY: dict[str, str] = {
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
 }
 
 #: The reference's other registry names: their block kinds (experts, SSM,
-#: xLSTM, shared attention) or frontends are not ported yet.
+#: xLSTM, shared attention) or frontends are not ported yet, and
+#: ``fftbench`` is the paper's benchmark.
 _NOT_PORTED = (
-    "gemma3-12b",
-    "yi-6b",
-    "phi4-mini-3.8b",
     "arctic-480b",
     "deepseek-moe-16b",
     "musicgen-large",
@@ -182,10 +221,9 @@ def get_config(arch: str) -> ModelConfig:
     if arch in _EXTRA:
         return _EXTRA[arch]
     if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: its blocks wait for ROADMAP.md A4; "
-            f"ported: {sorted(_REGISTRY)}"
-        )
+        waits = "the paper's benchmark, ROADMAP.md A1" if arch == "fftbench" else "its blocks, ROADMAP.md A4"
+        raise NotImplementedError(f"arch {arch!r} is not ported yet: it waits for {waits}; "
+                                  f"ported: {sorted(_REGISTRY)}")
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY) + sorted(_NOT_PORTED)}")
     return importlib.import_module(_REGISTRY[arch]).CONFIG

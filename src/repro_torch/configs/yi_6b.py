@@ -1,0 +1,21 @@
+"""yi-6b: 32L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+
+llama-arch GQA.  [arXiv:2403.04652; hf]
+long_500k: SKIPPED — pure full attention (see DESIGN §5).
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    rope_theta=5_000_000.0,
+)
+
+SHAPES = ["train_4k", "prefill_32k", "decode_32k"]

@@ -55,6 +55,16 @@ backend does.
 ``planned(x, check="nan" | "parseval")`` arms the reference's opt-in
 numerics guards over the result, and :func:`plan_log` records every plan
 created, as the reference's does.
+
+Every kind differentiates, on both routes, through two autograd leaves: the
+complex pass program (:class:`_PassProgram`, planes in, planes out) and the
+Hermitian recombination pass (:class:`_Recomb`).  Each is a linear map that
+needs only its plan, so neither saves a tensor, and each backward runs the
+same kernels in the other direction: a DFT's adjoint is the opposite
+direction's unnormalised transform, the recombination's adjoint the other
+recombination kernel with the end bins fixed up.  Everything between the
+leaves (planes ↔ complex, packing, interleaving, slicing, ``movedim``) is
+plain differentiable torch.
 """
 
 from __future__ import annotations
@@ -383,6 +393,10 @@ class PlannedFFT:
     # -- execution ---------------------------------------------------------
 
     def _run(self, xr, xi, inverse: bool, axis: int = -1) -> Planes:
+        """The complex pass program over ``axis``; an autograd leaf when an
+        input needs a gradient."""
+        if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
+            return _PassProgram.apply(xr, xi, self, inverse, axis)
         return self.backend.fn(xr, xi, inverse=inverse, planned=self, axis=axis)
 
     def _check_image(self, xr) -> None:
@@ -422,20 +436,63 @@ class PlannedFFT:
         yr, yi = self._run(xr.movedim(ax, -1), xi.movedim(ax, -1), inverse)
         return yr.movedim(-1, ax), yi.movedim(-1, ax)
 
-    def _recomb(self, ar, ai) -> Planes:
+    def _recomb(self, ar, ai, kind: Optional[str] = None, luts: tuple = ()) -> Planes:
         """The epilogue pass over the last axis, row-wise over any leading
         dims: the packed (…, m) spectrum → the (…, m + 1) bins (rfft
-        kinds), or back (irfft kinds).  The pencil wrapper launches its
-        kernel on the card and takes the plain version on the CPU."""
+        kinds), or back (irfft kinds); an autograd leaf when an input needs
+        a gradient.  ``kind`` and ``luts`` default to the plan's epilogue (a
+        backward runs the other direction's)."""
         from repro_torch.core import faults
+
+        kind = kind or self.epilogue.kind
+        faults.maybe_fail("kernel.launch", backend=ar.device.type, pass_kind=kind)
+        if torch.is_grad_enabled() and (ar.requires_grad or ai.requires_grad):
+            return _Recomb.apply(ar, ai, self, kind, luts)
+        return self._recomb_pass(ar, ai, kind, luts or self.luts)
+
+    @staticmethod
+    def _recomb_pass(ar, ai, kind: str, luts: tuple) -> Planes:
+        """One recombination pass ``kind`` with phasor ``luts``: the pencil
+        wrapper launches its kernel on the card and takes the plain version
+        on the CPU."""
         from repro_torch.kernels import pencil
 
-        faults.maybe_fail("kernel.launch", backend=ar.device.type, pass_kind=self.epilogue.kind)
         lead, width = ar.shape[:-1], ar.shape[-1]
         b = int(np.prod(lead)) if lead else 1
-        call = pencil.rfft_recomb_call if self.epilogue.kind == "rfft_recomb" else pencil.irfft_recomb_call
-        yr, yi = call(ar.contiguous().view(b, width), ai.contiguous().view(b, width), *self.luts)
+        call = pencil.rfft_recomb_call if kind == "rfft_recomb" else pencil.irfft_recomb_call
+        yr, yi = call(ar.contiguous().view(b, width), ai.contiguous().view(b, width), *luts)
         return yr.view(*lead, yr.shape[-1]), yi.view(*lead, yi.shape[-1])
+
+    def _recomb_adjoint(self, kind: str, gr, gi) -> Planes:
+        """The transpose of the recombination pass ``kind``, as a
+        real-linear map of the planes, by the other direction's kernel.
+
+        The forward recombination R gives X[k] = a_k·Z[k] + b_k·conj(Z[−k])
+        (indices of Z mod m, a_k = (1 − i·w_k)/2, b_k = (1 + i·w_k)/2,
+        w_k = e^{−2πik/n}); the inverse one I gives Z[k] = c_k·X[k] +
+        d_k·conj(X[m − k]) (c_k = (1 + i·w̄_k)/2, d_k = (1 − i·w̄_k)/2).
+        Transposing them: Rᵀ(G) = I(G'), where G' is G with the real part of
+        bins 0 and m doubled and their imaginary part dropped (R's bins 0
+        and m are real whatever Z is); Iᵀ(G) = R(G) less (1 + i)/2·conj(G[0])
+        at bin 0 and (1 + i)/2·G[0] at bin m (I reads the imaginary parts of
+        X[0] and X[m], so its adjoint writes them)."""
+        from repro_torch.kernels import ops
+
+        n = self.spec.n
+        forward = kind == "rfft_recomb"
+        luts = ops.recomb_luts(ops.device_key(self.device), n, forward)
+        if forward:
+            m = gr.shape[-1] - 1
+            ends = torch.zeros(m + 1, dtype=gr.dtype, device=gr.device)
+            ends[0::m] = 1.0
+            return self._recomb(gr * (1.0 + ends), gi * (1.0 - ends), "irfft_recomb", luts)
+        m = gr.shape[-1]
+        xr, xi = self._recomb(gr, gi, "rfft_recomb", luts)
+        g0r, g0i = gr[..., :1], gi[..., :1]
+        at = torch.arange(0, m + 1, m, device=gr.device)  # bins 0 and m, made on the device
+        xr = xr.index_add(-1, at, -0.5 * torch.cat([g0r + g0i, g0r - g0i], -1))
+        xi = xi.index_add(-1, at, -0.5 * torch.cat([g0r - g0i, g0r + g0i], -1))
+        return xr, xi
 
     @staticmethod
     def _pack(x) -> Planes:
@@ -564,6 +621,44 @@ class PlannedFFT:
                 f"{expected:.6g} (rtol {PARSEVAL_RTOL})",
                 spec=self.spec, backend=self.backend.name, check="parseval",
             )
+
+
+class _PassProgram(torch.autograd.Function):
+    """A plan's complex pass program as one autograd leaf: planes in, planes
+    out.  Every plan form computes an exact DFT, whose adjoint is the
+    opposite direction's transform unnormalised: the same plan run the
+    other way and scaled by the transform's size (``fft`` → N·``ifft``,
+    ``ifft`` → ``fft``/N, N = n·n2 for the 2-D kinds; the inverse's 1/N is
+    folded into its tables).  It saves no tensor."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, planned: "PlannedFFT", inverse: bool, axis: int):
+        ctx.planned, ctx.inverse, ctx.axis = planned, inverse, axis
+        return planned.backend.fn(xr, xi, inverse=inverse, planned=planned, axis=axis)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        planned = ctx.planned
+        size = planned.spec.n * (planned.spec.n2 or 1)
+        scale = 1.0 / size if ctx.inverse else float(size)
+        yr, yi = planned._run(gr, gi, not ctx.inverse, ctx.axis)
+        return yr * scale, yi * scale, None, None, None
+
+
+class _Recomb(torch.autograd.Function):
+    """The Hermitian recombination pass ``kind`` (with phasor ``luts``; the
+    plan's own when empty) as one autograd leaf; the backward is
+    :meth:`PlannedFFT._recomb_adjoint` of the pass that ran.  It saves no
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, ar, ai, planned: "PlannedFFT", kind: str, luts: tuple):
+        ctx.planned, ctx.kind = planned, kind
+        return planned._recomb_pass(ar, ai, kind, luts or planned.luts)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        return (*ctx.planned._recomb_adjoint(ctx.kind, gr, gi), None, None, None)
 
 
 def _energy(arrays) -> float:

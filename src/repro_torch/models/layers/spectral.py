@@ -157,8 +157,10 @@ class SpectralMixer(nn.Module):
         return (y.to(cd) * g) @ self.w_out.to(cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
-        """x: (B, S, D) → (B, S, D); with ``return_cache`` also the decode
-        state after the prompt (ring or stream, by ``decode_mode``)."""
+        """x: (B, S, D) → (B, S, D), differentiable in ``x``, ``filt`` and
+        the projections; with ``return_cache`` also the decode state after
+        the prompt (ring or stream, by ``decode_mode``), built without a
+        graph as every decode step is."""
         u, g = self._in_gate(x)
         # The conv runs along the sequence axis; fft_conv routes to
         # overlap-save past the fused regime.
@@ -166,10 +168,11 @@ class SpectralMixer(nn.Module):
         out = self._out(y, g)
         if not return_cache:
             return out
-        u32 = u.to(torch.float32)
-        if self.decode_mode == "ring":
-            return out, self._ring_state(u32)
-        return out, self._stream_state(u32)
+        with torch.no_grad():  # decode states carry no graph
+            u32 = u.to(torch.float32)
+            if self.decode_mode == "ring":
+                return out, self._ring_state(u32)
+            return out, self._stream_state(u32)
 
     # -- decode state after a prefill -------------------------------------
 
@@ -220,6 +223,7 @@ class SpectralMixer(nn.Module):
 
     # -- decode -------------------------------------------------------------
 
+    @torch.no_grad()
     def decode(self, x: torch.Tensor, cache: SpectralCache) -> Tuple[torch.Tensor, SpectralCache]:
         """One token (x: (B, 1, D)) through the ring: the direct dot of the
         filter with the last Lf inputs."""
@@ -235,6 +239,7 @@ class SpectralMixer(nn.Module):
         y = torch.einsum("blD,Dl->bD", buf[:, ages, :], self.filt[:, :taps])
         return self._out(y[:, None, :], g), SpectralCache(buf=buf, t=cache.t + 1)
 
+    @torch.no_grad()
     def stream_decode(
         self, x: torch.Tensor, cache: SpectralStreamCache
     ) -> Tuple[torch.Tensor, SpectralStreamCache]:
@@ -262,6 +267,7 @@ class SpectralMixer(nn.Module):
             hist=hist, chunk=torch.zeros_like(chunk), future=self._lookahead(hist[..., c:]), phase=0
         )
 
+    @torch.no_grad()
     def stream_rephase(self, cache: SpectralStreamCache, phase: int) -> SpectralStreamCache:
         """Re-align a freshly prefilled stream state (phase 0, boundary at its
         prompt end S) to a running batch's ``phase`` f in [0, C): the

@@ -11,8 +11,10 @@ writes ``params[...].astype(cd)``; logits in float32.
 The spectral layers' convolutions run through the planned FFTs, so on the
 card through the hand-written kernels; everything else is plain PyTorch.
 ``device=None`` builds the model on the card (raising without one),
-``device="cpu"`` on the plain route.  ``loss_fn`` comes with training
-(``ROADMAP.md`` A6); the modality frontends with A4.
+``device="cpu"`` on the plain route.  :func:`loss_fn` is the training loss:
+the chunked cross-entropy (the (B, S, vocab) logits never materialise at
+once), z-loss, ``loss_mask`` and the aux term, as the reference's.  The
+modality frontends come with ``ROADMAP.md`` A4.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.models.layers.embedding import Embedding, Head
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.stack import Stack
 
-__all__ = ["DecoderLM"]
+__all__ = ["DecoderLM", "loss_fn"]
 
 
 class DecoderLM(nn.Module):
@@ -135,3 +137,44 @@ class DecoderLM(nn.Module):
             else:
                 out.append(attn_lib.KVCache(k=k, v=v))
         return out
+
+
+def _chunk_ce(model: DecoderLM, hidden: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor):
+    """Chunked cross-entropy over ``cfg.loss_chunk`` positions at a time.
+
+    hidden (B, S, D); targets and mask (B, S).  Returns (Σ nll, Σ lse², Σ
+    mask), each float32, summed chunk after chunk as the reference's scan
+    and its remainder."""
+    s = hidden.shape[1]
+    c = min(model.cfg.loss_chunk, s)
+    nll = z2 = cnt = hidden.new_zeros((), dtype=torch.float32)
+    for start in range(0, s, c):
+        ms = mask[:, start:start + c]
+        logits = model.head(hidden[:, start:start + c], model.embed.table)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[:, start:start + c, None])[..., 0]
+        nll = nll + ((lse - tgt) * ms).sum()
+        z2 = z2 + (lse.square() * ms).sum()
+        cnt = cnt + ms.sum()
+    return nll, z2, cnt
+
+
+def loss_fn(model: DecoderLM, batch: dict, train_cfg=None):
+    """Scalar LM loss and its metrics.  ``batch``: ``tokens`` and ``targets``
+    (B, S) integers, optional ``loss_mask`` (B, S) and ``positions``.
+
+    loss = Σ nll / n + z_loss · Σ lse² / n + aux, n = max(Σ mask, 1);
+    metrics ``loss``, ``ce``, ``aux``, ``tokens`` as 0-d float32 tensors
+    (``aux`` is 0: no ported block has an auxiliary loss)."""
+    hidden = model(batch["tokens"], batch.get("positions"))
+    targets = torch.as_tensor(batch["targets"], dtype=torch.long, device=model.device)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(targets.shape, device=model.device) if mask is None
+            else torch.as_tensor(mask, device=model.device).to(torch.float32))
+    nll, z2, cnt = _chunk_ce(model, hidden, targets, mask)
+    cnt = cnt.clamp(min=1.0)
+    ce = nll / cnt
+    aux = torch.zeros((), device=model.device)
+    z_coef = getattr(train_cfg, "z_loss", 1e-4) if train_cfg else 1e-4
+    loss = ce + z_coef * (z2 / cnt) + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": cnt}

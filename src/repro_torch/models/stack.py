@@ -4,7 +4,10 @@ Port of ``repro/models/stack.py``.  The reference stacks the parameters of
 each position of the pattern's repeating unit over the repeats and runs the
 stack as one ``lax.scan`` (with checkpointed remat for training); in
 eager PyTorch a :class:`Stack` is an ``nn.ModuleList`` of the layers in
-pattern order and a Python loop over them.  Caches are a list with one
+pattern order and a Python loop over them.  ``cfg.remat`` checkpoints each
+block of a forward that builds a graph
+(``torch.utils.checkpoint``, non-reentrant): its activations are recomputed
+in the backward instead of kept.  Caches are a list with one
 entry per layer, batch at axis 0 (the reference's are stacked per unit
 position, repeats leading).  :func:`find_unit` is the reference's, which
 ``load_reference_model`` uses to unstack the reference's parameters.
@@ -16,6 +19,7 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import Block
 
@@ -31,6 +35,10 @@ def find_unit(pattern: tuple) -> tuple:
     return tuple(pattern)
 
 
+def _hidden(block, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    return block(x, positions)[0]
+
+
 class Stack(nn.ModuleList):
     """``cfg.pattern()``'s blocks, layer ``l`` at index ``l``."""
 
@@ -39,9 +47,14 @@ class Stack(nn.ModuleList):
         super().__init__(
             Block(kind, cfg, dtype=dtype, device=device, generator=generator) for kind in cfg.pattern()
         )
+        self.remat = cfg.remat
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
         """x: (B, S, D) → (x, per-layer caches or None)."""
+        if self.remat and torch.is_grad_enabled() and not return_cache:
+            for block in self:
+                x = checkpoint(_hidden, block, x, positions, use_reentrant=False)
+            return x, None
         caches = []
         for block in self:
             x, cache = block(x, positions, return_cache=return_cache)

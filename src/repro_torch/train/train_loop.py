@@ -1,0 +1,95 @@
+"""Train-step factory: microbatch accumulation, compression, clipping, the
+schedule and the optimizer.
+
+Port of ``repro/train/train_loop.py``.  ``make_train_step`` builds
+
+    train_step(state, batch) → (state, metrics)
+
+The model in ``state`` holds the parameters and is updated in place; the
+returned state carries the new step counters.  With ``microbatches > 1``
+the batch is split along dim 0 and the gradients of the microbatches are
+averaged; the metrics are the last microbatch's, as the reference's
+``lax.scan`` carries them.  Gradients come from ``torch.autograd.grad`` of
+:func:`repro_torch.models.model.loss_fn`, so on the card they run through
+the FFT kernels' backward (``core/fft.py``'s autograd leaves).  Nothing is
+read back to the host: the metrics are 0-d device tensors (``lr`` a float).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import model as model_lib
+from repro_torch.train import compression as comp_lib
+from repro_torch.train.optimizer import OptState, clip_by_global_norm, make_optimizer
+from repro_torch.train.schedule import make_schedule
+
+__all__ = ["TrainState", "make_train_step", "init_train_state"]
+
+
+class TrainState(NamedTuple):
+    step: int
+    model: model_lib.DecoderLM  # the parameters
+    opt_state: OptState
+    err_state: dict  # grad-compression residuals per reference leaf (empty without)
+
+
+def init_train_state(cfg, train_cfg, *, device=None, generator: Optional[torch.Generator] = None) -> TrainState:
+    """A fresh model of ``cfg`` (parameters from ``generator``; the card by
+    default, ``device="cpu"`` for the plain route) and its optimizer and
+    error-feedback state."""
+    model = model_lib.DecoderLM(cfg, device=device, generator=generator)
+    opt_init, _ = make_optimizer(train_cfg)
+    err = comp_lib.init_error_state(model) if train_cfg.grad_compression else {}
+    return TrainState(step=0, model=model, opt_state=opt_init(model), err_state=err)
+
+
+def _to(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def make_train_step(cfg, train_cfg):
+    _, opt_update = make_optimizer(train_cfg)
+    schedule = make_schedule(train_cfg)
+    nmicro = max(1, train_cfg.microbatches)
+
+    def single_grads(model, batch):
+        names, params = zip(*model.named_parameters())
+        loss, metrics = model_lib.loss_fn(model, batch, train_cfg)
+        grads = torch.autograd.grad(loss, params)
+        return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
+
+    def accumulated_grads(model, batch):
+        b = next(iter(batch.values())).shape[0]
+        if b % nmicro:
+            raise ValueError(f"batch of {b} rows does not split into {nmicro} microbatches")
+        per = b // nmicro
+        acc, metrics = None, None
+        for i in range(nmicro):
+            grads, metrics = single_grads(model, {k: v[i * per:(i + 1) * per] for k, v in batch.items()})
+            if acc is None:
+                acc = {k: g.float().clone() for k, g in grads.items()}
+            else:
+                for k, g in grads.items():
+                    acc[k].add_(g.float())
+        return {k: a / nmicro for k, a in acc.items()}, metrics
+
+    def train_step(state: TrainState, batch: dict) -> tuple:
+        model = state.model
+        batch = _to(batch, model.device)
+        if nmicro > 1:
+            grads, metrics = accumulated_grads(model, batch)
+        else:
+            grads, metrics = single_grads(model, batch)
+        err_state = state.err_state
+        if train_cfg.grad_compression:
+            grads, err_state = comp_lib.compress_grads(grads, err_state, model)
+        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+        lr = schedule(state.step)
+        new_opt = opt_update(grads, state.opt_state, model, lr)
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return TrainState(step=state.step + 1, model=model, opt_state=new_opt, err_state=err_state), metrics
+
+    return train_step

@@ -17,7 +17,13 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["normal", "load_reference_params", "load_reference_model"]
+__all__ = [
+    "normal",
+    "load_reference_params",
+    "load_reference_model",
+    "load_reference_train_state",
+    "reference_leaves",
+]
 
 
 def normal(
@@ -76,6 +82,45 @@ def load_reference_params(module: nn.Module, tree: Mapping) -> nn.Module:
     return _load(module, _flatten(tree))
 
 
+def reference_leaves(module: nn.Module) -> dict:
+    """The reference's parameter leaves of ``module``: each of its flattened
+    names (``stack.unit.b{i}.<name>`` for a layer's parameter, stacked over
+    the repeats of the pattern's unit; every other name as it is) → the
+    port's parameter names that make it up, in repeat order, and whether it
+    is stacked.  The optimizer and the gradient compression reduce over a
+    reference leaf (a stacked leaf's norm or scale spans its repeats), so
+    they work on these groups."""
+    from repro_torch.models.stack import find_unit  # the models import this module
+
+    cfg = getattr(module, "cfg", None)
+    width = len(find_unit(cfg.pattern())) if cfg is not None else 1
+    leaves = {}
+    for name, _ in module.named_parameters():
+        if not name.startswith("stack."):
+            leaves[name] = (False, (name,))
+            continue
+        layer, _, rest = name[len("stack."):].partition(".")
+        key = f"stack.unit.b{int(layer) % width}.{rest}"
+        leaves[key] = (True, leaves.get(key, (True, ()))[1] + (name,))
+    return leaves
+
+
+def _unstacked(values: Mapping, width: int) -> dict:
+    """Flattened reference values with each stacked ``stack.unit.b{i}.<name>``
+    split into its repeats: repeat ``r`` of position ``i`` is the port's
+    layer ``r·width + i``."""
+    out = {}
+    for name, value in values.items():
+        if not name.startswith("stack.unit.b"):
+            out[name] = value
+            continue
+        pos, _, rest = name[len("stack.unit.b"):].partition(".")
+        stacked = np.asarray(value)
+        for r in range(stacked.shape[0]):
+            out[f"stack.{r * width + int(pos)}.{rest}"] = stacked[r]
+    return out
+
+
 def load_reference_model(model: nn.Module, tree: Mapping) -> nn.Module:
     """Copy the reference's whole-model values ``tree`` (``init_unzipped(key,
     cfg)[0]`` of the reference's ``models/model.py``) into a
@@ -89,14 +134,46 @@ def load_reference_model(model: nn.Module, tree: Mapping) -> nn.Module:
     shape must match, or it raises; returns ``model``."""
     from repro_torch.models.stack import find_unit  # the models import this module
 
-    width = len(find_unit(model.cfg.pattern()))
-    values = {}
-    for name, value in _flatten(tree).items():
-        if not name.startswith("stack.unit.b"):
-            values[name] = value
-            continue
-        pos, _, rest = name[len("stack.unit.b"):].partition(".")
-        stacked = np.asarray(value)
-        for r in range(stacked.shape[0]):
-            values[f"stack.{r * width + int(pos)}.{rest}"] = stacked[r]
-    return _load(model, values)
+    return _load(model, _unstacked(_flatten(tree), len(find_unit(model.cfg.pattern()))))
+
+
+def _copy_into(dest: Mapping, values: Mapping, what: str) -> None:
+    """Copy each of ``values`` into the tensor of the same name in ``dest``;
+    the names and shapes must match exactly."""
+    if set(dest) != set(values):
+        raise KeyError(f"{what}: names differ: missing {sorted(set(dest) - set(values))}, "
+                       f"unexpected {sorted(set(values) - set(dest))}")
+    with torch.no_grad():
+        for name, t in dest.items():
+            value = torch.from_numpy(np.array(values[name], dtype=np.float32))
+            if tuple(value.shape) != tuple(t.shape):
+                raise ValueError(f"{what} {name}: reference shape {tuple(value.shape)}, port {tuple(t.shape)}")
+            t.copy_(value.to(t.device, t.dtype))
+
+
+def load_reference_train_state(state, ref):
+    """The reference's ``TrainState`` ``ref`` (with numpy arrays for its
+    leaves) into the port's
+    :class:`~repro_torch.train.train_loop.TrainState` ``state``, in place:
+    the parameters (unstacked as :func:`load_reference_model`), the
+    optimizer's state (AdamW's m and v unstacked per parameter; Adafactor's
+    factored statistics per reference leaf, stacked as the reference keeps
+    them; SGD's none), the error-feedback residuals per reference leaf, and
+    both step counters.  Returns the state with the reference's steps."""
+    from repro_torch.models.stack import find_unit
+    from repro_torch.train.optimizer import OptState
+
+    model = state.model
+    load_reference_model(model, ref.params)
+    inner = state.opt_state.inner
+    if isinstance(inner, Mapping) and set(inner) == {"m", "v"}:
+        width = len(find_unit(model.cfg.pattern()))
+        for k in ("m", "v"):
+            _copy_into(inner[k], _unstacked(_flatten(ref.opt_state.inner[k]), width), f"opt_state {k}")
+    elif inner:
+        flat = {f"{leaf}.{stat}": t for leaf, stats in inner.items() for stat, t in stats.items()}
+        _copy_into(flat, _flatten(ref.opt_state.inner), "opt_state")
+    if state.err_state or (ref.err_state is not None and len(ref.err_state)):
+        _copy_into(state.err_state, _flatten(ref.err_state), "err_state")
+    opt = OptState(step=int(np.asarray(ref.opt_state.step)), inner=inner)
+    return state._replace(step=int(np.asarray(ref.step)), opt_state=opt)

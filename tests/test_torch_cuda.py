@@ -477,3 +477,76 @@ def test_measured_plan_matches_the_heuristic_plan(dev, tmp_path, monkeypatch):
         F.plan(spec, device=dev, tune="measure")
         assert len(tuning.measure_log()) == logged
     tuning.cache.clear()
+
+
+# ---------------------------------------------------------------------------
+# gradients and training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("spec,shape", [
+    (F.FFTSpec(1024), (4, 1024)),
+    (F.FFTSpec(8192, kind="rfft"), (3, 8192)),
+    (F.FFTSpec(8192, kind="irfft"), (3, 4097)),
+    (F.FFTSpec(3000, kind="ifft"), (2, 3000)),
+    (F.FFTSpec(1 << 17), (1, 1 << 17)),
+    (F.FFTSpec(256, kind="fft2", n2=1 << 12), (1, 1 << 12, 256)),
+    (F.FFTSpec(4096, axis=-2), (4096, 8)),
+])
+def test_planned_backward_on_the_card(dev, spec, shape):
+    """With grad enabled a planned call's output is attached to the graph on
+    the card; its vjp launches exactly the opposite direction's kernels (no
+    plain call) and matches the CPU route's."""
+    real_in = spec.kind == "rfft"
+    rng = np.random.default_rng(0)
+    ins = [rng.standard_normal(shape).astype(np.float32) for _ in range(1 if real_in else 2)]
+    grads, counts = {}, None
+    for d in ("cpu", dev):
+        planned = F.plan(spec, device=d)
+        xs = [torch.from_numpy(a).to(d).requires_grad_(True) for a in ins]
+        y = planned(xs[0]) if real_in else planned(tuple(xs))
+        outs = [y] if torch.is_tensor(y) else list(y)
+        assert all(o.requires_grad for o in outs)
+        crng = np.random.default_rng(1)
+        cots = [torch.from_numpy(crng.standard_normal(tuple(o.shape)).astype(np.float32)).to(d) for o in outs]
+        kernels.reset_counts()
+        grads[d] = torch.autograd.grad(outs, xs, cots)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+    other = F.plan(F.FFTSpec(spec.n, kind={"fft": "ifft", "ifft": "fft", "rfft": "irfft", "irfft": "rfft",
+                                           "fft2": "ifft2"}[spec.kind], axis=spec.axis, n2=spec.n2), device=dev)
+    assert {k: v for k, v in counts.items() if v} == {k: other.kernels.count(k) for k in set(other.kernels)}
+    for g, w in zip(grads[dev], grads["cpu"]):
+        assert _rel(g.cpu().double().numpy(), w.double().numpy()) <= 1e-3
+
+
+def test_mixer_and_train_step_on_the_card(dev):
+    """The reduced hybrid LM with a 1024-tap filter (its convs at n = 4096,
+    fft4step): one SGD step on the card and on the CPU from the same
+    weights and batch, the loss and every updated parameter within
+    1e-3·max|cpu| (float32 compute, remat on), no plain call on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.configs.reduce import make_reduced
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(make_reduced(dataclasses.replace(get_config("h2o-danube-1.8b"),
+                                                                use_spectral_mixer=True)),
+                              compute_dtype="float32", spectral_filter_len=1024)
+    tc = TrainConfig(optimizer="sgd", learning_rate=1e-2)
+    batch = make_batch(DataConfig(cfg.vocab_size, 2048, 2), 0)
+    out = {}
+    for d in ("cpu", dev):
+        st = init_train_state(cfg, tc, device="cpu", generator=torch.Generator().manual_seed(0))
+        st = st._replace(model=st.model.to(d))
+        kernels.reset_counts()
+        st, metrics = make_train_step(cfg, tc)(st, batch)
+        counts = kernels.counts()
+        out[d] = (float(metrics["loss"]), {n: p.detach().cpu() for n, p in st.model.named_parameters()})
+    assert not any(v for k, v in counts.items() if k.endswith("_plain"))
+    assert counts["fft4step"] > 0 and counts["rfft_recomb"] > 0 and counts["irfft_recomb"] > 0
+    assert abs(out[dev][0] - out["cpu"][0]) <= 1e-3 * abs(out["cpu"][0])
+    for n, p in out["cpu"][1].items():
+        assert _rel(out[dev][1][n].double().numpy(), p.double().numpy()) <= 1e-3, n

@@ -23,7 +23,11 @@ import repro_torch.models.layers.attention, repro_torch.models.layers.embedding
 import repro_torch.models.layers.mlp, repro_torch.models.layers.norms, repro_torch.models.layers.rope
 import repro_torch.models.blocks, repro_torch.models.stack, repro_torch.models.model
 import repro_torch.serving.sampling, repro_torch.serving.engine, repro_torch.serving.spectral_serve
-import repro_torch.launch.serve
+import repro_torch.launch.serve, repro_torch.launch.train
+import repro_torch.configs.gemma3_12b, repro_torch.configs.yi_6b, repro_torch.configs.phi4_mini_3p8b
+import repro_torch.data.pipeline, repro_torch.checkpoint.manager, repro_torch.runtime.fault_tolerance
+import repro_torch.train.schedule, repro_torch.train.optimizer, repro_torch.train.compression
+import repro_torch.train.train_loop
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")

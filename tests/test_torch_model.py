@@ -93,14 +93,17 @@ def test_config_and_reduction_copy_the_reference(spectral):
         k: dataclasses.asdict(v) for k, v in ref_base.LM_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", sorted(set(ref_base.list_archs()) - {"h2o-danube-1.8b"}))
+PORTED = ["gemma3-12b", "h2o-danube-1.8b", "yi-6b", "phi4-mini-3.8b"]
+
+
+@pytest.mark.parametrize("arch", sorted(set(ref_base.list_archs()) - set(PORTED)))
 def test_unported_archs_name_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A1" if arch == "fftbench" else "ROADMAP.md A4"):
         base.get_config(arch)
 
 
 def test_registry():
-    assert base.list_archs() == ["h2o-danube-1.8b"]
+    assert base.list_archs() == PORTED
     with pytest.raises(KeyError, match="unknown arch"):
         base.get_config("llama-9000")
     cfg = dataclasses.replace(base.get_config("h2o-danube-1.8b"), name="mine")
@@ -372,6 +375,10 @@ def test_reduced_patterns():
 def test_logits_match_reference(pair, s):
     """Below and above the chunk threshold (64): the plain reduced
     h2o-danube's band and the hybrid's global chunked attention."""
+    _check_logits(pair, s)
+
+
+def _check_logits(pair, s):
     ref_cfg, params, model = pair
     toks = np.random.default_rng(s).integers(0, 512, (2, s))
     ref = jax.jit(lambda p, t: ref_model.logits_fn(p, {"tokens": t}, ref_cfg)[0])(params, jnp.asarray(toks))
@@ -385,6 +392,10 @@ def test_logits_match_reference(pair, s):
 def test_prefill_and_decode_match_reference(pair, sp):
     """prefill, the decode-layout caches and every decode step against the
     reference's, and each step's logits against the full forward."""
+    _check_prefill_and_decode(pair, sp)
+
+
+def _check_prefill_and_decode(pair, sp):
     ref_cfg, params, model = pair
     total, max_len = sp + 11, sp + 16
     toks = np.random.default_rng(sp).integers(0, 512, (2, total))
@@ -408,6 +419,30 @@ def test_prefill_and_decode_match_reference(pair, sp):
         got, cache = model.decode_step(torch.from_numpy(toks[:, t]), cache, t)
         assert _rel(got, lg) <= TOL, t
         assert _rel(got, full[:, t]) <= TOL, t
+
+
+@pytest.fixture(scope="module", params=["gemma3-12b", "yi-6b", "phi4-mini-3.8b"])
+def arch_pair(request):
+    """Another registered config at reduced size: gemma3-12b (5:1 local to
+    global windows, tied head, final softcap, GeGLU), yi-6b and
+    phi4-mini-3.8b (global GQA)."""
+    ref_cfg = dataclasses.replace(ref_make_reduced(ref_base.get_config(request.param)), compute_dtype="float32")
+    cfg = dataclasses.replace(make_reduced(base.get_config(request.param)), compute_dtype="float32")
+    assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(cfg)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FFT_TUNE", "off")
+        params, _ = ref_model.init_unzipped(jax.random.PRNGKey(0), ref_cfg)
+        yield ref_cfg, params, load_reference_model(DecoderLM(cfg, device="cpu"), _np(params))
+
+
+def test_config_logits_match_reference(arch_pair):
+    """Above the chunk threshold (64): chunked attention, banded on gemma3's
+    local layers."""
+    _check_logits(arch_pair, 80)
+
+
+def test_config_prefill_and_decode_match_reference(arch_pair):
+    _check_prefill_and_decode(arch_pair, 70)
 
 
 def test_decode_per_slot_positions_match_reference():
