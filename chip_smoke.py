@@ -96,14 +96,32 @@ package), in phases, and fails on the first check that does not hold:
    the float64 conv swap, step ms, tokens/s, busy share, FFT kernel ms,
    optimizer ms, peak memory; then a checkpoint save and resume mid-run at
    2 layers of the same width ("train" line).  Then each distinct kernel
-   call of the phase against its plain version, as phase 7.
+   call of the phase against its plain version, as phase 7;
+11. the MoE block — deepseek-moe-16b with ``use_spectral_mixer`` at full
+   width (``("spectral", "moe") × 14``, d_model 2048, 64 experts top-6 and
+   2 shared, 8.98 B fp32 parameters from a seed) served as phase 8 serves
+   (prompts 4096, 1000, 37; 32 steps; a 2048-token prompt inserted; 256
+   steps, one stream flush): (a) bf16 at the config's capacity, timed
+   (prefill per length, ms per decode step and per flush step, tokens/s)
+   and profiled (device ms by class: expert products, routing and
+   dispatch, weight casts, attention, the FFT kernels; the busy share; the
+   eager ops of a step); (b) float32 at the same capacity, the four
+   prefills: the bf16 prefill logits within 5e-2·max|ref| of them, and the
+   share of (token, layer) top-6 sets that differ; (c) float32 with
+   ``capacity_factor`` = 64/6, where no assignment can drop (0 checked in
+   every layer and call): every served logit row within 1e-3·max|ref| of a
+   teacher-forced ``logits_fn``; every served row finite and its token the
+   greedy one; each prefill's dropped assignments and capacity; launches
+   exactly those of the plans the spectral layers run, no plan when warm;
+   peak memory ("serve_moe" line).  Then each distinct kernel call against
+   its plain version, as phase 7.
 
-Phases 2–8 and 10 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8, 10 and 11 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9 and 10 each set the launch counts to 0 before they
+Phases 3, 5, 6, 7, 8, 9, 10 and 11 each set the launch counts to 0 before they
 start and read them when they end; every kernel of a path must have
 launched in it.  Phases 3–7 and 9 also run every one of their calls over a
 batch of 0: the output must have np.fft's shape, and the call launches
@@ -203,8 +221,8 @@ ATTRS: dict = {}
 
 #: The kernels each planned path must launch: phase 3 (1-D complex),
 #: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution),
-#: phase 8 (serving), phase 9 (the tuner) and phase 10 (gradients and
-#: training).
+#: phase 8 (serving), phase 9 (the tuner), phase 10 (gradients and
+#: training) and phase 11 (the MoE model served).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -218,6 +236,7 @@ PATH_KERNELS = {
              "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
     "train": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
               "irfft_recomb", "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
+    "moe": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
 }
 
 
@@ -1440,15 +1459,15 @@ def recording(model) -> dict:
     return rows
 
 
-def serve_session(model, prompts, late) -> ServeSession:
+def serve_session(model, prompts, late, first_steps: int = SERVE_FIRST_STEPS) -> ServeSession:
     """4 slots, max_len 4608, EOS outside the vocabulary (every slot decodes
-    every step): the three prompts admitted, SERVE_FIRST_STEPS steps, the
-    late prompt inserted into the running batch (re-phased)."""
+    every step): the three prompts admitted, ``first_steps`` steps, the late
+    prompt inserted into the running batch (re-phased)."""
     sess = ServeSession(Engine(model, ServeConfig(eos_id=model.cfg.vocab_size)), slots=SERVE_SLOTS,
                         max_len=SERVE_MAX_LEN)
     for p in prompts:
         sess.submit(p)
-    sess.run(SERVE_FIRST_STEPS)
+    sess.run(first_steps)
     sess.submit(late)
     return sess
 
@@ -1460,22 +1479,24 @@ def timed_run(sess, steps: int) -> float:
     return (sess.phase_s["generate"] - before) * 1e3
 
 
-def serve_expect(model, seq_lens) -> dict:
+def serve_expect(model, seq_lens, flushes: int = 2, bare_prefills: int = 0) -> dict:
     """Kernel → launches phase 8 must make: each spectral layer runs
     ``fft_conv`` (rfft twice, irfft once at next_pow2(S + Lf − 1)) and the
     stream state's lookahead (rfft twice, irfft once at the flush block) per
-    prefill, the lookahead per insert and per flush, and the conv per
-    teacher-forced ``logits_fn`` of ``seq_lens``; the timed prefills four
-    times each, and the longest once more under the profiler."""
+    prefill, the lookahead per insert and per flush (``flushes`` a session),
+    and the conv per teacher-forced ``logits_fn`` of ``seq_lens``; two
+    sessions; the timed prefills four times each, the longest once more
+    under the profiler, and ``bare_prefills`` more of each prompt (phase 11's
+    float32 reference prefills)."""
     mixer = model.stack[0].mixer
     lf, (_, block) = mixer.filter_len, mixer.grain
     conv = lambda s: rplans(next_pow2(s + lf - 1))  # noqa: E731
     lens = SERVE_PROMPTS + (SERVE_LATE,)
-    session = [u for s in lens for u in conv(s) + rplans(block)]
-    session += rplans(block, calls=(2 * (len(lens) + 2), len(lens) + 2))  # 4 inserts, 2 flushes
+    prefills = [u for s in lens for u in conv(s) + rplans(block)]
+    session = prefills + rplans(block, calls=(2 * (len(lens) + flushes), len(lens) + flushes))  # 4 inserts
     timed = [u for s in lens for u in rplans(next_pow2(s + lf - 1), calls=(8, 4)) + rplans(block, calls=(8, 4))]
     profiled = conv(lens[0]) + rplans(block)
-    uses = 2 * session + timed + profiled + [u for s in seq_lens for u in conv(s)]
+    uses = 2 * session + timed + profiled + bare_prefills * prefills + [u for s in seq_lens for u in conv(s)]
     layers = sum(block.kind == "spectral" for block in model.stack)
     return {k: v * layers for k, v in plans_launches(uses).items()}
 
@@ -1550,7 +1571,7 @@ def serve_phase(gen) -> None:
         check(served.argmax(-1).tolist() == out, f"phase 8 request {j}: emitted tokens are not the greedy ones")
         seq = torch.cat([p, torch.tensor(out[:-1], device=dev)])[None]
         seq_lens.append(seq.shape[1])
-        hidden = m32(seq)[0, len(p) - 1:]
+        hidden = m32(seq)[0][0, len(p) - 1:]
         errs.append(full_err(served, m32.head(hidden, m32.embed.table)))
         check(errs[-1] <= SERVE_TOL, f"phase 8 request {j}: served vs teacher-forced {errs[-1]:.3e} > {SERVE_TOL}")
         errs16.append(full_err(rows16["prefill"][j], rows32["prefill"][j].double()))
@@ -2128,6 +2149,312 @@ def grad_phase(gen) -> None:
     train_case(gen)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the MoE block, deepseek-moe-16b + spectral mixing served
+# ---------------------------------------------------------------------------
+
+#: Decode steps before the insert and after it: one stream flush (chunk 256)
+#: falls after the insert.
+MOE_FIRST_STEPS, MOE_STEPS = 32, 256
+
+
+def moe_config():
+    """deepseek-moe-16b with the paper-integration flag: ("spectral", "moe")
+    × 14 at d_model 2048, 16/16 heads of 128, 64 experts top-6 and 2 shared
+    of d_ff 1408, vocab 102400, Lf 1024."""
+    return dataclasses.replace(get_config("deepseek-moe-16b"), use_spectral_mixer=True)
+
+
+def moe_layers(model) -> list:
+    return [block.moe for block in model.stack if block.kind == "moe"]
+
+
+@contextlib.contextmanager
+def routing_watch(model, every_call: bool = False):
+    """Forward hooks on every MoE layer.  A call over more than one token (a
+    prefill or a teacher-forced forward) records, in call order, the
+    layer's top-k experts of each token (sorted), its dropped count and its
+    capacity; with ``every_call`` each call's dropped count is also summed on
+    the card (no sync).  Yields the records."""
+    rec = {"calls": [], "dropped": torch.zeros((), dtype=torch.long, device=model.device)}
+
+    def hook(layer, args, _out):
+        if every_call:
+            rec["dropped"] += layer.dropped
+        if args[0].shape[1] > 1:
+            r = layer.route(args[0])
+            rec["calls"].append((r.idx.sort(-1).values, layer.dropped, r.capacity))
+
+    handles = [m.register_forward_hook(hook) for m in moe_layers(model)]
+    try:
+        yield rec
+    finally:
+        for h in handles:
+            h.remove()
+
+
+#: The record_function ranges :func:`scoped` opens, and those of routing
+#: and dispatch.
+SCOPES = {"moe", "moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "attn.scores",
+          "attn.decode"}
+ROUTING_SCOPES = ("moe", "moe.route", "moe.dispatch", "moe.combine")
+
+
+@contextlib.contextmanager
+def scoped(model):
+    """``record_function`` ranges around each MoE layer's route, dispatch,
+    experts, combine and whole forward, its shared experts, and each
+    attention mixer's score passes (``_attend``) and decode (instance
+    attributes shadowing the methods; removed after)."""
+    from torch.profiler import record_function
+
+    patched = []
+
+    def wrap(obj, name, label):
+        fn = getattr(obj, name)
+
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+
+        setattr(obj, name, run)
+        patched.append((obj, name))
+
+    for block in model.stack:
+        if block.kind == "moe":
+            m = block.moe
+            for name in ("route", "dispatch", "experts", "combine"):
+                wrap(m, name, f"moe.{name}")
+            wrap(m, "forward", "moe")
+            if hasattr(m, "shared"):
+                wrap(m.shared, "forward", "moe.shared")
+            wrap(block.mixer, "_attend", "attn.scores")
+            wrap(block.mixer, "decode", "attn.decode")
+    try:
+        yield
+    finally:
+        for obj, name in patched:
+            delattr(obj, name)
+
+
+def moe_classes(model, fn) -> dict:
+    """Device ms of one call of ``fn`` by class, from a ``torch.profiler``
+    trace with the :func:`scoped` ranges and the ops' input shapes: the
+    port's FFT kernels (by name: ``ctypes`` launches them outside any aten
+    op); and each kernel an aten op launched by the op and its ranges:
+    weight casts (kernels under an
+    ``aten::_to_copy`` of a tensor shaped as one of the model's parameters);
+    expert products (the MoE's batched FFN and its shared experts); routing
+    and dispatch (router, softmax, sort, cumsum, index copies, gathers, the
+    weighting, the aux loss); the prefill's attention score passes; a decode
+    step's attention (projections, rope, the KV write, scores); other.
+    ``unattributed`` is device time the trace did not link to an op; also
+    the kernel launches, the top-level ``aten::`` ops of the call and each
+    class's three largest kernels (names cut to 90 characters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = {tuple(p.shape) for p in model.parameters()}
+    torch.cuda.synchronize()
+    with scoped(model), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ("fft_kernels", "weight_casts", "expert_products", "routing_dispatch", "attention_scores",
+             "attention_decode", "other")
+    out = {name: 0.0 for name in names}
+    by_name = {name: {} for name in names}
+    device_ms, launches, aten_ops = 0.0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name not in SCOPES:  # a range's device-side copy is no kernel
+                device_ms += e.time_range.elapsed_us() / 1e3
+                launches += 1
+                if OUR_KERNEL.search(e.name):  # launched through ctypes: no aten op owns it
+                    out["fft_kernels"] += e.time_range.elapsed_us() / 1e3
+            continue
+        chain, up = [], e.cpu_parent
+        while up is not None:
+            chain.append(up)
+            up = up.cpu_parent
+        if e.name.startswith("aten::") and not any(u.name.startswith("aten::") for u in chain):
+            aten_ops += 1
+        if not e.kernels:
+            continue
+        ops = [e] + chain  # innermost first
+        scopes = [u.name for u in ops]
+        cast = any(u.name == "aten::_to_copy" and u.input_shapes and tuple(u.input_shapes[0]) in shapes
+                   for u in ops)
+        inner = next((n for n in scopes if n.startswith(("moe", "attn."))), None)
+        for k in e.kernels:
+            if k.name in SCOPES or OUR_KERNEL.search(k.name):
+                continue
+            ms = k.duration / 1e3
+            if cast:
+                key = "weight_casts"
+            elif inner in ("moe.experts", "moe.shared"):
+                key = "expert_products"
+            elif inner in ROUTING_SCOPES:
+                key = "routing_dispatch"
+            elif inner == "attn.scores":
+                key = "attention_scores"
+            elif inner == "attn.decode":
+                key = "attention_decode"
+            else:
+                key = "other"
+            out[key] += ms
+            kernel = k.name[:90]
+            by_name[key][kernel] = by_name[key].get(kernel, 0.0) + ms
+    out["unattributed"] = device_ms - sum(out.values())
+    top = {key: dict(sorted(v.items(), key=lambda kv: -kv[1])[:3]) for key, v in by_name.items() if v}
+    return {"device_ms": device_ms, "classes": out, "kernel_launches": launches, "top_level_aten_ops": aten_ops,
+            "top_kernels": top}
+
+
+def topk_share(a: list, b: list) -> float:
+    """The share of (token, layer) top-k sets that differ between two
+    :func:`routing_watch` records of the same prefills."""
+    check(len(a) == len(b), f"phase 11: {len(a)} and {len(b)} routed calls")
+    differ = total = 0
+    for (ia, _, _), (ib, _, _) in zip(a, b):
+        differ += int((ia != ib).any(-1).sum())
+        total += ia.shape[0] * ia.shape[1]
+    return differ / total
+
+
+def per_prefill(calls: list, layers: int) -> list:
+    """Each prefill's dropped assignments (summed over its layers) and
+    capacity, from a :func:`routing_watch` record."""
+    return [{"dropped": sum(int(d) for _, d, _ in calls[i:i + layers]), "capacity": calls[i][2]}
+            for i in range(0, len(calls), layers)]
+
+
+def served_rows(rows, requests, outs, start_steps, label):
+    """Each request's served logit rows (its prefill's and its slot's at
+    every decode step), checked finite and greedy; returns them."""
+    served = []
+    for j, (p, slot, start) in enumerate(requests):
+        out = outs[slot]
+        want = 1 + start_steps - start
+        check(len(out) == want, f"{label} request {j}: {len(out)} tokens, expected {want}")
+        r = torch.cat([rows["prefill"][j]] + [rows["decode"][k][slot:slot + 1] for k in range(start, start + want - 1)])
+        check(bool(torch.isfinite(r).all()), f"{label} request {j}: non-finite served logits")
+        check(r.argmax(-1).tolist() == out, f"{label} request {j}: emitted tokens are not the greedy ones")
+        served.append(r)
+    return served
+
+
+def moe_phase(gen) -> None:
+    """Phase 11: deepseek-moe-16b + use_spectral_mixer built on the card at
+    full width and served: (a) bf16 at the config's capacity, timed and
+    profiled; (b) float32 at that capacity, the four prefills (the bf16
+    gate's reference); (c) float32 with capacity_factor = E/k (no
+    assignment can drop), every served logit row against a teacher-forced
+    ``logits_fn``.  Launches exact."""
+    cfg, dev = moe_config(), gen.device
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    layers = len(moe_layers(model))
+    check(len(model.stack) == cfg.num_layers == 2 * layers and model.stack[0].kind == "spectral",
+          f"phase 11: {len(model.stack)} layers, {layers} MoE, of {cfg.num_layers}")
+    print(f"phase 11: {cfg.name} + use_spectral_mixer, {n_params} parameters", flush=True)
+    prompts = [torch.randint(4, cfg.vocab_size, (n,), device=dev, generator=gen) for n in SERVE_PROMPTS]
+    late = torch.randint(4, cfg.vocab_size, (SERVE_LATE,), device=dev, generator=gen)
+    requests = [(p, slot, 0) for slot, p in enumerate(prompts)] + [(late, len(prompts), MOE_FIRST_STEPS)]
+    c, block = model.stack[0].mixer.grain
+    at_start = kernels.counts()
+
+    # (a) bf16 compute at the config's capacity: the timed and profiled session.
+    rows16 = recording(model)
+    with routing_watch(model) as routed16:
+        sess = serve_session(model, prompts, late, MOE_FIRST_STEPS)
+        flush_at = (c - 1 - MOE_FIRST_STEPS) % c  # steps to the first flush after the insert
+        ms_a = timed_run(sess, flush_at - 1)
+        step = moe_classes(model, lambda: sess.run(1))
+        check(sess.state.caches[0].phase == c - 1, f"phase 11: phase {sess.state.caches[0].phase} before the flush")
+        flush_ms = timed_run(sess, 1)
+        rest = MOE_STEPS - flush_at - 1
+        ms_b = timed_run(sess, rest)
+    out16 = [sess.output(s) for s in range(SERVE_SLOTS)]
+    insert_ms = sess.phase_s["insert"] * 1e3 / SERVE_SLOTS
+    del sess, model.prefill, model.decode_step
+    served_rows(rows16, requests, out16, MOE_FIRST_STEPS + MOE_STEPS, "phase 11 bf16")
+    pre16 = rows16["prefill"]
+    del rows16
+    torch.cuda.empty_cache()
+
+    # (b) float32 compute at the same capacity: the prefills only.
+    m32 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32"), device="meta")
+    m32.load_state_dict(model.state_dict(), assign=True)
+    with routing_watch(m32) as routed32:
+        pre32 = [m32.prefill(p[None])[0] for p in prompts + [late]]
+    del m32
+    errs16 = [full_err(a, b.double()) for a, b in zip(pre16, pre32)]
+    flips = topk_share(routed16["calls"], routed32["calls"])
+    torch.cuda.empty_cache()
+
+    # (c) float32 compute, capacity_factor = E/k: nothing can drop.
+    mc = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32",
+                                       capacity_factor=cfg.num_experts / cfg.top_k), device="meta")
+    mc.load_state_dict(model.state_dict(), assign=True)
+    rows32 = recording(mc)
+    F.clear_plan_log()
+    with routing_watch(mc, every_call=True) as routed_c:
+        sess = serve_session(mc, prompts, late, MOE_FIRST_STEPS)
+        sess.run(MOE_STEPS)
+        check(F.plan_log() == (), f"phase 11: the warm session planned {F.plan_log()}")
+        out32 = [sess.output(s) for s in range(SERVE_SLOTS)]
+        del sess, mc.prefill, mc.decode_step
+        served = served_rows(rows32, requests, out32, MOE_FIRST_STEPS + MOE_STEPS, "phase 11 float32")
+        del rows32
+        errs, seq_lens = [], []
+        for (p, slot, _), row in zip(requests, served):
+            seq = torch.cat([p, torch.tensor(out32[slot][:-1], device=dev)])[None]
+            seq_lens.append(seq.shape[1])
+            hidden = mc(seq)[0][0, len(p) - 1:]
+            errs.append(full_err(row, mc.head(hidden, mc.embed.table)))
+            del hidden
+    dropped_c = int(routed_c["dropped"])
+    agree = [sum(a == b for a, b in zip(out16[s], out32[s])) / len(out32[s]) for s in range(SERVE_SLOTS)]
+    del served, mc
+    torch.cuda.empty_cache()
+
+    # Each prompt length's prefill at bf16, warm (CUDA events, median of 3).
+    eng = Engine(model, ServeConfig(eos_id=cfg.vocab_size))
+    g = eng.generator(0)
+    prefill_ms = {
+        n: time_ms(lambda p=p: eng.prefill(p[None], max_len=SERVE_MAX_LEN, generator=g), reps=3)
+        for n, p in zip(SERVE_PROMPTS + (SERVE_LATE,), prompts + [late])
+    }
+    prefill = moe_classes(model, lambda: eng.prefill(prompts[0][None], max_len=SERVE_MAX_LEN, generator=g))
+    check_launches("phase 11", at_start, kernels.counts(),
+                   serve_expect(model, seq_lens, flushes=1, bare_prefills=1))
+    step_ms = (ms_a + ms_b) / (flush_at - 1 + rest)
+    peak = torch.cuda.max_memory_allocated()
+    print("serve_moe " + json.dumps({
+        "config": cfg.name + " use_spectral_mixer", "layers": len(model.stack), "moe_layers": layers,
+        "parameters": n_params, "experts": cfg.num_experts, "top_k": cfg.top_k,
+        "shared_experts": cfg.num_shared_experts, "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+        "prompts": list(SERVE_PROMPTS), "late": SERVE_LATE, "steps": [MOE_FIRST_STEPS, MOE_STEPS],
+        "chunk": c, "block": block,
+        "prefill_dropped_bf16": per_prefill(routed16["calls"], layers),
+        "prefill_dropped_float32": per_prefill(routed32["calls"], layers),
+        "no_drop_run_dropped": dropped_c, "served_vs_teacher_forced": errs, "bf16_vs_float32_prefill": errs16,
+        "topk_sets_differing_bf16_float32": flips, "bf16_float32_token_agreement": agree,
+        "prefill_ms": prefill_ms, "insert_ms": insert_ms, "decode_ms_per_step": step_ms,
+        "decode_tok_per_s": SERVE_SLOTS * 1e3 / step_ms, "flush_step_ms": flush_ms,
+        "step_device": step, "step_busy": step["device_ms"] / step_ms,
+        "prefill_device": prefill, "prefill_busy": prefill["device_ms"] / prefill_ms[SERVE_PROMPTS[0]],
+        "peak_bytes": peak, "param_bytes": 4 * n_params, "param_share_of_peak": 4 * n_params / peak,
+    }), flush=True)
+    check(dropped_c == 0, f"phase 11: the capacity-factor E/k run dropped {dropped_c} assignments")
+    for j, (e32, e16) in enumerate(zip(errs, errs16)):
+        check(e32 <= SERVE_TOL, f"phase 11 request {j}: served vs teacher-forced {e32:.3e} > {SERVE_TOL}")
+        check(e16 <= BF16_TOL, f"phase 11 request {j}: bf16 prefill vs float32 {e16:.3e} > {BF16_TOL}")
+    del model, eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -2181,8 +2508,14 @@ def main() -> int:
             trained = path_launches("train", grad_phase, gen)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s, {len(seen)} distinct kernel calls", flush=True)
         path_kernel_rows("train", seen, trained, gen)
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        with tune_env("off"), recorded_calls() as seen, torch.no_grad():
+            moe = path_launches("moe", moe_phase, gen)
+        print(f"phase 11: {time.perf_counter() - t11:.1f} s, {len(seen)} distinct kernel calls", flush=True)
+        path_kernel_rows("moe", seen, moe, gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
-                    + tuned[name] + trained[name] for name in SOURCES}
+                    + tuned[name] + trained[name] + moe[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -2192,7 +2525,8 @@ def main() -> int:
         r = rows[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "train_launches": trained[name], "max_abs_err": r["max_abs_err"],
+            "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],

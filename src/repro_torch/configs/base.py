@@ -186,18 +186,18 @@ LM_SHAPES: dict[str, ShapeConfig] = {
 
 #: Registry names whose configurations the port resolves.
 _REGISTRY: dict[str, str] = {
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
 }
 
-#: The reference's other registry names: their block kinds (experts, SSM,
-#: xLSTM, shared attention) or frontends are not ported yet, and
-#: ``fftbench`` is the paper's benchmark.
+#: The reference's other registry names: their block kinds (SSM, xLSTM,
+#: shared attention) or frontends are not ported yet, and ``fftbench`` is
+#: the paper's benchmark.
 _NOT_PORTED = (
-    "arctic-480b",
-    "deepseek-moe-16b",
     "musicgen-large",
     "xlstm-125m",
     "zamba2-2.7b",

@@ -35,7 +35,7 @@ def main(argv=None):
     ap.add_argument(
         "--spectral",
         action="store_true",
-        help="the paper-integration flag use_spectral_mixer: (spectral, attn) layer pairs",
+        help="the paper-integration flag use_spectral_mixer: (spectral, attn) or (spectral, moe) layer pairs",
     )
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument(

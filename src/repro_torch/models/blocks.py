@@ -1,16 +1,19 @@
-"""Residual blocks: one mixer and one MLP per kind.
+"""Residual blocks: one mixer and one MLP (or MoE) per kind.
 
 Port of ``repro/models/blocks.py`` for the kinds the ported configurations
 run:
 
 attn          pre-norm global attention + pre-norm MLP
 attn_local    same, sliding-window (``cfg.sliding_window``)
+moe           pre-norm global attention + pre-norm MoE FFN (:class:`MoE`)
 spectral      pre-norm FFT long-conv mixer (:class:`SpectralMixer`) + pre-norm MLP
 
-``moe``, ``mamba2``, ``mlstm``, ``slstm`` and ``shared_attn`` raise
+``mamba2``, ``mlstm``, ``slstm`` and ``shared_attn`` raise
 ``NotImplementedError`` naming ``ROADMAP.md`` A4.  ``forward`` returns
-``(x, cache or None)``, ``decode`` returns ``(x, new_cache)``; the caches
-are the layers' own (:class:`KVCache`, :class:`SpectralStreamCache`,
+``(x, cache or None, aux)``, the aux loss a float32 0-d tensor (the MoE's,
+else 0); ``decode`` returns ``(x, new_cache)`` and drops the aux, as the
+reference's ``block_decode``.  The caches are the layers' own
+(:class:`KVCache`, also the ``moe`` kind's; :class:`SpectralStreamCache`,
 :class:`SpectralCache`).
 """
 
@@ -23,13 +26,14 @@ from torch import nn
 
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.mlp import MLP
+from repro_torch.models.layers.moe import MoE
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.layers.spectral import SpectralMixer, SpectralStreamCache
 
 __all__ = ["Block", "KINDS"]
 
-KINDS = ("attn", "attn_local", "spectral")
-NOT_PORTED = ("moe", "mamba2", "mlstm", "slstm", "shared_attn")
+KINDS = ("attn", "attn_local", "moe", "spectral")
+NOT_PORTED = ("mamba2", "mlstm", "slstm", "shared_attn")
 
 
 def _ff_dim(cfg) -> int:
@@ -37,8 +41,9 @@ def _ff_dim(cfg) -> int:
 
 
 class Block(nn.Module):
-    """Parameters ``norm1.scale``, ``mixer.*``, ``norm2.scale``, ``mlp.*``:
-    the reference's ``block_init`` tree for the kind."""
+    """Parameters ``norm1.scale``, ``mixer.*``, ``norm2.scale`` and
+    ``mlp.*`` (``moe.*`` for the kind ``moe``): the reference's
+    ``block_init`` tree for the kind."""
 
     def __init__(self, kind: str, cfg, *, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -60,7 +65,15 @@ class Block(nn.Module):
             window = cfg.sliding_window if kind == "attn_local" else None
             self.mixer = attn_lib.Attention(cfg, window=window, **kw)
         self.norm2 = RMSNorm(d, eps=cfg.norm_eps, device=device)
-        self.mlp = MLP(d, _ff_dim(cfg), act=cfg.act, **kw)
+        if kind == "moe":
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(d, _ff_dim(cfg), act=cfg.act, **kw)
+
+    def _ffn(self, x: torch.Tensor):
+        """The second residual branch: (y, the MoE's aux loss or None)."""
+        h = self.norm2(x)
+        return self.moe(h) if self.kind == "moe" else (self.mlp(h), None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
         h = self.norm1(x)
@@ -70,7 +83,8 @@ class Block(nn.Module):
             res = self.mixer(h, positions, return_cache=return_cache)
         res, cache = res if return_cache else (res, None)
         x = x + res
-        return x + self.mlp(self.norm2(x)), cache
+        y, aux = self._ffn(x)
+        return x + y, cache, (x.new_zeros((), dtype=torch.float32) if aux is None else aux)
 
     def decode(self, x: torch.Tensor, cache, t):
         """One token, x (B, 1, D), at position ``t`` (an int or (B,))."""
@@ -84,7 +98,7 @@ class Block(nn.Module):
         else:
             res, cache = self.mixer.decode(h, cache)
         x = x + res
-        return x + self.mlp(self.norm2(x)), cache
+        return x + self._ffn(x)[0], cache
 
     def cache_init(self, batch: int, max_len: int, dtype: torch.dtype):
         """The empty decode state of this layer (the spectral mixer's in

@@ -1,2 +1,3 @@
-"""LM layers: ``norms``, ``rope``, ``embedding``, ``mlp``, ``attention`` and
-``spectral`` (the gated FFT long-convolution mixer)."""
+"""LM layers: ``norms``, ``rope``, ``embedding``, ``mlp``, ``attention``,
+``moe`` (top-k routed experts) and ``spectral`` (the gated FFT
+long-convolution mixer)."""

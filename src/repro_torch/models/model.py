@@ -11,10 +11,12 @@ writes ``params[...].astype(cd)``; logits in float32.
 The spectral layers' convolutions run through the planned FFTs, so on the
 card through the hand-written kernels; everything else is plain PyTorch.
 ``device=None`` builds the model on the card (raising without one),
-``device="cpu"`` on the plain route.  :func:`loss_fn` is the training loss:
-the chunked cross-entropy (the (B, S, vocab) logits never materialise at
-once), z-loss, ``loss_mask`` and the aux term, as the reference's.  The
-modality frontends come with ``ROADMAP.md`` A4.
+``device="cpu"`` on the plain route.  The forward returns the hidden
+states and the summed aux loss of the MoE layers (0 without one), as the
+reference's ``forward``.  :func:`loss_fn` is the training loss: the chunked
+cross-entropy (the (B, S, vocab) logits never materialise at once), z-loss,
+``loss_mask`` and the aux term, as the reference's.  The modality frontends
+come with ``ROADMAP.md`` A4.
 """
 
 from __future__ import annotations
@@ -61,19 +63,20 @@ class DecoderLM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
 
-    def forward(self, tokens, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens (B, S) → the final-normed hidden states (B, S, D).
-        ``positions`` (B, S) default to 0 … S − 1."""
+    def forward(self, tokens, positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) → (the final-normed hidden states (B, S, D), the
+        layers' summed aux loss, float32 0-d).  ``positions`` (B, S) default
+        to 0 … S − 1."""
         tokens = self._tokens(tokens)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=self.device).expand(tokens.shape)
         x = self.embed(tokens, self.compute_dtype)
-        x, _ = self.stack(x, positions)
-        return self.final_norm(x)
+        x, _, aux = self.stack(x, positions)
+        return self.final_norm(x), aux
 
     def logits_fn(self, tokens, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, S, vocab) float32 logits: the small-model and check path."""
-        return self.head(self(tokens, positions), self.embed.table)
+        return self.head(self(tokens, positions)[0], self.embed.table)
 
     @torch.no_grad()
     def prefill(self, tokens) -> Tuple[torch.Tensor, List]:
@@ -83,7 +86,7 @@ class DecoderLM(nn.Module):
         tokens = self._tokens(tokens)
         positions = torch.arange(tokens.shape[1], device=self.device).expand(tokens.shape)
         x = self.embed(tokens, self.compute_dtype)
-        x, caches = self.stack(x, positions, return_cache=True)
+        x, caches, _ = self.stack(x, positions, return_cache=True)
         x = self.final_norm(x[:, -1:])
         return self.head(x, self.embed.table)[:, 0], caches
 
@@ -163,10 +166,10 @@ def loss_fn(model: DecoderLM, batch: dict, train_cfg=None):
     """Scalar LM loss and its metrics.  ``batch``: ``tokens`` and ``targets``
     (B, S) integers, optional ``loss_mask`` (B, S) and ``positions``.
 
-    loss = Σ nll / n + z_loss · Σ lse² / n + aux, n = max(Σ mask, 1);
-    metrics ``loss``, ``ce``, ``aux``, ``tokens`` as 0-d float32 tensors
-    (``aux`` is 0: no ported block has an auxiliary loss)."""
-    hidden = model(batch["tokens"], batch.get("positions"))
+    loss = Σ nll / n + z_loss · Σ lse² / n + aux, n = max(Σ mask, 1), aux
+    the MoE layers' load-balance term (0 without one); metrics ``loss``,
+    ``ce``, ``aux``, ``tokens`` as 0-d float32 tensors."""
+    hidden, aux = model(batch["tokens"], batch.get("positions"))
     targets = torch.as_tensor(batch["targets"], dtype=torch.long, device=model.device)
     mask = batch.get("loss_mask")
     mask = (torch.ones(targets.shape, device=model.device) if mask is None
@@ -174,7 +177,6 @@ def loss_fn(model: DecoderLM, batch: dict, train_cfg=None):
     nll, z2, cnt = _chunk_ce(model, hidden, targets, mask)
     cnt = cnt.clamp(min=1.0)
     ce = nll / cnt
-    aux = torch.zeros((), device=model.device)
     z_coef = getattr(train_cfg, "z_loss", 1e-4) if train_cfg else 1e-4
     loss = ce + z_coef * (z2 / cnt) + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": cnt}

@@ -7,9 +7,10 @@ eager PyTorch a :class:`Stack` is an ``nn.ModuleList`` of the layers in
 pattern order and a Python loop over them.  ``cfg.remat`` checkpoints each
 block of a forward that builds a graph
 (``torch.utils.checkpoint``, non-reentrant): its activations are recomputed
-in the backward instead of kept.  Caches are a list with one
-entry per layer, batch at axis 0 (the reference's are stacked per unit
-position, repeats leading).  :func:`find_unit` is the reference's, which
+in the backward instead of kept.  The forward sums the blocks' aux losses
+(the MoE's load-balance term) as the reference's scan carries them.
+Caches are a list with one entry per layer, batch at axis 0 (the
+reference's are stacked per unit position, repeats leading).  :func:`find_unit` is the reference's, which
 ``load_reference_model`` uses to unstack the reference's parameters.
 """
 
@@ -35,8 +36,10 @@ def find_unit(pattern: tuple) -> tuple:
     return tuple(pattern)
 
 
-def _hidden(block, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    return block(x, positions)[0]
+def _hidden(block, x: torch.Tensor, positions: torch.Tensor):
+    """A block's (hidden states, aux) without its cache: the checkpointed call."""
+    x, _, aux = block(x, positions)
+    return x, aux
 
 
 class Stack(nn.ModuleList):
@@ -50,16 +53,19 @@ class Stack(nn.ModuleList):
         self.remat = cfg.remat
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
-        """x: (B, S, D) → (x, per-layer caches or None)."""
+        """x: (B, S, D) → (x, per-layer caches or None, Σ aux float32 0-d)."""
+        total = x.new_zeros((), dtype=torch.float32)
         if self.remat and torch.is_grad_enabled() and not return_cache:
             for block in self:
-                x = checkpoint(_hidden, block, x, positions, use_reentrant=False)
-            return x, None
+                x, aux = checkpoint(_hidden, block, x, positions, use_reentrant=False)
+                total = total + aux
+            return x, None, total
         caches = []
         for block in self:
-            x, cache = block(x, positions, return_cache=return_cache)
+            x, cache, aux = block(x, positions, return_cache=return_cache)
             caches.append(cache)
-        return x, (caches if return_cache else None)
+            total = total + aux
+        return x, (caches if return_cache else None), total
 
     def decode(self, x: torch.Tensor, caches: List, t):
         """One decode step through every layer; returns (x, new caches)."""

@@ -128,8 +128,9 @@ def load_reference_model(model: nn.Module, tree: Mapping) -> nn.Module:
 
     The reference stacks each position ``i`` of the pattern's repeating unit
     over the repeats (``stack.unit.b{i}.<name>``, a leading ``layers``
-    axis); repeat ``r`` of position ``i`` is the port's layer
-    ``r·len(unit) + i`` (``stack.<layer>.<name>``).  Every other name
+    axis, split on that axis only: an expert weight stacked over the
+    repeats is (R, E, D, F)); repeat ``r`` of position ``i`` is the port's
+    layer ``r·len(unit) + i`` (``stack.<layer>.<name>``).  Every other name
     carries over as it is.  As :func:`load_reference_params`, every name and
     shape must match, or it raises; returns ``model``."""
     from repro_torch.models.stack import find_unit  # the models import this module

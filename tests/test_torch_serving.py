@@ -108,6 +108,42 @@ def test_session_with_insert_matches_reference(model, prompts, ref_outputs):
     assert sess.output(b)[:12] == ref_outputs[0][1].tolist()
 
 
+@pytest.mark.parametrize("arch,spectral", [("deepseek-moe-16b", True), ("arctic-480b", False)],
+                         ids=["deepseek-moe-16b+spectral", "arctic-480b"])
+def test_moe_session_with_insert_matches_reference(arch, spectral, prompts):
+    """The reduced MoE configs at float32 compute, the reference's
+    parameters: deepseek-moe-16b with the spectral flag (``("spectral",
+    "moe") × 2``) and arctic-480b (the dense residual, bf16 parameters, int8
+    KV); greedy ``Engine.generate`` and a session with a request inserted
+    after 3 steps emit the reference's tokens."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FFT_TUNE", "off")
+        changes = dict(compute_dtype="float32", param_dtype="bfloat16" if arch == "arctic-480b" else "float32")
+        ref_cfg = dataclasses.replace(
+            ref_make_reduced(dataclasses.replace(ref_base.get_config(arch), use_spectral_mixer=spectral)), **changes)
+        cfg = dataclasses.replace(
+            make_reduced(dataclasses.replace(base.get_config(arch), use_spectral_mixer=spectral)), **changes)
+        assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(cfg) and "moe" in cfg.pattern()
+        params, _ = ref_model.init_unzipped(jax.random.PRNGKey(0), ref_cfg)
+        ref_eng = RefEngine(ref_cfg, params, RefServeConfig(max_new=12, eos_id=-1))
+        whole = np.asarray(ref_eng.generate(jnp.asarray(prompts)))
+        ref_sess = RefSession(ref_eng, slots=2, max_len=30)
+        a = ref_sess.submit(jnp.asarray(prompts[0]))
+        ref_sess.run(3)
+        b = ref_sess.submit(jnp.asarray(prompts[1]))
+        ref_sess.run(11)
+        port = load_reference_model(DecoderLM(cfg, device="cpu"), jax.tree.map(np.asarray, params))
+        eng = Engine(port, ServeConfig(max_new=12, eos_id=-1))
+        np.testing.assert_array_equal(eng.generate(prompts).numpy(), whole)
+        sess = ServeSession(eng, slots=2, max_len=30)
+        sa = sess.submit(prompts[0])
+        sess.run(3)
+        sb = sess.submit(prompts[1])
+        sess.run(11)
+        assert sess.output(sa) == ref_sess.output(a) and sess.output(sb) == ref_sess.output(b)
+        assert sess.state.caches[-1].k.dtype == (torch.int8 if arch == "arctic-480b" else torch.float32)
+
+
 def test_session_matches_whole_batch_generate(model, prompts):
     eng = _engine(model, max_new=8)
     ref = eng.generate(prompts).numpy()
@@ -319,6 +355,16 @@ def test_launch_serve_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert [r["prompt_len"] for r in rows] == [8, 12]
     assert "prefill" in out and "device: cpu" in out
+
+
+def test_launch_serve_moe_on_the_cpu(capsys):
+    """The reduced deepseek-moe-16b with the spectral flag through the
+    launcher."""
+    rows = launch_serve.main(["--arch", "deepseek-moe-16b", "--reduced", "--spectral", "--batch", "2",
+                              "--prompt-len", "8,12", "--max-new", "4", "--warmup", "0", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert [r["prompt_len"] for r in rows] == [8, 12]
+    assert "decode=" in out and "device: cpu" in out
 
 
 def test_entry_points_without_a_device_need_the_card(monkeypatch, model):

@@ -5,7 +5,8 @@ The reference's ``TrainState`` (``init_train_state`` at ``PRNGKey(0)``,
 then its own jitted ``make_train_step``) is carried into the port by
 ``load_reference_train_state``; the same ``make_batch`` batches go through
 both, at float32 compute on reduced configs (``make_reduced``: h2o-danube
-dense and with ``use_spectral_mixer``, and gemma3-12b).  Tolerances: loss
+dense and with ``use_spectral_mixer``, gemma3-12b, and deepseek-moe-16b,
+whose loss carries the MoE layers' aux term).  Tolerances: loss
 and metrics 1e-5 relative; each parameter's gradient 1e-4·max|ref|; a
 parameter update Δp 1e-5·max|Δp_ref| (SGD, Adafactor) — except AdamW's,
 1e-3·max|Δp_ref|: Adam's update is m̂/(√v̂ + eps), at step 1 exactly
@@ -59,6 +60,7 @@ CONFIGS = {
     "dense": ("h2o-danube-1.8b", False),
     "spectral": ("h2o-danube-1.8b", True),
     "gemma3": ("gemma3-12b", False),
+    "moe": ("deepseek-moe-16b", False),
 }
 
 
@@ -259,6 +261,27 @@ def test_train_step_matches_reference(opt):
                           _adam_first_allowance("spectral", port_tc, states[i]))
         else:
             _check_update(st.model, states[i], states[i + 1], ADAM_TOL)
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_moe_step_matches_reference(opt):
+    """The reduced deepseek-moe-16b (``moe`` × 2, 8 experts, top-2, one
+    shared): loss and aux, and one step from the reference's step-0 state
+    and one from its step-1 state, against the reference's (Adafactor's
+    factored statistics of the expert weights span the (R, E, D, F) leaf)."""
+    tc, states, metrics = _reference_run("moe", opt)
+    _, cfg = _cfgs("moe")
+    assert all(float(m["aux"]) > 0 for m in metrics)
+    for i in range(2):
+        port_tc, st = _port_state("moe", tc, states[i])
+        st, got = train_loop.make_train_step(cfg, port_tc)(st, pipeline.make_batch(
+            pipeline.DataConfig(cfg.vocab_size, S, B), i))
+        _check_metrics(got, metrics[i])
+        if opt == "adafactor":
+            _check_update(st.model, states[i], states[i + 1], STEP_TOL)
+        else:
+            allowance = _adam_first_allowance("moe", port_tc, states[i]) if i == 0 else None
+            _check_update(st.model, states[i], states[i + 1], ADAM_TOL, allowance)
 
 
 def test_microbatches_match_reference():
