@@ -114,20 +114,35 @@ package), in phases, and fails on the first check that does not hold:
    greedy one; each prefill's dropped assignments and capacity; launches
    exactly those of the plans the spectral layers run, no plan when warm;
    peak memory ("serve_moe" line).  Then each distinct kernel call against
-   its plain version, as phase 7.
+   its plain version, as phase 7;
+12. the recurrent LMs — zamba2-2.7b (``(mamba2 × 6, shared_attn) × 9``,
+   d_model 2560, one shared attention block run at 9 positions, 2.42 B
+   fp32 parameters) and xlstm-125m (``(mlstm, mlstm, slstm) × 4``, d_model
+   768, 0.198 B) at full width from a seed, each served as phase 8 serves
+   but with prompts of 4096, 1024 and 37 tokens (the chunk rule: at most
+   one chunk of 256, or whole chunks): bf16 timed (prefill per length,
+   insert, ms per decode step, tokens/s) and profiled (device ms by class:
+   weight casts, projections, the SSD or GLA chunk work, the sLSTM loop,
+   attention; the busy share), then float32 on the same weights, every
+   served logit row within 1e-3·max|ref| of a teacher-forced ``logits_fn``
+   at the longest length the chunk rule admits (4608, 1536, 512, 2304) and
+   the bf16 prefill logits within 5e-2·max|ref| of the float32 ones; a
+   1000-token prompt raises the chunk rule's ``ValueError``; no FFT kernel
+   launches and no plan is made ("serve_recurrent" lines).
 
-Phases 2–8, 10 and 11 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8 and 10–12 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10 and 11 each set the launch counts to 0 before they
-start and read them when they end; every kernel of a path must have
-launched in it.  Phases 3–7 and 9 also run every one of their calls over a
-batch of 0: the output must have np.fft's shape, and the call launches
-nothing (0 launches, not ``len(plan.passes)``).  The
-script then prints the per-kernel JSON line, the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+Phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 each set the launch counts to 0 before
+they start and read them when they end; every kernel of a path must have
+launched in it (phase 12's path has none, and must launch none).  Phases
+3–7 and 9 also run every one of their calls over a batch of 0: the output
+must have np.fft's shape, and the call launches nothing (0 launches, not
+``len(plan.passes)``).  The script then prints the per-kernel JSON line
+(each kernel's launches per path, ``hybrid_launches`` phase 12's), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
 
@@ -159,6 +174,7 @@ from repro_torch.core.limits import next_pow2  # noqa: E402
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
 from repro_torch.models.layers.spectral import SpectralMixer, stream_plan_info  # noqa: E402
 from repro_torch.models.model import DecoderLM  # noqa: E402
+from repro_torch.models.stack import find_unit  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.serving.spectral_serve import ServeSession  # noqa: E402
 
@@ -222,7 +238,8 @@ ATTRS: dict = {}
 #: The kernels each planned path must launch: phase 3 (1-D complex),
 #: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution),
 #: phase 8 (serving), phase 9 (the tuner), phase 10 (gradients and
-#: training) and phase 11 (the MoE model served).
+#: training), phase 11 (the MoE model served) and phase 12 (the recurrent
+#: LMs served, which launch none).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -237,6 +254,7 @@ PATH_KERNELS = {
     "train": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
               "irfft_recomb", "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
     "moe": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
+    "hybrid": (),
 }
 
 
@@ -2193,19 +2211,11 @@ def routing_watch(model, every_call: bool = False):
             h.remove()
 
 
-#: The record_function ranges :func:`scoped` opens, and those of routing
-#: and dispatch.
-SCOPES = {"moe", "moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "attn.scores",
-          "attn.decode"}
-ROUTING_SCOPES = ("moe", "moe.route", "moe.dispatch", "moe.combine")
-
-
 @contextlib.contextmanager
-def scoped(model):
-    """``record_function`` ranges around each MoE layer's route, dispatch,
-    experts, combine and whole forward, its shared experts, and each
-    attention mixer's score passes (``_attend``) and decode (instance
-    attributes shadowing the methods; removed after)."""
+def ranges(targets):
+    """A ``record_function`` range around each (object, method name, label)
+    of ``targets`` (instance attributes shadowing the methods; removed
+    after).  An object's method listed twice is wrapped once."""
     from torch.profiler import record_function
 
     patched = []
@@ -2220,16 +2230,11 @@ def scoped(model):
         setattr(obj, name, run)
         patched.append((obj, name))
 
-    for block in model.stack:
-        if block.kind == "moe":
-            m = block.moe
-            for name in ("route", "dispatch", "experts", "combine"):
-                wrap(m, name, f"moe.{name}")
-            wrap(m, "forward", "moe")
-            if hasattr(m, "shared"):
-                wrap(m.shared, "forward", "moe.shared")
-            wrap(block.mixer, "_attend", "attn.scores")
-            wrap(block.mixer, "decode", "attn.decode")
+    seen = set()
+    for obj, name, label in targets:
+        if (id(obj), name) not in seen:
+            seen.add((id(obj), name))
+            wrap(obj, name, label)
     try:
         yield
     finally:
@@ -2237,36 +2242,33 @@ def scoped(model):
             delattr(obj, name)
 
 
-def moe_classes(model, fn) -> dict:
+def scope_classes(model, fn, targets, names, classify) -> dict:
     """Device ms of one call of ``fn`` by class, from a ``torch.profiler``
-    trace with the :func:`scoped` ranges and the ops' input shapes: the
-    port's FFT kernels (by name: ``ctypes`` launches them outside any aten
-    op); and each kernel an aten op launched by the op and its ranges:
-    weight casts (kernels under an
-    ``aten::_to_copy`` of a tensor shaped as one of the model's parameters);
-    expert products (the MoE's batched FFN and its shared experts); routing
-    and dispatch (router, softmax, sort, cumsum, index copies, gathers, the
-    weighting, the aux loss); the prefill's attention score passes; a decode
-    step's attention (projections, rope, the KV write, scores); other.
-    ``unattributed`` is device time the trace did not link to an op; also
-    the kernel launches, the top-level ``aten::`` ops of the call and each
-    class's three largest kernels (names cut to 90 characters)."""
+    trace with the :func:`ranges` of ``targets`` and the ops' input shapes:
+    the port's FFT kernels (by name: ``ctypes`` launches them outside any
+    aten op); weight casts (kernels under an ``aten::_to_copy`` of a tensor
+    shaped as one of the model's parameters); every other kernel an aten op
+    launched in the class ``classify`` gives the labels of the ranges around
+    that op, innermost first (one of ``names``).  ``unattributed`` is device
+    time the trace did not link to an op; also the kernel launches, the
+    top-level ``aten::`` ops of the call and each class's three largest
+    kernels (names cut to 90 characters)."""
     from torch.profiler import ProfilerActivity, profile
 
+    labels = {label for _, _, label in targets}
     shapes = {tuple(p.shape) for p in model.parameters()}
     torch.cuda.synchronize()
-    with scoped(model), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                record_shapes=True) as prof:
+    with ranges(targets), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                  record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    names = ("fft_kernels", "weight_casts", "expert_products", "routing_dispatch", "attention_scores",
-             "attention_decode", "other")
+    names = ("fft_kernels", "weight_casts") + tuple(names)
     out = {name: 0.0 for name in names}
     by_name = {name: {} for name in names}
     device_ms, launches, aten_ops = 0.0, 0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            if e.name not in SCOPES:  # a range's device-side copy is no kernel
+            if e.name not in labels:  # a range's device-side copy is no kernel
                 device_ms += e.time_range.elapsed_us() / 1e3
                 launches += 1
                 if OUR_KERNEL.search(e.name):  # launched through ctypes: no aten op owns it
@@ -2281,26 +2283,13 @@ def moe_classes(model, fn) -> dict:
         if not e.kernels:
             continue
         ops = [e] + chain  # innermost first
-        scopes = [u.name for u in ops]
         cast = any(u.name == "aten::_to_copy" and u.input_shapes and tuple(u.input_shapes[0]) in shapes
                    for u in ops)
-        inner = next((n for n in scopes if n.startswith(("moe", "attn."))), None)
+        key = "weight_casts" if cast else classify([u.name for u in ops if u.name in labels])
         for k in e.kernels:
-            if k.name in SCOPES or OUR_KERNEL.search(k.name):
+            if k.name in labels or OUR_KERNEL.search(k.name):
                 continue
             ms = k.duration / 1e3
-            if cast:
-                key = "weight_casts"
-            elif inner in ("moe.experts", "moe.shared"):
-                key = "expert_products"
-            elif inner in ROUTING_SCOPES:
-                key = "routing_dispatch"
-            elif inner == "attn.scores":
-                key = "attention_scores"
-            elif inner == "attn.decode":
-                key = "attention_decode"
-            else:
-                key = "other"
             out[key] += ms
             kernel = k.name[:90]
             by_name[key][kernel] = by_name[key].get(kernel, 0.0) + ms
@@ -2308,6 +2297,43 @@ def moe_classes(model, fn) -> dict:
     top = {key: dict(sorted(v.items(), key=lambda kv: -kv[1])[:3]) for key, v in by_name.items() if v}
     return {"device_ms": device_ms, "classes": out, "kernel_launches": launches, "top_level_aten_ops": aten_ops,
             "top_kernels": top}
+
+
+def moe_targets(model) -> list:
+    """Ranges around each MoE layer's route, dispatch, experts, combine and
+    whole forward, its shared experts, and each attention mixer's score
+    passes (``_attend``) and decode."""
+    targets = []
+    for block in model.stack:
+        if block.kind == "moe":
+            m = block.moe
+            targets += [(m, name, f"moe.{name}") for name in ("route", "dispatch", "experts", "combine")]
+            targets.append((m, "forward", "moe"))
+            if hasattr(m, "shared"):
+                targets.append((m.shared, "forward", "moe.shared"))
+            targets += [(block.mixer, "_attend", "attn.scores"), (block.mixer, "decode", "attn.decode")]
+    return targets
+
+
+def moe_class(labels: list) -> str:
+    """A kernel's class from the :func:`moe_targets` ranges around it."""
+    inner = labels[0] if labels else None
+    if inner in ("moe.experts", "moe.shared"):
+        return "expert_products"
+    if inner in ("moe", "moe.route", "moe.dispatch", "moe.combine"):
+        return "routing_dispatch"
+    return {"attn.scores": "attention_scores", "attn.decode": "attention_decode"}.get(inner, "other")
+
+
+def moe_classes(model, fn) -> dict:
+    """Device ms of one call of ``fn`` by class (:func:`scope_classes`):
+    the FFT kernels, weight casts, expert products (the MoE's batched FFN
+    and its shared experts), routing and dispatch (router, softmax, sort,
+    cumsum, index copies, gathers, the weighting, the aux loss), the
+    prefill's attention score passes, a decode step's attention
+    (projections, rope, the KV write, scores), other."""
+    return scope_classes(model, fn, moe_targets(model), ("expert_products", "routing_dispatch",
+                         "attention_scores", "attention_decode", "other"), moe_class)
 
 
 def topk_share(a: list, b: list) -> float:
@@ -2455,6 +2481,177 @@ def moe_phase(gen) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent LMs served: zamba2-2.7b and xlstm-125m
+# ---------------------------------------------------------------------------
+
+#: Prompts admitted into an empty batch and the one inserted after
+#: SERVE_FIRST_STEPS steps.  The chunk rule (at most one chunk of 256, or
+#: whole chunks) puts 1024 where phase 8 has 1000.
+RECURRENT_PROMPTS, RECURRENT_LATE = (4096, 1024, 37), 2048
+#: A prompt the chunk rule refuses (``ValueError``).
+REFUSED_PROMPT = 1000
+#: Each served config at full width, and its parameter count (the
+#: reference's ``init_unzipped`` has the same).
+RECURRENT_CONFIGS = {"zamba2-2.7b": 2_422_670_240, "xlstm-125m": 197_730_112}
+#: The prompt whose prefill is profiled: xlstm-125m's sLSTM loop makes a
+#: 4096-token trace of about 330 000 ops, so it profiles its 1024.
+PROFILED_PROMPT = {"zamba2-2.7b": 4096, "xlstm-125m": 1024}
+
+RECURRENT_CLASSES = {"rec.proj": "projections", "rec.scan": "chunk_scan", "rec.slstm": "slstm_loop",
+                     "rec.attn": "attention"}
+
+
+def recurrent_targets(model) -> list:
+    """Ranges around each layer's mixer (Mamba2's and mLSTM's forward and
+    decode: the SSD or GLA chunk work, and a decode step's recurrence;
+    sLSTM's: the loop over time; attention's), and inside them around the
+    in and out projections, with each MLP: ``rec.proj``."""
+    proj = {"mamba2": ("_in_proj", "_out"), "mlstm": ("_project", "_out"), "slstm": ("_in", "_out")}
+    targets = []
+    for block in model.stack:
+        m = block.mixer
+        label = {"mamba2": "rec.scan", "mlstm": "rec.scan", "slstm": "rec.slstm"}.get(block.kind, "rec.attn")
+        targets += [(m, "forward", label), (m, "decode", label)]
+        targets += [(m, name, "rec.proj") for name in proj.get(block.kind, ("_qkv", "_out"))]
+        if hasattr(block, "mlp"):
+            targets.append((block.mlp, "forward", "rec.proj"))
+    return targets
+
+
+def recurrent_classes(model, fn) -> dict:
+    """Device ms of one call of ``fn`` by class (:func:`scope_classes`):
+    weight casts, in and out projections and the MLPs, the SSD or GLA chunk
+    work (a decode step's recurrence), the sLSTM loop, attention, other."""
+    return scope_classes(model, fn, recurrent_targets(model),
+                         ("projections", "chunk_scan", "slstm_loop", "attention", "other"),
+                         lambda labels: RECURRENT_CLASSES[labels[0]] if labels else "other")
+
+
+def admitted(s: int, chunk: int) -> int:
+    """The longest length up to ``s`` the chunk rule admits."""
+    return s if s <= chunk else s // chunk * chunk
+
+
+def recurrent_case(arch: str, gen) -> None:
+    """One recurrent LM built on the card at full width from a seed and
+    served as phase 8 serves (prompts 4096, 1024, 37; 96 steps; a 2048
+    prompt inserted; 416 steps): bf16 timed and profiled, then float32 on
+    the same weights, every served float32 logit row against a
+    teacher-forced ``logits_fn`` at the longest length the chunk rule
+    admits, and the bf16 prefill logits against the float32 ones; a
+    1000-token prompt refused."""
+    t0 = time.perf_counter()
+    cfg, dev = get_config(arch), gen.device
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == RECURRENT_CONFIGS[arch] and len(model.stack) == len(cfg.pattern()),
+          f"phase 12 {arch}: {n_params} parameters in {len(model.stack)} layers")
+    print(f"phase 12: {arch}, {n_params} parameters, {len(model.stack)} layers", flush=True)
+    prompts = [torch.randint(4, cfg.vocab_size, (n,), device=dev, generator=gen) for n in RECURRENT_PROMPTS]
+    late = torch.randint(4, cfg.vocab_size, (RECURRENT_LATE,), device=dev, generator=gen)
+    requests = [(p, slot, 0) for slot, p in enumerate(prompts)] + [(late, len(prompts), SERVE_FIRST_STEPS)]
+    steps = SERVE_FIRST_STEPS + SERVE_STEPS
+
+    # (a.1) bf16 compute (the config's): the timed and profiled session.
+    rows16 = recording(model)
+    sess = serve_session(model, prompts, late, SERVE_FIRST_STEPS)
+    half = SERVE_STEPS // 2
+    ms_a = timed_run(sess, half)
+    step = recurrent_classes(model, lambda: sess.run(1))
+    ms_b = timed_run(sess, SERVE_STEPS - half - 1)
+    out16 = [sess.output(s) for s in range(SERVE_SLOTS)]
+    insert_ms = sess.phase_s["insert"] * 1e3 / SERVE_SLOTS
+    del sess, model.prefill, model.decode_step
+    served_rows(rows16, requests, out16, steps, f"phase 12 {arch} bf16")
+    pre16 = rows16["prefill"]
+    del rows16
+    torch.cuda.empty_cache()
+
+    # (a.2) float32 compute on the same weights: the session, its prefills
+    # the bf16 gate's reference, every served row against teacher forcing.
+    m32 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32"), device="meta")
+    m32.load_state_dict(model.state_dict(), assign=True)
+    rows32 = recording(m32)
+    sess = serve_session(m32, prompts, late, SERVE_FIRST_STEPS)
+    sess.run(SERVE_STEPS)
+    out32 = [sess.output(s) for s in range(SERVE_SLOTS)]
+    del sess, m32.prefill, m32.decode_step
+    served = served_rows(rows32, requests, out32, steps, f"phase 12 {arch} float32")
+    errs16 = [full_err(a, b.double()) for a, b in zip(pre16, rows32["prefill"])]
+    del rows32, pre16
+    errs, forced, held = [], [], []
+    for (p, slot, _), row in zip(requests, served):
+        seq = torch.cat([p, torch.tensor(out32[slot][:-1], device=dev)])
+        n = admitted(seq.shape[0], cfg.chunk_size)
+        hidden = m32(seq[None, :n])[0][0, len(p) - 1:]
+        ref = m32.head(hidden, m32.embed.table)
+        forced.append(n)
+        held.append(ref.shape[0])
+        errs.append(full_err(row[:ref.shape[0]], ref))
+        del hidden, ref
+    agree = [sum(a == b for a, b in zip(out16[s], out32[s])) / len(out32[s]) for s in range(SERVE_SLOTS)]
+    del served, m32
+    torch.cuda.empty_cache()
+
+    # Each prompt length's prefill at bf16, warm (CUDA events, median of 3),
+    # one profiled, and the refused length.
+    eng = Engine(model, ServeConfig(eos_id=cfg.vocab_size))
+    g = eng.generator(0)
+    lens = RECURRENT_PROMPTS + (RECURRENT_LATE,)
+    prefill_ms = {n: time_ms(lambda p=p: eng.prefill(p[None], max_len=SERVE_MAX_LEN, generator=g), reps=3)
+                  for n, p in zip(lens, prompts + [late])}
+    prof = (prompts + [late])[lens.index(PROFILED_PROMPT[arch])]
+    prefill = recurrent_classes(model, lambda: eng.prefill(prof[None], max_len=SERVE_MAX_LEN, generator=g))
+    refused = None
+    try:
+        eng.prefill(prompts[0][None, :REFUSED_PROMPT], max_len=SERVE_MAX_LEN, generator=g)
+    except ValueError as err:
+        refused = str(err)
+    extra = {}
+    if "slstm" in cfg.pattern():
+        # One sLSTM layer's loop over a 4096-token prompt (host-bound: CUDA
+        # events bracket its launches).
+        layer = next(block for block in model.stack if block.kind == "slstm").mixer
+        h = torch.randn(1, RECURRENT_PROMPTS[0], cfg.d_model, device=dev, generator=gen).to(model.compute_dtype)
+        extra["slstm_layer_ms_4096"] = time_ms(lambda: layer(h), reps=3)
+        del h
+    step_ms = (ms_a + ms_b) / (SERVE_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    print("serve_recurrent " + json.dumps({
+        "config": cfg.name, "layers": len(model.stack), "pattern_unit": list(find_unit(cfg.pattern())),
+        "parameters": n_params, "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+        "prompts": list(RECURRENT_PROMPTS), "late": RECURRENT_LATE, "steps": [SERVE_FIRST_STEPS, SERVE_STEPS],
+        "chunk": cfg.chunk_size, "served_vs_teacher_forced": errs, "forced_lengths": forced,
+        "rows_held": held, "bf16_vs_float32_prefill": errs16, "bf16_float32_token_agreement": agree,
+        "refused_prefill": REFUSED_PROMPT, "refused_error": refused,
+        "prefill_ms": prefill_ms, "insert_ms": insert_ms, "decode_ms_per_step": step_ms,
+        "decode_tok_per_s": SERVE_SLOTS * 1e3 / step_ms, **extra,
+        "step_device": step, "step_busy": step["device_ms"] / step_ms,
+        "profiled_prefill": PROFILED_PROMPT[arch], "prefill_device": prefill,
+        "prefill_busy": prefill["device_ms"] / prefill_ms[PROFILED_PROMPT[arch]],
+        "peak_bytes": peak, "param_bytes": 4 * n_params, "seconds": time.perf_counter() - t0,
+    }), flush=True)
+    check(refused is not None and "chunk" in refused, f"phase 12 {arch}: a {REFUSED_PROMPT}-token prefill ran")
+    for j, (e32, e16) in enumerate(zip(errs, errs16)):
+        check(e32 <= SERVE_TOL, f"phase 12 {arch} request {j}: served vs teacher-forced {e32:.3e} > {SERVE_TOL}")
+        check(e16 <= BF16_TOL, f"phase 12 {arch} request {j}: bf16 prefill vs float32 {e16:.3e} > {BF16_TOL}")
+    del model, eng
+    torch.cuda.empty_cache()
+
+
+def recurrent_phase(gen) -> None:
+    """Phase 12: zamba2-2.7b, then xlstm-125m (:func:`recurrent_case`); no
+    FFT kernel launches and no plan is made."""
+    F.clear_plan_log()
+    at_start = kernels.counts()
+    for arch in RECURRENT_CONFIGS:
+        recurrent_case(arch, gen)
+    check_launches("phase 12", at_start, kernels.counts(), {})
+    check(F.plan_log() == (), f"phase 12 planned {F.plan_log()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -2514,8 +2711,13 @@ def main() -> int:
             moe = path_launches("moe", moe_phase, gen)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s, {len(seen)} distinct kernel calls", flush=True)
         path_kernel_rows("moe", seen, moe, gen)
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        with tune_env("off"), torch.no_grad():
+            hybrid = path_launches("hybrid", recurrent_phase, gen)
+        print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
-                    + tuned[name] + trained[name] + moe[name] for name in SOURCES}
+                    + tuned[name] + trained[name] + moe[name] + hybrid[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -2526,6 +2728,7 @@ def main() -> int:
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
+            "hybrid_launches": hybrid[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,0 +1,62 @@
+"""Run one of ``chip_smoke.py``'s serving phases alone on the card: build the
+kernels, then phase 11 (deepseek-moe-16b with spectral mixing at full width,
+the ``serve_moe`` line, then each distinct kernel call it made against its
+plain version, "kernel ... moe path #i" lines) or phase 12 (zamba2-2.7b and
+xlstm-125m at full width, the ``serve_recurrent`` lines; no kernel
+launches).
+
+    python3 scripts/chip_phase.py 11
+    python3 scripts/chip_phase.py 12
+
+A quicker loop than the whole smoke run while a serving path changes; the
+smoke run stays the proof.  Exits 1 on the first failed check.
+"""
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+#: Phase → (its path's name in ``chip_smoke.PATH_KERNELS``, the phase).
+PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase)}
+
+
+def main(argv) -> int:
+    if len(argv) != 1 or int(argv[0]) not in PHASES:
+        print(f"usage: chip_phase.py {{{','.join(map(str, PHASES))}}}", file=sys.stderr)
+        return 2
+    phase = int(argv[0])
+    if not torch.cuda.is_available():
+        print("chip_phase: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cs.build.build()
+    cs.build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    cs.ATTRS.update(cs.build.kernel_attributes())
+    cache_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(cache_dir, exist_ok=True)
+    os.environ["REPRO_TUNING_CACHE"] = os.path.join(cache_dir, "tuning.json")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path, run = PHASES[phase]
+    t0 = time.perf_counter()
+    try:
+        with cs.tune_env("off"), cs.recorded_calls() as seen, torch.no_grad():
+            launches = cs.path_launches(path, run, gen)
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s, {len(seen)} distinct kernel calls", flush=True)
+        cs.path_kernel_rows(path, seen, launches, gen)
+    except cs.SmokeFailure as err:
+        print(f"chip_phase: FAILED: {err}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -21,10 +21,12 @@ to find:
                    plain PyTorch version
   kernels.ops      the pass-program executor with device-resident LUTs
   configs          ModelConfig / ShapeConfig, the registry, make_reduced
-  models.layers    norms, rope, embedding and head, MLP, attention, and the
-                   spectral mixer (an nn.Module over core.conv)
-  models.blocks    the residual blocks (attn, attn_local, spectral)
-  models.stack     one block per layer in an nn.ModuleList
+  models.layers    norms, rope, embedding and head, MLP, attention, the
+                   spectral mixer (an nn.Module over core.conv), MoE, Mamba2
+                   (ssm) and mLSTM / sLSTM (xlstm)
+  models.blocks    the residual blocks (attn, attn_local, moe, mamba2, mlstm,
+                   slstm, shared_attn, spectral)
+  models.stack     one block per layer, and zamba2's shared block
   models.model     DecoderLM: forward, logits, prefill, decode, caches
   serving          sampling, the prefill / insert / decode Engine and the
                    ServeSession slot pool

@@ -5,9 +5,9 @@ for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``ParallelConfig`` (its fields on
 mesh it maps is ``ROADMAP.md`` A6, sharding) and ``TrainConfig`` with the
 reference's defaults.  ``get_config(arch_id)`` resolves a registry name to
 the ``ModelConfig`` in its own module under ``repro_torch.configs``.  The
-registry knows every name the reference knows; a name whose block kinds
-the port does not run yet raises ``NotImplementedError`` naming
-``ROADMAP.md`` A4 (``fftbench``: A1, the paper's benchmark).
+registry knows every name the reference knows; a name whose frontend the
+port does not run yet raises ``NotImplementedError`` naming ``ROADMAP.md``
+A4 (``fftbench``: A1, the paper's benchmark).
 
 Of the execution fields the port reads ``compute_dtype``, ``param_dtype``,
 ``attn_chunk``, ``attn_chunk_threshold``, ``kv_cache_dtype``,
@@ -192,15 +192,14 @@ _REGISTRY: dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
-#: The reference's other registry names: their block kinds (SSM, xLSTM,
-#: shared attention) or frontends are not ported yet, and ``fftbench`` is
-#: the paper's benchmark.
+#: The reference's other registry names: their frontends are not ported
+#: yet, and ``fftbench`` is the paper's benchmark.
 _NOT_PORTED = (
     "musicgen-large",
-    "xlstm-125m",
-    "zamba2-2.7b",
     "qwen2-vl-72b",
     "fftbench",
 )
@@ -221,7 +220,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch in _EXTRA:
         return _EXTRA[arch]
     if arch in _NOT_PORTED:
-        waits = "the paper's benchmark, ROADMAP.md A1" if arch == "fftbench" else "its blocks, ROADMAP.md A4"
+        waits = "the paper's benchmark, ROADMAP.md A1" if arch == "fftbench" else "its frontend, ROADMAP.md A4"
         raise NotImplementedError(f"arch {arch!r} is not ported yet: it waits for {waits}; "
                                   f"ported: {sorted(_REGISTRY)}")
     if arch not in _REGISTRY:

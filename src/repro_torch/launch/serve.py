@@ -10,6 +10,11 @@ paper-integration flag ``use_spectral_mixer``:
       --reduced --spectral --batch 2 --prompt-len 16 --max-new 6 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --spectral --batch 4 --prompt-len 512,4096 --max-new 64 --phase-times
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+      --reduced --batch 2 --prompt-len 8,16 --max-new 6 --device cpu
+
+The recurrent configs (zamba2-2.7b, xlstm-125m) take a prompt of at most
+one chunk (``cfg.chunk_size``) or of whole chunks, as the reference's.
 """
 
 from __future__ import annotations

@@ -2,8 +2,11 @@
 
 Port of ``repro/models/model.py`` as an ``nn.Module`` whose parameter names
 are the reference's tree, the stack unrolled to one entry per layer
-(``embed.table``, ``stack.<layer>.<block param>``, ``final_norm.scale``,
-``head.w``; see :func:`repro_torch.utils.params.load_reference_model`).
+(``embed.table``, ``stack.<layer>.<block param>``, the shared block's
+``stack.shared.<block param>``, ``final_norm.scale``, ``head.w``; see
+:func:`repro_torch.utils.params.load_reference_model`).  Every block kind
+of the reference is ported: ``attn``, ``attn_local``, ``moe``,
+``spectral``, ``mamba2``, ``mlstm``, ``slstm`` and ``shared_attn``.
 Parameters are in ``cfg.param_dtype``; activations in
 ``cfg.compute_dtype``, each weight cast to it at its use as the reference
 writes ``params[...].astype(cd)``; logits in float32.
@@ -113,8 +116,10 @@ class DecoderLM(nn.Module):
         slots.  Sliding-window layers: the last ``window`` positions
         re-scattered into ring order (slot = position % slots), with
         ``min(window, max_len)`` slots as :func:`init_kv_cache` makes them.
-        Quantised to int8 where ``cfg.kv_cache_dtype`` says so.  Spectral
-        states pass through: the prefill built them in decode layout.
+        Quantised to int8 where ``cfg.kv_cache_dtype`` says so.  The
+        recurrent states (:class:`SSMCache`, :class:`MLSTMCache`,
+        :class:`SLSTMCache`) and the spectral states pass through: the
+        prefill built them in decode layout.
         """
         out = []
         for block, cache in zip(self.stack, caches, strict=True):

@@ -1,11 +1,17 @@
-"""The layer stack: one block module per layer.
+"""The layer stack: one block module per layer, and the shared block.
 
 Port of ``repro/models/stack.py``.  The reference stacks the parameters of
 each position of the pattern's repeating unit over the repeats and runs the
 stack as one ``lax.scan`` (with checkpointed remat for training); in
-eager PyTorch a :class:`Stack` is an ``nn.ModuleList`` of the layers in
-pattern order and a Python loop over them.  ``cfg.remat`` checkpoints each
-block of a forward that builds a graph
+eager PyTorch a :class:`Stack` holds the layers in pattern order, layer
+``l`` as the submodule ``str(l)``, and runs a Python loop over them.  Every
+``shared_attn`` position runs the one block ``shared`` (zamba2's weight
+sharing, the reference's unstacked ``stack.shared`` leaf): its parameters
+are registered once, as ``stack.shared.<name>``, and the gradient a
+training step gives them is the sum over their uses.  Indexing and
+iteration give the blocks in pattern order (the shared block at each of
+its positions) and ``len`` is the pattern's length.  ``cfg.remat``
+checkpoints each block of a forward that builds a graph
 (``torch.utils.checkpoint``, non-reentrant): its activations are recomputed
 in the backward instead of kept.  The forward sums the blocks' aux losses
 (the MoE's load-balance term) as the reference's scan carries them.
@@ -16,7 +22,7 @@ reference's are stacked per unit position, repeats leading).  :func:`find_unit` 
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -42,15 +48,30 @@ def _hidden(block, x: torch.Tensor, positions: torch.Tensor):
     return x, aux
 
 
-class Stack(nn.ModuleList):
-    """``cfg.pattern()``'s blocks, layer ``l`` at index ``l``."""
+class Stack(nn.Module):
+    """``cfg.pattern()``'s blocks, layer ``l`` at index ``l``; the block of
+    every ``shared_attn`` layer is ``self.shared`` (drawn at the first such
+    layer)."""
 
     def __init__(self, cfg, *, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(
-            Block(kind, cfg, dtype=dtype, device=device, generator=generator) for kind in cfg.pattern()
-        )
+        super().__init__()
+        self.pattern = tuple(cfg.pattern())
+        for layer, kind in enumerate(self.pattern):
+            name = "shared" if kind == "shared_attn" else str(layer)
+            if not hasattr(self, name):
+                self.add_module(name, Block(kind, cfg, dtype=dtype, device=device, generator=generator))
         self.remat = cfg.remat
+
+    def __len__(self) -> int:
+        return len(self.pattern)
+
+    def __getitem__(self, layer: int) -> Block:
+        kind = self.pattern[layer]
+        return self.shared if kind == "shared_attn" else getattr(self, str(layer % len(self)))
+
+    def __iter__(self) -> Iterator[Block]:
+        return (self[layer] for layer in range(len(self)))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
         """x: (B, S, D) → (x, per-layer caches or None, Σ aux float32 0-d)."""

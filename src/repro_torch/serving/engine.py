@@ -8,8 +8,9 @@ Port of ``repro/serving/engine.py``, the serving core under
   (:meth:`DecoderLM.prepare_decode_caches`) and sample the first token: a
   :class:`PrefillResult` for one request.
 * **insert** — splice a prefilled request into slots of a *running* batch
-  state: KV rows are written at the slot's batch rows, spectral stream
-  states are re-phased to the running window
+  state: KV rows and the rows of a recurrent state (:class:`SSMCache`,
+  :class:`MLSTMCache`, :class:`SLSTMCache`) are written at the slot's batch
+  rows, spectral stream states are re-phased to the running window
   (:meth:`SpectralMixer.stream_rephase`), and the slot's token, length and
   done rows are reset.  Each slot keeps its own timeline (``decode_step``
   takes the (B,) length vector as per-slot positions).
@@ -23,10 +24,12 @@ Port of ``repro/serving/engine.py``, the serving core under
 The reference freezes a finished row by the shape of each cache leaf; the
 port's caches are per layer with the batch at axis 0, so it freezes by cache
 type: a KV cache is written in place at one slot per row, and the step
-writes a done row's old value back there; a spectral state's batch tensors
-are chosen row by row (those a step leaves alone are kept as they are).
-The spectral stream ``phase`` is global, a Python int that advances for
-every slot.  ``Engine.generate`` keeps the whole-batch convenience API.
+writes a done row's old value back there; every field of a recurrent state
+and a spectral state's batch tensors are chosen row by row (those a step
+leaves alone are kept as they are).  Only the spectral states' last field
+(the stream ``phase``, the ring's step) is global, a Python int that
+advances for every slot.  ``Engine.generate`` keeps the whole-batch
+convenience API.
 """
 
 from __future__ import annotations
@@ -39,9 +42,14 @@ import torch
 from repro_torch.core import faults
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.spectral import SpectralCache, SpectralStreamCache
+from repro_torch.models.layers.ssm import SSMCache
+from repro_torch.models.layers.xlstm import MLSTMCache, SLSTMCache
 from repro_torch.serving.sampling import sample
 
 __all__ = ["ServeConfig", "Engine", "DecodeState", "PrefillResult"]
+
+#: Per-slot recurrent states: every field has the batch at axis 0.
+RECURRENT_STATES = (SSMCache, MLSTMCache, SLSTMCache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +87,13 @@ def _rows_mask(done: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _keep_done_rows(done: torch.Tensor, old, new):
-    """A spectral state after a step with ``old``'s rows where ``done``; its
-    last field (the stream phase or the ring's step) advances globally."""
-    fields = [o if n is o else torch.where(_rows_mask(done, n), o, n) for o, n in zip(old[:-1], new[:-1])]
-    return type(new)(*fields, new[-1])
+    """A recurrent or spectral state after a step with ``old``'s rows where
+    ``done``: every field of a recurrent state; all but a spectral state's
+    last field (the stream phase or the ring's step), which advances
+    globally."""
+    rows = len(new) if isinstance(new, RECURRENT_STATES) else len(new) - 1
+    fields = [o if n is o else torch.where(_rows_mask(done, n), o, n) for o, n in zip(old[:rows], new[:rows])]
+    return type(new)(*fields, *new[rows:])
 
 
 def _put_rows(buf: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
@@ -164,6 +175,8 @@ class Engine:
                 new = block.mixer.stream_rephase(new, live.phase)
                 caches.append(SpectralStreamCache(
                     *(_put_rows(a, b, slot) for a, b in zip(live[:3], new[:3])), phase=live.phase))
+            elif isinstance(live, RECURRENT_STATES):
+                caches.append(type(live)(*(_put_rows(a, b, slot) for a, b in zip(live, new, strict=True))))
             else:
                 caches.append(attn_lib.KVCache(
                     *(None if a is None else _put_rows(a, b, slot) for a, b in zip(live, new))))

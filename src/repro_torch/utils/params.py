@@ -85,18 +85,19 @@ def load_reference_params(module: nn.Module, tree: Mapping) -> nn.Module:
 def reference_leaves(module: nn.Module) -> dict:
     """The reference's parameter leaves of ``module``: each of its flattened
     names (``stack.unit.b{i}.<name>`` for a layer's parameter, stacked over
-    the repeats of the pattern's unit; every other name as it is) → the
-    port's parameter names that make it up, in repeat order, and whether it
-    is stacked.  The optimizer and the gradient compression reduce over a
-    reference leaf (a stacked leaf's norm or scale spans its repeats), so
-    they work on these groups."""
+    the repeats of the pattern's unit; every other name as it is, the shared
+    block's ``stack.shared.<name>`` among them, one unstacked leaf however
+    many layers use it) → the port's parameter names that make it up, in
+    repeat order, and whether it is stacked.  The optimizer and the
+    gradient compression reduce over a reference leaf (a stacked leaf's
+    norm or scale spans its repeats), so they work on these groups."""
     from repro_torch.models.stack import find_unit  # the models import this module
 
     cfg = getattr(module, "cfg", None)
     width = len(find_unit(cfg.pattern())) if cfg is not None else 1
     leaves = {}
     for name, _ in module.named_parameters():
-        if not name.startswith("stack."):
+        if not name.startswith("stack.") or name.startswith("stack.shared."):
             leaves[name] = (False, (name,))
             continue
         layer, _, rest = name[len("stack."):].partition(".")
@@ -131,8 +132,10 @@ def load_reference_model(model: nn.Module, tree: Mapping) -> nn.Module:
     axis, split on that axis only: an expert weight stacked over the
     repeats is (R, E, D, F)); repeat ``r`` of position ``i`` is the port's
     layer ``r·len(unit) + i`` (``stack.<layer>.<name>``).  Every other name
-    carries over as it is.  As :func:`load_reference_params`, every name and
-    shape must match, or it raises; returns ``model``."""
+    carries over as it is: the shared block's ``stack.shared.<name>`` (whose
+    positions hold an empty ``stack.unit.b{i}``) too.  As
+    :func:`load_reference_params`, every name and shape must match, or it
+    raises; returns ``model``."""
     from repro_torch.models.stack import find_unit  # the models import this module
 
     return _load(model, _unstacked(_flatten(tree), len(find_unit(model.cfg.pattern()))))

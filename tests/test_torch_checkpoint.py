@@ -4,7 +4,8 @@ port on the CPU.
 ``CheckpointManager``: the reference's layout (``step_XXXXXXXX`` with
 ``arrays.npz`` and ``manifest.json``), atomic publish, keep-N, async saves,
 restore of a whole ``TrainState`` in place; a run stopped and resumed from
-its checkpoint equals the uninterrupted run bit for bit.  The runtime's
+its checkpoint equals the uninterrupted run bit for bit (also reduced
+zamba2, whose shared block is checkpointed once).  The runtime's
 watchdog, retries and straggler statistics; and ``python -m
 repro_torch.launch.train`` end to end.
 """
@@ -26,8 +27,10 @@ from repro_torch.configs.base import TrainConfig, get_config
 from repro_torch.configs.reduce import make_reduced
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch import train as train_launch
+from repro_torch.models.model import DecoderLM
 from repro_torch.runtime.fault_tolerance import StepWatchdog, StragglerStats, with_retries
 from repro_torch.train.train_loop import init_train_state, make_train_step
+from repro_torch.utils.params import reference_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -142,6 +145,38 @@ def test_launcher_stop_and_resume(tmp_path, capsys):
     assert "[resume] restored step 2" in out
     assert CheckpointManager(str(tmp_path)).latest_step() == 4
     assert all(np.isfinite(first + second))
+
+
+def test_reference_leaves_file_the_shared_block_once():
+    """zamba2's shared attention block is one unstacked reference leaf per
+    parameter, ``stack.shared.<name>``, not a stacked ``stack.unit.b6``;
+    the Mamba2 layers stack over the repeats as every other layer."""
+    cfg = make_reduced(get_config("zamba2-2.7b"))
+    model = DecoderLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    leaves = reference_leaves(model)
+    shared = {n for n, _ in model.named_parameters() if n.startswith("stack.shared.")}
+    assert shared and all(leaves[n] == (False, (n,)) for n in shared)
+    assert not any(k.startswith("stack.unit.b6.") for k in leaves)
+    assert leaves["stack.unit.b0.mixer.w_in"] == (True, ("stack.0.mixer.w_in", "stack.7.mixer.w_in"))
+    assert sum(len(names) for _, names in leaves.values()) == len(list(model.parameters()))
+
+
+def test_zamba2_checkpoint_keeps_one_copy_of_the_shared_block(tmp_path):
+    """Reduced zamba2 through the launcher (AdamW): a run stopped after 2
+    steps and resumed gives the straight run's losses; its checkpoint holds
+    each shared parameter, its m and its v once."""
+    args = ["--arch", "zamba2-2.7b", "--reduced", "--steps", "4", "--batch", "2", "--seq", "16",
+            "--device", "cpu", "--log-every", "1"]
+    straight = train_launch.main(args)
+    first = train_launch.main(args + ["--ckpt-dir", str(tmp_path), "--stop-at", "2"])
+    manifest = json.load(open(tmp_path / "step_00000002" / "manifest.json"))
+    names = manifest["names"]
+    shared = [n for n in names if ".stack.shared." in n]
+    n_shared = len(list(DecoderLM(make_reduced(get_config("zamba2-2.7b")), device="meta").stack.shared.parameters()))
+    assert len(shared) == len(set(shared)) == 3 * n_shared
+    assert not any(f".stack.{i}." in n for n in names for i in (6, 13))
+    second = train_launch.main(args + ["--ckpt-dir", str(tmp_path)])
+    assert first + second == straight
 
 
 def test_launcher_refuses_a_mesh():

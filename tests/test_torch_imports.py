@@ -28,6 +28,8 @@ import repro_torch.configs.gemma3_12b, repro_torch.configs.yi_6b, repro_torch.co
 import repro_torch.data.pipeline, repro_torch.checkpoint.manager, repro_torch.runtime.fault_tolerance
 import repro_torch.train.schedule, repro_torch.train.optimizer, repro_torch.train.compression
 import repro_torch.train.train_loop
+import repro_torch.models.layers.moe, repro_torch.models.layers.ssm, repro_torch.models.layers.xlstm
+import repro_torch.configs.zamba2_2p7b, repro_torch.configs.xlstm_125m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")

@@ -93,7 +93,8 @@ def test_config_and_reduction_copy_the_reference(spectral):
         k: dataclasses.asdict(v) for k, v in ref_base.LM_SHAPES.items()}
 
 
-PORTED = ["arctic-480b", "deepseek-moe-16b", "gemma3-12b", "h2o-danube-1.8b", "yi-6b", "phi4-mini-3.8b"]
+PORTED = ["arctic-480b", "deepseek-moe-16b", "gemma3-12b", "h2o-danube-1.8b", "yi-6b", "phi4-mini-3.8b",
+          "zamba2-2.7b", "xlstm-125m"]
 
 
 @pytest.mark.parametrize("arch", sorted(set(ref_base.list_archs()) - set(PORTED)))
@@ -106,13 +107,22 @@ def test_unported_archs_name_the_roadmap(arch):
 def test_registered_configs_copy_the_reference(arch):
     """Each registered config field for field the reference's, and its
     pattern (deepseek-moe-16b's 28 layers with the spectral flag:
-    ``("spectral", "moe") × 14``; arctic-480b's 35 take no flag)."""
+    ``("spectral", "moe") × 14``; arctic-480b's 35 take no flag; the
+    explicit patterns of zamba2-2.7b, ``(mamba2 × 6, shared_attn) × 9``, and
+    xlstm-125m, ``(mlstm, mlstm, slstm) × 4``, win over the flag, and
+    ``make_reduced`` keeps two of their units)."""
     ref, port = ref_base.get_config(arch), base.get_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.pattern() == ref.pattern()
     if arch == "deepseek-moe-16b":
         flagged = dataclasses.replace(port, use_spectral_mixer=True)
         assert flagged.pattern() == ("spectral", "moe") * (port.num_layers // 2)
+    if port.block_pattern:
+        unit = stack.find_unit(port.pattern())
+        assert dataclasses.replace(port, use_spectral_mixer=True).pattern() == port.pattern()
+        assert make_reduced(port).pattern() == unit * 2 == ref_make_reduced(ref).pattern()
+        assert unit == {"zamba2-2.7b": ("mamba2",) * 6 + ("shared_attn",),
+                        "xlstm-125m": ("mlstm", "mlstm", "slstm")}[arch]
 
 
 def test_registry():
@@ -124,11 +134,9 @@ def test_registry():
     assert base.get_config("mine") is cfg
 
 
-@pytest.mark.parametrize("kind", ["mamba2", "mlstm", "slstm", "shared_attn"])
-def test_unported_block_kinds_name_the_roadmap(kind):
+def test_unknown_block_kind_raises():
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        blocks.Block(kind, cfg, device="cpu")
+    assert blocks.KINDS == ("attn", "attn_local", "moe", "mamba2", "mlstm", "slstm", "shared_attn", "spectral")
     with pytest.raises(ValueError, match="unknown block kind"):
         blocks.Block("conv", cfg, device="cpu")
 

@@ -9,7 +9,10 @@ JAX's random stream, so it is held by its support and its distribution, as
 ``tests/test_serving.py`` holds the reference's.  Then the engine's own
 invariants: EOS freezes a slot bit for bit, stream equals ring, a warm
 session plans nothing, and the session's deadlines, queue, retries and
-health, and the launcher on the CPU route.
+health, and the launcher on the CPU route.  The MoE configs and the
+recurrent ones (reduced zamba2-2.7b and xlstm-125m: an inserted request
+keeps its prefill's state, a done slot's recurrent states stay bit for
+bit) are held the same way.
 """
 
 import dataclasses
@@ -32,7 +35,8 @@ from repro_torch.core import faults
 from repro_torch.core import fft as fft_lib
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import DecoderLM
-from repro_torch.serving.engine import DecodeState, Engine, ServeConfig
+from repro_torch.models.layers.attention import KVCache as attn_kv
+from repro_torch.serving.engine import RECURRENT_STATES, DecodeState, Engine, ServeConfig
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.spectral_serve import ServeSession, sweep_once
 from repro_torch.utils.params import load_reference_model
@@ -142,6 +146,80 @@ def test_moe_session_with_insert_matches_reference(arch, spectral, prompts):
         sess.run(11)
         assert sess.output(sa) == ref_sess.output(a) and sess.output(sb) == ref_sess.output(b)
         assert sess.state.caches[-1].k.dtype == (torch.int8 if arch == "arctic-480b" else torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_recurrent_session_with_insert_matches_reference(arch):
+    """The reduced recurrent configs at float32 compute, the reference's
+    parameters: zamba2-2.7b (``(mamba2 × 6, shared_attn) × 2``: SSM states
+    and the shared block's KV caches) and xlstm-125m (``(mlstm, mlstm,
+    slstm) × 2``).  Prompts of 16 tokens (two chunks of 8).  Greedy
+    ``Engine.generate`` and a session with a request inserted after 3 steps
+    emit the reference's tokens, and the inserted slot's recurrent states
+    are its prefill's, row for row (the other slot's untouched)."""
+    prompts = np.random.default_rng(2).integers(4, 512, (2, 16))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_FFT_TUNE", "off")
+        ref_cfg = dataclasses.replace(ref_make_reduced(ref_base.get_config(arch)), compute_dtype="float32")
+        cfg = dataclasses.replace(make_reduced(base.get_config(arch)), compute_dtype="float32")
+        assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(cfg)
+        params, _ = ref_model.init_unzipped(jax.random.PRNGKey(0), ref_cfg)
+        ref_eng = RefEngine(ref_cfg, params, RefServeConfig(max_new=12, eos_id=-1))
+        whole = np.asarray(ref_eng.generate(jnp.asarray(prompts)))
+        ref_sess = RefSession(ref_eng, slots=2, max_len=30)
+        a = ref_sess.submit(jnp.asarray(prompts[0]))
+        ref_sess.run(3)
+        b = ref_sess.submit(jnp.asarray(prompts[1]))
+        ref_sess.run(11)
+    port = load_reference_model(DecoderLM(cfg, device="cpu"), jax.tree.map(np.asarray, params))
+    eng = Engine(port, ServeConfig(max_new=12, eos_id=-1))
+    np.testing.assert_array_equal(eng.generate(prompts).numpy(), whole)
+    sess = ServeSession(eng, slots=2, max_len=30)
+    sa = sess.submit(prompts[0])
+    sess.run(3)
+    running = sess.state.caches
+    pres = eng.prefill(prompts[1:], max_len=30, generator=eng.generator(0))
+    sb = sess.submit(prompts[1])
+    recurrent = 0
+    for live, before, new in zip(sess.state.caches, running, pres.caches, strict=True):
+        assert type(live) is type(new)
+        if isinstance(live, RECURRENT_STATES):
+            recurrent += 1
+            for name in live._fields:
+                assert torch.equal(getattr(live, name)[1], getattr(new, name)[0].to(getattr(live, name).dtype))
+                assert torch.equal(getattr(live, name)[0], getattr(before, name)[0])
+    assert recurrent == (12 if arch == "zamba2-2.7b" else 6)
+    sess.run(11)
+    assert sess.output(sa) == ref_sess.output(a) and sess.output(sb) == ref_sess.output(b)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_done_slot_recurrent_states_stay_bit_for_bit(arch):
+    """Once a slot emits EOS, every field of its ``SSMCache``, ``MLSTMCache``
+    and ``SLSTMCache`` (and its KV rows) stays bit for bit while the other
+    slot decodes on; every field of the live slot moves."""
+    cfg = dataclasses.replace(make_reduced(base.get_config(arch)), compute_dtype="float32")
+    model = DecoderLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(3).integers(4, 512, (2, 8))
+    ref = Engine(model, ServeConfig(max_new=10, eos_id=-1)).generate(prompts).numpy()
+    eos = int(ref[0, 3])  # row 0 finishes at its 4th token
+    assert eos not in ref[1, :10].tolist()
+    eng = Engine(model, ServeConfig(max_new=10, eos_id=eos))
+    gen = eng.generator(0)
+    pres = eng.prefill(prompts, max_len=24, generator=gen)
+    state = DecodeState(pres.caches, pres.token, pres.length, pres.token == eos, gen)
+    state, _ = eng.decode(state, 5)
+    assert bool(state.done[0]) and not bool(state.done[1])
+    frozen, toks = eng.decode(state, 6)
+    assert (toks[0] == eos).all()
+    kinds = set()
+    for before, after in zip(state.caches, frozen.caches):
+        kinds.add(type(after).__name__)
+        for a, b in zip(before, after):
+            if torch.is_tensor(a):
+                assert torch.equal(a[0], b[0])
+                assert isinstance(after, attn_kv) or not torch.equal(a[1], b[1])
+    assert kinds == ({"SSMCache", "KVCache"} if arch == "zamba2-2.7b" else {"MLSTMCache", "SLSTMCache"})
 
 
 def test_session_matches_whole_batch_generate(model, prompts):
@@ -364,6 +442,17 @@ def test_launch_serve_moe_on_the_cpu(capsys):
                               "--prompt-len", "8,12", "--max-new", "4", "--warmup", "0", "--device", "cpu"])
     out = capsys.readouterr().out
     assert [r["prompt_len"] for r in rows] == [8, 12]
+    assert "decode=" in out and "device: cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_launch_serve_recurrent_on_the_cpu(arch, capsys):
+    """The reduced recurrent configs through the launcher, prompts of one
+    chunk and of two."""
+    rows = launch_serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8,16",
+                              "--max-new", "4", "--warmup", "0", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert [r["prompt_len"] for r in rows] == [8, 16]
     assert "decode=" in out and "device: cpu" in out
 
 
