@@ -128,20 +128,48 @@ package), in phases, and fails on the first check that does not hold:
    at the longest length the chunk rule admits (4608, 1536, 512, 2304) and
    the bf16 prefill logits within 5e-2·max|ref| of the float32 ones; a
    1000-token prompt raises the chunk rule's ``ValueError``; no FFT kernel
-   launches and no plan is made ("serve_recurrent" lines).
+   launches and no plan is made ("serve_recurrent" lines);
+13. the modality frontends — (a) musicgen-large with
+   ``use_spectral_mixer`` (``("spectral", "attn") × 24``, d_model 2048,
+   3.18 B fp32 parameters from a seed): prompts of 4096, 2048, 1000 and 37
+   seeded bf16 frame embeddings, each prefilled and joined into one
+   4-slot decode state (each slot at its own ``t``; the batch's stream
+   phase set so that one flush falls in the steps), 64 steps fed through
+   ``embeds=`` and 8 through the token table, at bf16 (timed, profiled by
+   class: weight casts, GEMMs, score passes, a decode step's attention,
+   the FFT kernels) and at float32 on the same weights, every served
+   logit row within 1e-3·max|ref| of a teacher-forced forward over the
+   same frames, the bf16 prefill logits within 5e-2·max|ref| of the
+   float32 ones, launches exactly the spectral layers' plans and no plan
+   in the warm float32 serve; then the plain musicgen-large (48 ``attn``,
+   3.23 B) the same way with one 4096 prompt and 16 steps; (b)
+   qwen2-vl-72b at every published width and 8 of its 80 layers (9.51 B):
+   four prompts of a 32 × 32 grid of seeded bf16 vision embeddings and
+   3072 / 2048 / 976 / 37 text tokens with qwen2-vl's M-RoPE ids, decoded
+   32 steps with ids that continue the text's (apart from the KV slot
+   ``t``): bf16 with the int8 cache timed and profiled; float32 with the
+   cache in the compute dtype within 1e-3·max|ref| of teacher forcing (the
+   head only at the checked positions); float32 with the int8 cache fed
+   the same tokens within 0.03·max|ref| of it; bf16 prefill within
+   5e-2·max|ref| of float32; ids equal to the positions give RoPE's
+   logits; the engine then serves text prompts (standard RoPE, int8) at 4
+   slots with a late insert, timed; no FFT launch, no plan
+   ("serve_frontend" lines).  Then each distinct kernel call against its
+   plain version, as phase 7.
 
-Phases 2–8 and 10–12 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8 and 10–13 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 each set the launch counts to 0 before
-they start and read them when they end; every kernel of a path must have
-launched in it (phase 12's path has none, and must launch none).  Phases
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12 and 13 each set the launch counts to 0
+before they start and read them when they end; every kernel of a path must
+have launched in it (phase 12's path has none, and must launch none).  Phases
 3–7 and 9 also run every one of their calls over a batch of 0: the output
 must have np.fft's shape, and the call launches nothing (0 launches, not
 ``len(plan.passes)``).  The script then prints the per-kernel JSON line
-(each kernel's launches per path, ``hybrid_launches`` phase 12's), the
+(each kernel's launches per path, ``hybrid_launches`` phase 12's,
+``frontend_launches`` phase 13's), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -172,10 +200,10 @@ from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.limits import next_pow2  # noqa: E402
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
-from repro_torch.models.layers.spectral import SpectralMixer, stream_plan_info  # noqa: E402
+from repro_torch.models.layers.spectral import SpectralMixer, SpectralStreamCache, stream_plan_info  # noqa: E402
 from repro_torch.models.model import DecoderLM  # noqa: E402
 from repro_torch.models.stack import find_unit  # noqa: E402
-from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.serving.engine import Engine, PrefillResult, ServeConfig  # noqa: E402
 from repro_torch.serving.spectral_serve import ServeSession  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): FP32 on
@@ -238,8 +266,9 @@ ATTRS: dict = {}
 #: The kernels each planned path must launch: phase 3 (1-D complex),
 #: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution),
 #: phase 8 (serving), phase 9 (the tuner), phase 10 (gradients and
-#: training), phase 11 (the MoE model served) and phase 12 (the recurrent
-#: LMs served, which launch none).
+#: training), phase 11 (the MoE model served), phase 12 (the recurrent
+#: LMs served, which launch none) and phase 13 (the frontends served: the
+#: spectral musicgen-large's layers).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -255,6 +284,7 @@ PATH_KERNELS = {
               "irfft_recomb", "bluestein_fwd", "bluestein_inv", "bluestein_elem"),
     "moe": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "hybrid": (),
+    "frontend": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
 }
 
 
@@ -1463,13 +1493,13 @@ def recording(model) -> dict:
     rows = {"prefill": [], "decode": []}
     prefill, decode_step = model.prefill, model.decode_step
 
-    def rec_prefill(tokens):
-        logits, caches = prefill(tokens)
+    def rec_prefill(*args, **kwargs):
+        logits, caches = prefill(*args, **kwargs)
         rows["prefill"].append(logits)
         return logits, caches
 
-    def rec_decode(tokens, caches, t):
-        logits, caches = decode_step(tokens, caches, t)
+    def rec_decode(*args, **kwargs):
+        logits, caches = decode_step(*args, **kwargs)
         rows["decode"].append(logits)
         return logits, caches
 
@@ -2652,6 +2682,385 @@ def recurrent_phase(gen) -> None:
     check(F.plan_log() == (), f"phase 12 planned {F.plan_log()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the modality frontends: musicgen-large and qwen2-vl-72b served
+# ---------------------------------------------------------------------------
+
+#: musicgen-large's prompts of frame embeddings, one per slot; the decode
+#: steps fed through ``embeds=``, then those fed through the token table.
+AUDIO_PROMPTS = (4096, 2048, 1000, 37)
+AUDIO_EMBED_STEPS, AUDIO_TABLE_STEPS = 64, 8
+#: The running batch's stream phase is set to C − AUDIO_FLUSH_AT before the
+#: prompts join it, so the stream flush falls at that step.
+AUDIO_FLUSH_AT = 32
+#: The plain musicgen-large: one prompt and its decode steps.
+AUDIO_PLAIN_PROMPT, AUDIO_PLAIN_STEPS = 4096, 16
+#: qwen2-vl-72b at every published width, its depth cut to 8 of 80 layers so
+#: that the float32 weights (38.1 GB), a 4096 prefill and the bf16 casts fit
+#: one 80 GB card.
+VISION_LAYERS = 8
+#: The vision grid (32 × 32 patches = frontend_len 1024), the text after it
+#: in each slot's prompt, and the decode steps.
+VISION_GRID, VISION_TEXT, VISION_STEPS = 32, (3072, 2048, 976, 37), 32
+#: The engine's text-only session: prompts, the steps before and after a
+#: late prompt joins.
+VISION_ENGINE_PROMPTS, VISION_ENGINE_LATE, VISION_ENGINE_STEPS = (4096, 1000, 37), 2048, (32, 32)
+INT8_TOL = 0.03  # int8 served logits vs the bf16-cache served ones, relative to max|ref| (the reference's bound)
+MROPE_TOL = 1e-6  # M-RoPE ids equal to the positions vs standard RoPE, relative to max|ref|
+#: Each served model and its parameter count (the reference's init has the same).
+FRONTEND_PARAMS = {"musicgen-large use_spectral_mixer": 3_179_481_088, "musicgen-large": 3_229_812_736,
+                   "qwen2-vl-72b": 9_512_820_736}
+
+FRONTEND_CLASSES = {"fe.gemm": "gemms", "fe.scores": "attention_scores", "fe.decode": "attention_decode"}
+
+
+def frontend_targets(model) -> list:
+    """Ranges around each attention layer's score passes (``_attend``) and
+    decode, and around every projection: attention's q/k/v and out, the
+    spectral mixer's gate and out, each MLP and the head (``fe.gemm``)."""
+    targets = [(model.head, "forward", "fe.gemm")]
+    for block in model.stack:
+        m = block.mixer
+        if block.kind == "spectral":
+            targets += [(m, "_in_gate", "fe.gemm"), (m, "_out", "fe.gemm")]
+        else:
+            targets += [(m, "_attend", "fe.scores"), (m, "decode", "fe.decode"), (m, "_qkv", "fe.gemm"),
+                        (m, "_out", "fe.gemm")]
+        targets.append((block.mlp, "forward", "fe.gemm"))
+    return targets
+
+
+def frontend_classes(model, fn) -> dict:
+    """Device ms of one call of ``fn`` by class (:func:`scope_classes`):
+    the FFT kernels, weight casts, GEMMs (projections, MLPs, head), the
+    prefill's attention score passes, a decode step's attention (the KV
+    write, scores, softmax), other."""
+    return scope_classes(model, fn, frontend_targets(model),
+                         ("gemms", "attention_scores", "attention_decode", "other"),
+                         lambda labels: FRONTEND_CLASSES[labels[0]] if labels else "other")
+
+
+def join(model, prefilled, max_len: int, phase=None):
+    """One decode state of a slot per request from its prefill ((logits
+    (1, vocab), natural-order caches, prompt length)): the caches in decode
+    layout (``prepare_decode_caches``, the model's KV dtype) inserted at the
+    slot by ``Engine.insert`` (a spectral state re-phased to the batch's
+    phase; the empty batch's set to ``phase`` where given).  Returns (caches,
+    t (B,))."""
+    eng = Engine(model, ServeConfig(eos_id=model.cfg.vocab_size))
+    state = eng.init_state(len(prefilled), max_len)
+    if phase is not None:
+        state = state._replace(caches=[c._replace(phase=phase) if isinstance(c, SpectralStreamCache) else c
+                                       for c in state.caches])
+    for slot, (logits, caches, n) in enumerate(prefilled):
+        pres = PrefillResult(model.prepare_decode_caches(caches, max_len), logits.argmax(-1),
+                             torch.full((1,), n, dtype=torch.long, device=model.device))
+        state = eng.insert(state, pres, slot)
+    return state.caches, state.lengths
+
+
+def decode_run(model, caches, t, last, embeds=None, steps: int = 0, tokens=None, ids=None) -> tuple:
+    """Decode from (caches, t (B,)): one step per column of ``embeds``
+    (B, E, D) through ``embeds=``, then ``steps`` steps through the token
+    table, each fed ``tokens[:, i]`` where given, else the greedy token of
+    the last logits (``last`` (B, vocab) before the first); ``ids`` (B,)
+    the slots' next M-RoPE id (text: one id in all three streams), advanced
+    each step.  Returns (the steps' logits, the tokens fed (B, steps), ms
+    of the embedding steps and of the table steps on the host clock, each
+    run ending in a sync)."""
+    rows, fed, ms = [], [], []
+    for n, table in ((0 if embeds is None else embeds.shape[1], False), (steps, True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            if table:
+                tok = last.argmax(-1) if tokens is None else tokens[:, i]
+                fed.append(tok)
+                mp = None if ids is None else ids[:, None, None].expand(-1, 3, 1)
+                last, caches = model.decode_step(tok, caches, t, mrope_positions=mp)
+            else:
+                last, caches = model.decode_step(None, caches, t, embeds=embeds[:, i:i + 1])
+            rows.append(last)
+            t = t + 1
+            ids = None if ids is None else ids + 1
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return rows, torch.stack(fed, 1) if fed else None, ms[0], ms[1], caches, t
+
+
+def slot_rows(pre, rows, j: int) -> torch.Tensor:
+    """Slot ``j``'s served logit rows: its prefill's and every step's."""
+    return torch.cat([pre[j]] + [r[j:j + 1] for r in rows])
+
+
+def audio_expect(model, prefills, inserts: int, flushes: int, forced) -> dict:
+    """Kernel → launches of the spectral layers: ``fft_conv`` at
+    next_pow2(S + Lf − 1) for each prefill and teacher-forced forward of S
+    positions (``prefills``, ``forced``), the stream lookahead for each
+    prefill, insert (re-phase) and flush."""
+    mixer = next(b.mixer for b in model.stack if b.kind == "spectral")
+    lf, (_, block) = mixer.filter_len, mixer.grain
+    conv = lambda s: rplans(next_pow2(s + lf - 1))  # noqa: E731
+    looks = len(prefills) + inserts + flushes
+    uses = [u for s in list(prefills) + list(forced) for u in conv(s)] + rplans(block, calls=(2 * looks, looks))
+    layers = sum(b.kind == "spectral" for b in model.stack)
+    return {k: v * layers for k, v in plans_launches(uses).items()}
+
+
+def audio_case(gen, spectral: bool) -> None:
+    """musicgen-large at full width and depth, plain or with
+    ``use_spectral_mixer``, from seed 0: prompts of seeded bf16 frame
+    embeddings, each prefilled and joined into one decode state (one slot
+    each, its own ``t``), decoded through ``embeds=`` and then through the
+    token table, at bf16 (timed, profiled), then at float32 on the same
+    weights: every served logit row within 1e-3·max|ref| of a
+    teacher-forced forward over the same frames (the table steps' frames
+    the table's embedding of the fed tokens), the bf16 prefill logits
+    within 5e-2·max|ref| of the float32 ones; launches exactly those of the
+    spectral layers' plans, none planned in the warm float32 serve."""
+    t0 = time.perf_counter()
+    cfg, dev = dataclasses.replace(get_config("musicgen-large"), use_spectral_mixer=spectral), gen.device
+    name = cfg.name + (" use_spectral_mixer" if spectral else "")
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == FRONTEND_PARAMS[name] and len(model.stack) == cfg.num_layers == 48,
+          f"phase 13 {name}: {n_params} parameters in {len(model.stack)} layers")
+    print(f"phase 13: {name}, {n_params} parameters, {len(model.stack)} layers, pattern "
+          f"{find_unit(cfg.pattern())} × {len(model.stack) // len(find_unit(cfg.pattern()))}", flush=True)
+    lens = AUDIO_PROMPTS if spectral else (AUDIO_PLAIN_PROMPT,)
+    e_steps, t_steps = (AUDIO_EMBED_STEPS, AUDIO_TABLE_STEPS) if spectral else (AUDIO_PLAIN_STEPS, 0)
+    frames = [torch.randn(1, n, cfg.d_model, device=dev, generator=gen).to(torch.bfloat16) for n in lens]
+    embeds = torch.randn(len(lens), e_steps, cfg.d_model, device=dev, generator=gen).to(torch.bfloat16)
+    max_len = max(lens) + e_steps + t_steps
+    c = model.stack[0].mixer.grain[0] if spectral else None
+    phase = c - AUDIO_FLUSH_AT if spectral else None
+    at_start = kernels.counts()
+
+    def serve(m):
+        pre = [m.prefill(frame_embeds=f) for f in frames]
+        caches, t = join(m, [(lg, cc, f.shape[1]) for (lg, cc), f in zip(pre, frames)], max_len, phase)
+        last = torch.cat([lg for lg, _ in pre])
+        rows, fed, ms_e, ms_t, caches, t = decode_run(m, caches, t, last, embeds, t_steps)
+        return [lg for lg, _ in pre], rows, fed, ms_e, ms_t, caches, t
+
+    # bf16 compute (the config's): timed, a table step profiled.
+    pre16, _, _, ms_e, ms_t, caches, t = serve(model)
+    step = frontend_classes(model, lambda: model.decode_step(torch.zeros(len(lens), dtype=torch.long, device=dev),
+                                                             caches, t))
+    del caches, t
+    torch.cuda.empty_cache()
+
+    # float32 compute on the same weights: the served rows against teacher forcing.
+    m32 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32"), device="meta")
+    m32.load_state_dict(model.state_dict(), assign=True)
+    F.clear_plan_log()
+    pre32, rows32, fed, _, _, caches, _ = serve(m32)
+    planned = F.plan_log()
+    del caches
+    errs, errs16, forced = [], [], []
+    for j, f in enumerate(frames):
+        row = slot_rows(pre32, rows32, j)
+        check(bool(torch.isfinite(row).all()), f"phase 13 {name} slot {j}: non-finite served logits")
+        seq = [f.float(), embeds[j:j + 1].float()]
+        if fed is not None:
+            check(fed[j].tolist() == row[e_steps:-1].argmax(-1).tolist(), f"phase 13 {name} slot {j}: not greedy")
+            seq.append(m32.embed(fed[j:j + 1], torch.float32))
+        seq = torch.cat(seq, dim=1)
+        forced.append(seq.shape[1])
+        hidden = m32(frame_embeds=seq)[0][0, f.shape[1] - 1:]
+        errs.append(full_err(row, m32.head(hidden, m32.embed.table)))
+        errs16.append(full_err(pre16[j], pre32[j].double()))
+        del hidden, row
+    del rows32, m32
+    torch.cuda.empty_cache()
+
+    # Each prompt's prefill at bf16, warm (CUDA events, median of 3), the longest profiled.
+    prefill_ms = {f.shape[1]: time_ms(lambda f=f: model.prefill(frame_embeds=f), reps=3) for f in frames}
+    prefill = frontend_classes(model, lambda: model.prefill(frame_embeds=frames[0]))
+    steps = e_steps + t_steps
+    if spectral:
+        flushes = sum((phase + i) % c == c - 1 for i in range(steps))
+        expect = audio_expect(model, [s for s in lens for _ in range(2 + 4)] + [lens[0]], 2 * len(lens),
+                              2 * flushes, forced)
+    else:
+        flushes, expect = 0, {}
+    check_launches(f"phase 13 {name}", at_start, kernels.counts(), expect)
+    step_ms = ms_e / e_steps
+    out = {
+        "config": name, "layers": len(model.stack), "pattern_unit": list(find_unit(cfg.pattern())),
+        "parameters": n_params, "slots": len(lens), "prompts": list(lens), "max_len": max_len,
+        "embed_steps": e_steps, "table_steps": t_steps, "flushes_per_serve": flushes,
+        "served_vs_teacher_forced": errs, "forced_lengths": forced, "bf16_vs_float32_prefill": errs16,
+        "planned_when_warm": [str(p) for p in planned], "prefill_ms": prefill_ms,
+        "decode_ms_per_step": step_ms, "decode_tok_per_s": len(lens) * 1e3 / step_ms,
+        "table_ms_per_step": ms_t / t_steps if t_steps else None,
+        "step_device": step, "step_busy": step["device_ms"] / step_ms,
+        "prefill_device": prefill, "prefill_busy": prefill["device_ms"] / prefill_ms[lens[0]],
+        "peak_bytes": torch.cuda.max_memory_allocated(), "param_bytes": 4 * n_params,
+        "seconds": time.perf_counter() - t0,
+    }
+    print("serve_frontend " + json.dumps(out), flush=True)
+    check(not planned, f"phase 13 {name}: the warm float32 serve planned {planned}")
+    for j, (e32, e16) in enumerate(zip(errs, errs16)):
+        check(e32 <= SERVE_TOL, f"phase 13 {name} slot {j}: served vs teacher-forced {e32:.3e} > {SERVE_TOL}")
+        check(e16 <= BF16_TOL, f"phase 13 {name} slot {j}: bf16 prefill vs float32 {e16:.3e} > {BF16_TOL}")
+    del model, frames, embeds
+    torch.cuda.empty_cache()
+
+
+def vision_ids(text: int, dev) -> torch.Tensor:
+    """(1, 3, G² + text) M-RoPE ids by qwen2-vl's rule: the G × G grid's
+    patch i at (0, i // G, i % G), then text position j at G + j in all
+    three streams."""
+    g = VISION_GRID
+    i = torch.arange(g * g, device=dev)
+    grid = torch.stack([torch.zeros_like(i), i // g, i % g])
+    return torch.cat([grid, (g + torch.arange(text, device=dev)).expand(3, text)], dim=1)[None]
+
+
+def vision_case(gen) -> None:
+    """qwen2-vl-72b at full width, 8 of its 80 layers, from seed 0.  Each
+    slot's prompt: a 32 × 32 grid of seeded bf16 vision embeddings, then
+    text, with qwen2-vl's M-RoPE ids; prefilled, joined (each slot at its
+    own ``t``) and decoded greedily with ids that continue the text's (so
+    apart from the KV slot).  bf16 with the config's int8 cache: timed,
+    profiled.  float32 with the cache in the compute dtype: every served
+    row within 1e-3·max|ref| of teacher forcing (the head only at the
+    checked positions); float32 with the int8 cache fed the same tokens:
+    within 0.03·max|ref| of those rows; bf16 prefill within 5e-2·max|ref|
+    of float32; M-RoPE ids equal to the positions give standard RoPE's
+    logits.  Then the engine serves text-only prompts (standard RoPE, int8
+    cache) at 4 slots with a late insert, bf16, timed.  No FFT launch and
+    no plan."""
+    t0 = time.perf_counter()
+    cfg, dev = dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=VISION_LAYERS), gen.device
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == FRONTEND_PARAMS[cfg.name] and cfg.frontend_len == VISION_GRID ** 2,
+          f"phase 13 {cfg.name}: {n_params} parameters")
+    print(f"phase 13: {cfg.name} at {VISION_LAYERS} of its {get_config(cfg.name).num_layers} layers (the depth "
+          f"cut; every width published: d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, M-RoPE sections {cfg.mrope_sections}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, KV cache {cfg.kv_cache_dtype}, theta {cfg.rope_theta:g}), {n_params} parameters",
+          flush=True)
+    grid = VISION_GRID ** 2
+    reqs = []
+    for text in VISION_TEXT:
+        toks = torch.randint(4, cfg.vocab_size, (1, grid + text), device=dev, generator=gen)
+        ve = torch.randn(1, grid, cfg.d_model, device=dev, generator=gen).to(torch.bfloat16)
+        reqs.append({"tokens": toks, "vision_embeds": ve, "mrope_positions": vision_ids(text, dev)})
+    next_ids = torch.tensor([VISION_GRID + text for text in VISION_TEXT], device=dev)
+    max_len = grid + max(VISION_TEXT) + VISION_STEPS + 1
+    lens = [r["tokens"].shape[1] for r in reqs]
+    F.clear_plan_log()
+    at_start = kernels.counts()
+
+    def serve(m, prefilled, tokens=None):
+        caches, t = join(m, [(lg, cc, n) for (lg, cc), n in zip(prefilled, lens)], max_len)
+        last = torch.cat([lg for lg, _ in prefilled])
+        return decode_run(m, caches, t, last, steps=VISION_STEPS, tokens=tokens, ids=next_ids)
+
+    # bf16 compute, the config's int8 cache: timed, a step profiled.
+    pre16 = [model.prefill(**r) for r in reqs]
+    _, _, _, ms16, caches, t = serve(model, pre16)
+    check(caches[0].k.dtype == torch.int8, "phase 13: the bf16 serve's cache is not int8")
+    ids = next_ids + VISION_STEPS
+    step = frontend_classes(model, lambda: model.decode_step(torch.zeros(len(reqs), dtype=torch.long, device=dev),
+                                                             caches, t, mrope_positions=ids[:, None, None].expand(-1, 3, 1)))
+    pre16 = [lg for lg, _ in pre16]
+    del caches, t
+    torch.cuda.empty_cache()
+
+    # float32 compute: the cache in the compute dtype, then int8 fed the same tokens.
+    m32 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32", kv_cache_dtype="bf16"), device="meta")
+    m32.load_state_dict(model.state_dict(), assign=True)
+    m8 = DecoderLM(dataclasses.replace(cfg, compute_dtype="float32"), device="meta")
+    m8.load_state_dict(model.state_dict(), assign=True)
+    pre32 = [m32.prefill(**r) for r in reqs]
+    rows32, fed, _, _, caches, _ = serve(m32, pre32)
+    check(caches[0].k.dtype == torch.float32, "phase 13: the float32 serve's cache is not float32")
+    del caches
+    rows8, _, _, _, caches, _ = serve(m8, pre32, tokens=fed)
+    check(caches[0].k.dtype == torch.int8, "phase 13: the int8 serve's cache is not int8")
+    del caches
+    pre32 = [lg for lg, _ in pre32]
+    errs, errs8, errs16 = [], [], []
+    for j, r in enumerate(reqs):
+        row = slot_rows(pre32, rows32, j)
+        check(bool(torch.isfinite(row).all()), f"phase 13 qwen2-vl slot {j}: non-finite served logits")
+        check(fed[j].tolist() == row[:-1].argmax(-1).tolist(), f"phase 13 qwen2-vl slot {j}: not greedy")
+        ids_j = torch.cat([r["mrope_positions"],
+                           (next_ids[j] + torch.arange(VISION_STEPS, device=dev)).expand(1, 3, -1)], dim=2)
+        hidden = m32(torch.cat([r["tokens"], fed[j:j + 1]], dim=1), vision_embeds=r["vision_embeds"],
+                     mrope_positions=ids_j)[0][0, lens[j] - 1:]
+        errs.append(full_err(row, m32.head(hidden, m32.embed.table)))
+        errs8.append(full_err(torch.cat([x[j:j + 1] for x in rows8]), torch.cat([x[j:j + 1] for x in rows32])))
+        errs16.append(full_err(pre16[j], pre32[j].double()))
+        del hidden, row
+    # M-RoPE ids equal to the positions: standard RoPE's logits.
+    text = reqs[0]["tokens"][:, grid:]
+    same = torch.arange(text.shape[1], device=dev).expand(1, 3, -1)
+    mrope_err = full_err(m32.prefill(text, mrope_positions=same)[0], m32.prefill(text)[0].double())
+    del rows32, rows8, m32, m8
+    torch.cuda.empty_cache()
+
+    # Each prompt's prefill at bf16, warm (CUDA events, median of 3), the longest profiled.
+    prefill_ms = {n: time_ms(lambda r=r: model.prefill(**r), reps=3) for n, r in zip(lens, reqs)}
+    prefill = frontend_classes(model, lambda: model.prefill(**reqs[0]))
+
+    # The engine: text-only prompts (standard RoPE), the int8 cache, bf16.
+    prompts = [torch.randint(4, cfg.vocab_size, (n,), device=dev, generator=gen) for n in VISION_ENGINE_PROMPTS]
+    late = torch.randint(4, cfg.vocab_size, (VISION_ENGINE_LATE,), device=dev, generator=gen)
+    first, after = VISION_ENGINE_STEPS
+    rows = recording(model)
+    sess = serve_session(model, prompts, late, first)
+    engine_ms = timed_run(sess, after)
+    outs = [sess.output(s) for s in range(SERVE_SLOTS)]
+    check(sess.state.caches[0].k.dtype == torch.int8, "phase 13: the engine's cache is not int8")
+    del sess, model.prefill, model.decode_step
+    requests = [(p, slot, 0) for slot, p in enumerate(prompts)] + [(late, len(prompts), first)]
+    served_rows(rows, requests, outs, first + after, "phase 13 qwen2-vl engine")
+    del rows
+    check_launches("phase 13 qwen2-vl-72b", at_start, kernels.counts(), {})
+    planned = F.plan_log()
+    step_ms = ms16 / VISION_STEPS
+    out = {
+        "config": cfg.name, "layers": len(model.stack), "layers_of": get_config(cfg.name).num_layers,
+        "parameters": n_params, "slots": len(reqs), "vision_grid": [VISION_GRID, VISION_GRID],
+        "text": list(VISION_TEXT), "prompts": lens, "next_mrope_ids": next_ids.tolist(), "max_len": max_len,
+        "steps": VISION_STEPS, "served_vs_teacher_forced": errs, "int8_vs_bf16_cache_served": errs8,
+        "bf16_vs_float32_prefill": errs16, "mrope_equal_ids_vs_rope": mrope_err, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": step_ms, "decode_tok_per_s": len(reqs) * 1e3 / step_ms,
+        "step_device": step, "step_busy": step["device_ms"] / step_ms,
+        "prefill_device": prefill, "prefill_busy": prefill["device_ms"] / prefill_ms[lens[0]],
+        "engine_prompts": list(VISION_ENGINE_PROMPTS), "engine_late": VISION_ENGINE_LATE,
+        "engine_steps": [first, after], "engine_ms_per_step": engine_ms / after,
+        "engine_tok_per_s": SERVE_SLOTS * after * 1e3 / engine_ms, "planned": [str(p) for p in planned],
+        "peak_bytes": torch.cuda.max_memory_allocated(), "param_bytes": 4 * n_params,
+        "seconds": time.perf_counter() - t0,
+    }
+    print("serve_frontend " + json.dumps(out), flush=True)
+    check(not planned, f"phase 13 qwen2-vl-72b planned {planned}")
+    check(mrope_err <= MROPE_TOL, f"phase 13: M-RoPE ids equal to the positions vs RoPE {mrope_err:.3e}")
+    for j, (e32, e8, e16) in enumerate(zip(errs, errs8, errs16)):
+        check(e32 <= SERVE_TOL, f"phase 13 qwen2-vl slot {j}: served vs teacher-forced {e32:.3e} > {SERVE_TOL}")
+        check(e8 <= INT8_TOL, f"phase 13 qwen2-vl slot {j}: int8 vs bf16-cache served {e8:.3e} > {INT8_TOL}")
+        check(e16 <= BF16_TOL, f"phase 13 qwen2-vl slot {j}: bf16 prefill vs float32 {e16:.3e} > {BF16_TOL}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def frontend_phase(gen) -> None:
+    """Phase 13: musicgen-large with spectral mixing, the plain
+    musicgen-large, then qwen2-vl-72b (:func:`audio_case`,
+    :func:`vision_case`)."""
+    audio_case(gen, spectral=True)
+    audio_case(gen, spectral=False)
+    vision_case(gen)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -2716,8 +3125,14 @@ def main() -> int:
         with tune_env("off"), torch.no_grad():
             hybrid = path_launches("hybrid", recurrent_phase, gen)
         print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+        t13 = time.perf_counter()
+        with tune_env("off"), recorded_calls() as seen, torch.no_grad():
+            frontend = path_launches("frontend", frontend_phase, gen)
+        print(f"phase 13: {time.perf_counter() - t13:.1f} s, {len(seen)} distinct kernel calls", flush=True)
+        path_kernel_rows("frontend", seen, frontend, gen)
+        torch.cuda.empty_cache()
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
-                    + tuned[name] + trained[name] + moe[name] + hybrid[name] for name in SOURCES}
+                    + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -2728,7 +3143,7 @@ def main() -> int:
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
-            "hybrid_launches": hybrid[name],
+            "hybrid_launches": hybrid[name], "frontend_launches": frontend[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

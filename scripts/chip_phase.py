@@ -1,12 +1,15 @@
 """Run one of ``chip_smoke.py``'s serving phases alone on the card: build the
 kernels, then phase 11 (deepseek-moe-16b with spectral mixing at full width,
 the ``serve_moe`` line, then each distinct kernel call it made against its
-plain version, "kernel ... moe path #i" lines) or phase 12 (zamba2-2.7b and
+plain version, "kernel ... moe path #i" lines), phase 12 (zamba2-2.7b and
 xlstm-125m at full width, the ``serve_recurrent`` lines; no kernel
-launches).
+launches) or phase 13 (musicgen-large with spectral mixing and plain,
+qwen2-vl-72b at 8 of 80 layers, the ``serve_frontend`` lines, then
+"kernel ... frontend path #i" lines).
 
     python3 scripts/chip_phase.py 11
     python3 scripts/chip_phase.py 12
+    python3 scripts/chip_phase.py 13
 
 A quicker loop than the whole smoke run while a serving path changes; the
 smoke run stays the proof.  Exits 1 on the first failed check.
@@ -24,7 +27,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 #: Phase → (its path's name in ``chip_smoke.PATH_KERNELS``, the phase).
-PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase)}
+PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase), 13: ("frontend", cs.frontend_phase)}
 
 
 def main(argv) -> int:

@@ -5,9 +5,8 @@ for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``ParallelConfig`` (its fields on
 mesh it maps is ``ROADMAP.md`` A6, sharding) and ``TrainConfig`` with the
 reference's defaults.  ``get_config(arch_id)`` resolves a registry name to
 the ``ModelConfig`` in its own module under ``repro_torch.configs``.  The
-registry knows every name the reference knows; a name whose frontend the
-port does not run yet raises ``NotImplementedError`` naming ``ROADMAP.md``
-A4 (``fftbench``: A1, the paper's benchmark).
+registry knows every name the reference knows; ``fftbench``, the paper's
+benchmark, raises ``NotImplementedError`` naming ``ROADMAP.md`` A1.
 
 Of the execution fields the port reads ``compute_dtype``, ``param_dtype``,
 ``attn_chunk``, ``attn_chunk_threshold``, ``kv_cache_dtype``,
@@ -194,15 +193,12 @@ _REGISTRY: dict[str, str] = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
 }
 
-#: The reference's other registry names: their frontends are not ported
-#: yet, and ``fftbench`` is the paper's benchmark.
-_NOT_PORTED = (
-    "musicgen-large",
-    "qwen2-vl-72b",
-    "fftbench",
-)
+#: The reference's other registry name: the paper's benchmark.
+_NOT_PORTED = ("fftbench",)
 
 _EXTRA: dict[str, ModelConfig] = {}
 
@@ -220,9 +216,8 @@ def get_config(arch: str) -> ModelConfig:
     if arch in _EXTRA:
         return _EXTRA[arch]
     if arch in _NOT_PORTED:
-        waits = "the paper's benchmark, ROADMAP.md A1" if arch == "fftbench" else "its frontend, ROADMAP.md A4"
-        raise NotImplementedError(f"arch {arch!r} is not ported yet: it waits for {waits}; "
-                                  f"ported: {sorted(_REGISTRY)}")
+        raise NotImplementedError(f"arch {arch!r} is not ported yet: it waits for the paper's benchmark, "
+                                  f"ROADMAP.md A1; ported: {sorted(_REGISTRY)}")
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY) + sorted(_NOT_PORTED)}")
     return importlib.import_module(_REGISTRY[arch]).CONFIG

@@ -15,6 +15,9 @@ paper-integration flag ``use_spectral_mixer``:
 
 The recurrent configs (zamba2-2.7b, xlstm-125m) take a prompt of at most
 one chunk (``cfg.chunk_size``) or of whole chunks, as the reference's.
+Prompts are token ids: qwen2-vl-72b is served as text (standard RoPE, its
+int8 KV cache), and an audio config (musicgen-large) is refused with a
+``ValueError`` before any model is built.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from repro_torch.configs.reduce import make_reduced
 from repro_torch.core import faults
 from repro_torch.core import fft as fft_lib
 from repro_torch.models.model import DecoderLM
-from repro_torch.serving.engine import Engine, ServeConfig
+from repro_torch.serving.engine import Engine, ServeConfig, require_token_prompts
 from repro_torch.serving.spectral_serve import sweep_once
 
 
@@ -67,6 +70,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    require_token_prompts(cfg)
     if args.spectral:
         cfg = dataclasses.replace(cfg, use_spectral_mixer=True)
     if args.reduced:

@@ -17,7 +17,9 @@ Fault-tolerance behaviour exercised here:
 
 The port trains on one device: ``--mesh`` other than ``1x1`` raises (a
 sharded mesh is ``ROADMAP.md`` A6, sharding), and the reference's XLA
-overlap flags have no counterpart.
+overlap flags have no counterpart.  The synthetic pipeline makes token
+batches, so an audio config (musicgen-large, which takes frame embeddings)
+is refused with a ``ValueError``; a vision config trains on its tokens.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ def main(argv=None):
             f"--mesh {args.mesh}: the port trains on one device; a sharded mesh is ROADMAP.md A6 (sharding)"
         )
     cfg = get_config(args.arch)
+    if cfg.frontend == "audio":
+        raise ValueError(f"{cfg.name}: the training pipeline makes token batches, and an audio model "
+                         "takes frame embeddings (loss_fn's frame_embeds)")
     if args.spectral:
         cfg = dataclasses.replace(cfg, use_spectral_mixer=True)
     if args.reduced:

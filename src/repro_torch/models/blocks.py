@@ -14,7 +14,8 @@ spectral      pre-norm FFT long-conv mixer (:class:`SpectralMixer`) + pre-norm M
 
 ``forward`` returns ``(x, cache or None, aux)``, the aux loss a float32 0-d
 tensor (the MoE's, else 0); ``decode`` returns ``(x, new_cache)`` and drops
-the aux, as the reference's ``block_decode``.  The caches are the layers'
+the aux, as the reference's ``block_decode``.  Both take optional M-RoPE ids
+(``mrope_positions``), which only the attention kinds read.  The caches are the layers'
 own (:class:`KVCache`, also the ``moe`` and ``shared_attn`` kinds';
 :class:`SSMCache`, :class:`MLSTMCache`, :class:`SLSTMCache`;
 :class:`SpectralStreamCache`, :class:`SpectralCache`).
@@ -93,21 +94,23 @@ class Block(nn.Module):
             return x + y, aux
         return x + self.mlp(h), None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False,
+                mrope_positions: Optional[torch.Tensor] = None):
         h = self.norm1(x)
         if self.kind in ATTN_KINDS:
-            res = self.mixer(h, positions, return_cache=return_cache)
+            res = self.mixer(h, positions, return_cache=return_cache, mrope_positions=mrope_positions)
         else:
             res = self.mixer(h, return_cache=return_cache)
         res, cache = res if return_cache else (res, None)
         x, aux = self._ffn(x + res)
         return x, cache, (x.new_zeros((), dtype=torch.float32) if aux is None else aux)
 
-    def decode(self, x: torch.Tensor, cache, t):
-        """One token, x (B, 1, D), at position ``t`` (an int or (B,))."""
+    def decode(self, x: torch.Tensor, cache, t, mrope_positions: Optional[torch.Tensor] = None):
+        """One token, x (B, 1, D), at position ``t`` (an int or (B,)); an
+        attention kind rotates by ``mrope_positions`` (B, 3, 1) where given."""
         h = self.norm1(x)
         if self.kind in ATTN_KINDS:
-            res, cache = self.mixer.decode(h, cache, t)
+            res, cache = self.mixer.decode(h, cache, t, mrope_positions)
         elif isinstance(cache, SpectralStreamCache):
             # Dispatch on the cache's layout, not the config: a prepared cache
             # of either mode decodes (the ring is the exactness oracle).

@@ -18,6 +18,10 @@ contractions as ``einsum``.
 
 GQA K/V are expanded to the full head count before the score einsums in the
 forward; the cache stays in kv-head form.  Logit softcap where configured.
+q and k rotate by M-RoPE where ``cfg.rope_kind == "mrope"`` and (B, 3, S)
+``mrope_positions`` are given, else by standard RoPE on ``positions`` (the
+reference's rule: a vision config served as text rotates as any other).
+The causal mask and the decode cache slot never read the M-RoPE ids.
 """
 
 from __future__ import annotations
@@ -91,11 +95,6 @@ class Attention(nn.Module):
     def __init__(self, cfg, *, window: Optional[int] = None, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.rope_kind != "standard":
-            raise NotImplementedError(
-                f"rope_kind {cfg.rope_kind!r}: M-RoPE attention comes with the vision "
-                "frontend (ROADMAP.md A4)"
-            )
         self.cfg, self.window = cfg, window
         D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         kw = dict(dtype=dtype, device=device, generator=generator)
@@ -104,14 +103,21 @@ class Attention(nn.Module):
         self.wv = normal((D, KV, hd), **kw)
         self.wo = normal((H, hd, D), scale=(H * hd) ** -0.5, **kw)
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """Project and rotate.  x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor, mrope_positions: Optional[torch.Tensor] = None):
+        """Project and rotate.  x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd);
+        positions (B, S), mrope_positions (B, 3, S) or None."""
         cd = x.dtype
         q = (x @ self.wq.to(cd).flatten(1)).unflatten(-1, self.wq.shape[1:])
         k = (x @ self.wk.to(cd).flatten(1)).unflatten(-1, self.wk.shape[1:])
         v = (x @ self.wv.to(cd).flatten(1)).unflatten(-1, self.wv.shape[1:])
-        theta = self.cfg.rope_theta
-        return rope_lib.apply_rope(q, positions, theta), rope_lib.apply_rope(k, positions, theta), v
+        cfg = self.cfg
+        if cfg.rope_kind == "mrope" and mrope_positions is not None:
+            q = rope_lib.apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+            k = rope_lib.apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+            k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
 
     def _softcap(self, scores: torch.Tensor) -> torch.Tensor:
         cap = self.cfg.attn_logit_softcap
@@ -127,12 +133,14 @@ class Attention(nn.Module):
     def _out(self, out: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
         return out.flatten(2) @ self.wo.to(cd).flatten(0, 1)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False,
+                mrope_positions: Optional[torch.Tensor] = None):
         """Causal (optionally banded) attention over a whole sequence.
-        positions: (B, S); with ``return_cache`` also the rotated k and v."""
+        positions: (B, S); mrope_positions: (B, 3, S) M-RoPE ids or None; with
+        ``return_cache`` also the rotated k and v."""
         s = x.shape[1]
         g = self.cfg.num_heads // self.cfg.num_kv_heads
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, positions, mrope_positions)
         if s <= self.cfg.attn_chunk_threshold:
             pos = positions[0]
             mask = pos[None, :] <= pos[:, None]
@@ -175,11 +183,15 @@ class Attention(nn.Module):
             outs.append(self._attend(q[:, start:start + c], kc, vc, mask))
         return torch.cat(outs, dim=1)[:, :s]
 
-    def decode(self, x: torch.Tensor, cache: KVCache, t: Union[int, torch.Tensor]):
+    def decode(self, x: torch.Tensor, cache: KVCache, t: Union[int, torch.Tensor],
+               mrope_positions: Optional[torch.Tensor] = None):
         """One decode step.  x: (B, 1, D); t: the position being written, an
         int (the whole batch at one timeline) or a (B,) tensor (each slot at
-        its own).  Writes the new key and value into ``cache`` in place and
-        returns (y, cache)."""
+        its own).  The key goes to the slot of ``t``; it and the query rotate
+        by ``mrope_positions`` (B, 3, 1) where the config takes M-RoPE and
+        they are given (a vision prompt's text continues at M-RoPE ids apart
+        from its slot), else by ``t``.  Writes the new key and value into
+        ``cache`` in place and returns (y, cache)."""
         b = x.shape[0]
         cfg = self.cfg
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -188,7 +200,7 @@ class Attention(nn.Module):
             t_vec = t.to(device=x.device, dtype=torch.long)
         else:
             t_vec = torch.full((b,), int(t), dtype=torch.long, device=x.device)
-        q, k_new, v_new = self._qkv(x, t_vec[:, None])
+        q, k_new, v_new = self._qkv(x, t_vec[:, None], mrope_positions)
 
         slots = cache.k.shape[1]
         quantized = cache.k.dtype == torch.int8

@@ -29,6 +29,13 @@ def _freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _streams_on(sections: tuple, device: torch.device) -> torch.Tensor:
+    # Which of the 3 position streams drives each frequency band, uploaded
+    # once per (sections, device) as the frequencies are.
+    return torch.from_numpy(np.concatenate([np.full((s,), i) for i, s in enumerate(sections)])).to(device)
+
+
 def _rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
     # llama-style: split halves.
     half = x.shape[-1] // 2
@@ -57,8 +64,6 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections
     if sum(sections) != half:
         raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {half}")
     freqs = _freqs_on(x.shape[-1], theta, x.device)
-    # Which of the 3 position streams drives each frequency band.
-    comp = torch.from_numpy(np.concatenate([np.full((s,), i) for i, s in enumerate(sections)]))
-    pos_sel = positions.float()[:, comp.to(positions.device), :]  # (B, half, S)
+    pos_sel = positions.float()[:, _streams_on(tuple(sections), positions.device), :]  # (B, half, S)
     ang = pos_sel.transpose(1, 2) * freqs  # (B, S, half)
     return _rotate(x, *_sin_cos(ang, x.dtype))

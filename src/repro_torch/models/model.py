@@ -18,8 +18,17 @@ card through the hand-written kernels; everything else is plain PyTorch.
 states and the summed aux loss of the MoE layers (0 without one), as the
 reference's ``forward``.  :func:`loss_fn` is the training loss: the chunked
 cross-entropy (the (B, S, vocab) logits never materialise at once), z-loss,
-``loss_mask`` and the aux term, as the reference's.  The modality frontends
-come with ``ROADMAP.md`` A4.
+``loss_mask`` and the aux term, as the reference's.
+
+The modality frontends are the reference's stubs.  An audio config
+(``frontend="audio"``, musicgen-large) takes precomputed frame embeddings
+(B, S, D) in place of tokens; a vision config (``"vision"``, qwen2-vl-72b)
+takes token ids whose first positions precomputed patch embeddings
+overwrite, and (B, 3, S) M-RoPE ids.  The inputs are keywords named as the
+reference's batch keys: ``tokens``, ``positions``, ``frame_embeds``,
+``vision_embeds``, ``mrope_positions`` (and :func:`loss_fn` reads a batch
+dict of those keys); ``decode_step`` takes the reference's ``embeds=`` and
+``mrope_positions=``.
 """
 
 from __future__ import annotations
@@ -41,12 +50,11 @@ __all__ = ["DecoderLM", "loss_fn"]
 
 class DecoderLM(nn.Module):
     """The LM of one ``ModelConfig``, its parameters drawn from ``generator``
-    (on the generator's own device) at the reference's shapes and scales."""
+    (on the generator's own device) at the reference's shapes and scales.
+    The frontends add no parameter."""
 
     def __init__(self, cfg, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.frontend:
-            raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet (ROADMAP.md A4)")
         dev = fft_lib._resolve_device(device)
         kw = dict(dtype=getattr(torch, cfg.param_dtype), device=dev, generator=generator)
         self.cfg = cfg
@@ -66,41 +74,71 @@ class DecoderLM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
 
-    def forward(self, tokens, positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) → (the final-normed hidden states (B, S, D), the
-        layers' summed aux loss, float32 0-d).  ``positions`` (B, S) default
-        to 0 … S − 1."""
-        tokens = self._tokens(tokens)
-        if positions is None:
-            positions = torch.arange(tokens.shape[1], device=self.device).expand(tokens.shape)
-        x = self.embed(tokens, self.compute_dtype)
-        x, _, aux = self.stack(x, positions)
+    def _embed_inputs(self, tokens, frame_embeds=None, vision_embeds=None) -> torch.Tensor:
+        """The stack's input (B, S, D) in the compute dtype: an audio
+        config's ``frame_embeds``; else the token embedding, its first
+        positions overwritten by a vision config's ``vision_embeds`` (B, F,
+        D), as many as the sequence holds (F, or S where S < F)."""
+        cd = self.compute_dtype
+        if self.cfg.frontend == "audio":
+            if frame_embeds is None:
+                raise ValueError(f"{self.cfg.name}: an audio model takes frame_embeds (B, S, d_model), not tokens")
+            return torch.as_tensor(frame_embeds, device=self.device).to(cd)
+        x = self.embed(self._tokens(tokens), cd)
+        if self.cfg.frontend == "vision" and vision_embeds is not None:
+            ve = torch.as_tensor(vision_embeds, device=self.device)
+            n = min(ve.shape[1], x.shape[1])
+            x = torch.cat([ve[:, :n].to(cd), x[:, n:]], dim=1)
+        return x
+
+    def _ids(self, ids) -> Optional[torch.Tensor]:
+        return None if ids is None else torch.as_tensor(ids, dtype=torch.long, device=self.device)
+
+    def forward(self, tokens=None, positions=None, *, frame_embeds=None, vision_embeds=None,
+                mrope_positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) (an audio config: ``frame_embeds`` (B, S, D)
+        instead) → (the final-normed hidden states (B, S, D), the layers'
+        summed aux loss, float32 0-d).  ``positions`` (B, S) default to
+        0 … S − 1; ``vision_embeds`` (B, F, D) and ``mrope_positions``
+        (B, 3, S) feed a vision config."""
+        x = self._embed_inputs(tokens, frame_embeds, vision_embeds)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=self.device).expand(b, s) if positions is None else self._ids(positions)
+        x, _, aux = self.stack(x, positions, mrope_positions=self._ids(mrope_positions))
         return self.final_norm(x), aux
 
-    def logits_fn(self, tokens, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, S, vocab) float32 logits: the small-model and check path."""
-        return self.head(self(tokens, positions)[0], self.embed.table)
+    def logits_fn(self, tokens=None, positions=None, **inputs) -> torch.Tensor:
+        """(B, S, vocab) float32 logits: the small-model and check path
+        (``inputs``: :meth:`forward`'s keywords)."""
+        return self.head(self(tokens, positions, **inputs)[0], self.embed.table)
 
     @torch.no_grad()
-    def prefill(self, tokens) -> Tuple[torch.Tensor, List]:
+    def prefill(self, tokens=None, *, frame_embeds=None, vision_embeds=None,
+                mrope_positions=None) -> Tuple[torch.Tensor, List]:
         """The prompt's last-position logits (B, vocab) and the per-layer
         caches it leaves (KV in natural order, length S; spectral states
-        already in decode layout)."""
-        tokens = self._tokens(tokens)
-        positions = torch.arange(tokens.shape[1], device=self.device).expand(tokens.shape)
-        x = self.embed(tokens, self.compute_dtype)
-        x, caches, _ = self.stack(x, positions, return_cache=True)
+        already in decode layout).  The inputs are :meth:`forward`'s."""
+        x = self._embed_inputs(tokens, frame_embeds, vision_embeds)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x, caches, _ = self.stack(x, positions, return_cache=True, mrope_positions=self._ids(mrope_positions))
         x = self.final_norm(x[:, -1:])
         return self.head(x, self.embed.table)[:, 0], caches
 
     @torch.no_grad()
-    def decode_step(self, tokens, caches: List, t) -> Tuple[torch.Tensor, List]:
-        """One decode step.  tokens (B,); ``t`` the position being written,
-        an int (one timeline) or a (B,) tensor of per-slot positions.
-        Returns (logits (B, vocab), new caches); KV caches are written in
-        place."""
-        x = self.embed(self._tokens(tokens)[:, None], self.compute_dtype)
-        x, caches = self.stack.decode(x, caches, t)
+    def decode_step(self, tokens, caches: List, t, *, embeds=None, mrope_positions=None) -> Tuple[torch.Tensor, List]:
+        """One decode step.  tokens (B,), or for an audio config ``embeds``
+        (B, 1, D) where given (the tokens through the embedding table
+        otherwise, as the reference); ``t`` the position being written (its
+        KV slot), an int (one timeline) or a (B,) tensor of per-slot
+        positions; ``mrope_positions`` (B, 3, 1) the step's M-RoPE ids for a
+        vision config (standard RoPE at ``t`` without them).  Returns
+        (logits (B, vocab), new caches); KV caches are written in place."""
+        if self.cfg.frontend == "audio" and embeds is not None:
+            x = torch.as_tensor(embeds, device=self.device).to(self.compute_dtype)
+        else:
+            x = self.embed(self._tokens(tokens)[:, None], self.compute_dtype)
+        x, caches = self.stack.decode(x, caches, t, self._ids(mrope_positions))
         return self.head(self.final_norm(x), self.embed.table)[:, 0], caches
 
     def cache_init(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None) -> List:
@@ -168,13 +206,16 @@ def _chunk_ce(model: DecoderLM, hidden: torch.Tensor, targets: torch.Tensor, mas
 
 
 def loss_fn(model: DecoderLM, batch: dict, train_cfg=None):
-    """Scalar LM loss and its metrics.  ``batch``: ``tokens`` and ``targets``
-    (B, S) integers, optional ``loss_mask`` (B, S) and ``positions``.
+    """Scalar LM loss and its metrics.  ``batch``: ``tokens`` (an audio
+    config: ``frame_embeds``) and ``targets`` (B, S) integers, optional
+    ``loss_mask`` (B, S), ``positions``, and a vision config's
+    ``vision_embeds`` and ``mrope_positions``.
 
     loss = Σ nll / n + z_loss · Σ lse² / n + aux, n = max(Σ mask, 1), aux
     the MoE layers' load-balance term (0 without one); metrics ``loss``,
     ``ce``, ``aux``, ``tokens`` as 0-d float32 tensors."""
-    hidden, aux = model(batch["tokens"], batch.get("positions"))
+    hidden, aux = model(batch.get("tokens"), batch.get("positions"), frame_embeds=batch.get("frame_embeds"),
+                        vision_embeds=batch.get("vision_embeds"), mrope_positions=batch.get("mrope_positions"))
     targets = torch.as_tensor(batch["targets"], dtype=torch.long, device=model.device)
     mask = batch.get("loss_mask")
     mask = (torch.ones(targets.shape, device=model.device) if mask is None

@@ -42,9 +42,9 @@ def find_unit(pattern: tuple) -> tuple:
     return tuple(pattern)
 
 
-def _hidden(block, x: torch.Tensor, positions: torch.Tensor):
+def _hidden(block, x: torch.Tensor, positions: torch.Tensor, mrope_positions: Optional[torch.Tensor]):
     """A block's (hidden states, aux) without its cache: the checkpointed call."""
-    x, _, aux = block(x, positions)
+    x, _, aux = block(x, positions, mrope_positions=mrope_positions)
     return x, aux
 
 
@@ -73,26 +73,28 @@ class Stack(nn.Module):
     def __iter__(self) -> Iterator[Block]:
         return (self[layer] for layer in range(len(self)))
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False):
-        """x: (B, S, D) → (x, per-layer caches or None, Σ aux float32 0-d)."""
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False,
+                mrope_positions: Optional[torch.Tensor] = None):
+        """x: (B, S, D) → (x, per-layer caches or None, Σ aux float32 0-d);
+        ``mrope_positions`` (B, 3, S) go to every attention layer."""
         total = x.new_zeros((), dtype=torch.float32)
         if self.remat and torch.is_grad_enabled() and not return_cache:
             for block in self:
-                x, aux = checkpoint(_hidden, block, x, positions, use_reentrant=False)
+                x, aux = checkpoint(_hidden, block, x, positions, mrope_positions, use_reentrant=False)
                 total = total + aux
             return x, None, total
         caches = []
         for block in self:
-            x, cache, aux = block(x, positions, return_cache=return_cache)
+            x, cache, aux = block(x, positions, return_cache=return_cache, mrope_positions=mrope_positions)
             caches.append(cache)
             total = total + aux
         return x, (caches if return_cache else None), total
 
-    def decode(self, x: torch.Tensor, caches: List, t):
+    def decode(self, x: torch.Tensor, caches: List, t, mrope_positions: Optional[torch.Tensor] = None):
         """One decode step through every layer; returns (x, new caches)."""
         new = []
         for block, cache in zip(self, caches, strict=True):
-            x, cache = block.decode(x, cache, t)
+            x, cache = block.decode(x, cache, t, mrope_positions)
             new.append(cache)
         return x, new
 

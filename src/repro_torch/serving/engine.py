@@ -21,6 +21,14 @@ Port of ``repro/serving/engine.py``, the serving core under
   over them.  Done, EOS and lengths stay tensors: the loop reads nothing
   from the device, so the host syncs once per :meth:`Engine.decode`.
 
+The engine prefills token prompts, as the reference's (``{"tokens":
+prompts}``): a vision config is served as text, with standard RoPE (and its
+int8 KV cache); an audio config, whose prompts are frame embeddings, is
+refused with a ``ValueError`` (:func:`require_token_prompts`; the
+reference's fails on the missing ``frame_embeds``).  An audio model is
+served by its own ``prefill`` → ``prepare_decode_caches`` →
+``decode_step(embeds=...)`` loop.
+
 The reference freezes a finished row by the shape of each cache leaf; the
 port's caches are per layer with the batch at axis 0, so it freezes by cache
 type: a KV cache is written in place at one slot per row, and the step
@@ -46,7 +54,7 @@ from repro_torch.models.layers.ssm import SSMCache
 from repro_torch.models.layers.xlstm import MLSTMCache, SLSTMCache
 from repro_torch.serving.sampling import sample
 
-__all__ = ["ServeConfig", "Engine", "DecodeState", "PrefillResult"]
+__all__ = ["ServeConfig", "Engine", "DecodeState", "PrefillResult", "require_token_prompts"]
 
 #: Per-slot recurrent states: every field has the batch at axis 0.
 RECURRENT_STATES = (SSMCache, MLSTMCache, SLSTMCache)
@@ -80,6 +88,16 @@ class DecodeState(NamedTuple):
     lengths: torch.Tensor  # (B,) int64 — per-slot next write position
     done: torch.Tensor     # (B,) bool — finished (or never-filled) slots
     generator: torch.Generator  # the sampling stream
+
+
+def require_token_prompts(cfg) -> None:
+    """Raise ``ValueError`` for a config whose prompts are not token ids."""
+    if cfg.frontend == "audio":
+        raise ValueError(
+            f"{cfg.name}: the serving engine prefills token prompts, and an audio model takes frame "
+            "embeddings; drive DecoderLM.prefill(frame_embeds=...), prepare_decode_caches and "
+            "decode_step(embeds=...) instead"
+        )
 
 
 def _rows_mask(done: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -132,6 +150,7 @@ class Engine:
         """Run one request's prompt (B, S) → :class:`PrefillResult` whose
         caches are laid out for a ``max_len``-slot decode state."""
         faults.maybe_fail("serve.prefill", max_len=max_len)
+        require_token_prompts(self.cfg)
         prompts = torch.as_tensor(prompts, dtype=torch.long, device=self.model.device)
         b, s = prompts.shape
         logits, caches = self.model.prefill(prompts)

@@ -58,7 +58,11 @@ def make_train_step(cfg, train_cfg):
     def single_grads(model, batch):
         names, params = zip(*model.named_parameters())
         loss, metrics = model_lib.loss_fn(model, batch, train_cfg)
-        grads = torch.autograd.grad(loss, params)
+        # A parameter the loss does not reach (an audio model's embedding
+        # table: frame embeddings replace the lookup) gets a zero gradient,
+        # as the reference's does.
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
 
     def accumulated_grads(model, batch):

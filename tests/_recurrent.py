@@ -1,5 +1,7 @@
 """Helpers shared by the recurrent-block tests (``test_torch_ssm.py``,
-``test_torch_xlstm.py``): the same configuration as the reference's and as
+``test_torch_xlstm.py``) and the frontend tests (``test_torch_frontends.py``,
+whose batches ``check_training`` takes through ``batch_of``): the same
+configuration as the reference's and as
 the port's, the reference's parameters loaded into the port, and the
 whole-model checks (logits, prefill and decode, loss, gradients and one
 AdamW step) at float32 compute.  Every tolerance is relative to max|ref|.
@@ -96,7 +98,8 @@ def check_model(ref_cfg, params, model, b, s, sp):
         assert rel(got, full[:, t].numpy()) <= DECODE_TOL, t
 
 
-def _batch(cfg, step, b, s):
+def token_batch(cfg, step, b, s):
+    """``make_batch``'s tokens, targets and loss mask (numpy)."""
     return ref_pipeline.make_batch(ref_pipeline.DataConfig(cfg.vocab_size, s, b), step)
 
 
@@ -133,10 +136,11 @@ def port_grads(model, batch):
     return loss, metrics, dict(zip(names, torch.autograd.grad(loss, ps)))
 
 
-def check_training(ref_cfg, cfg, b=3, s=16):
+def check_training(ref_cfg, cfg, b=3, s=16, batch_of=token_batch):
     """Two AdamW steps of the reference's jitted ``make_train_step`` from
-    its ``init_train_state``; the port takes each from the reference's
-    state before it (``load_reference_train_state``).  Per step: the
+    its ``init_train_state``, on ``batch_of(cfg, step, b, s)`` (numpy); the
+    port takes each from the reference's state before it
+    (``load_reference_train_state``).  Per step: the
     metrics (loss, ce, aux, tokens, the gradient's norm, lr) within 1e-5;
     m and v within LOGITS_TOL — m is (1 − b1)·g + b1·m_before, so this holds
     every clipped gradient against the reference's ``jax.grad``; each Δp
@@ -149,7 +153,7 @@ def check_training(ref_cfg, cfg, b=3, s=16):
     step = jax.jit(ref_loop.make_train_step(ref_cfg, tc))
     states, ref_metrics = [np_tree(ref_loop.init_train_state(jax.random.PRNGKey(0), ref_cfg, tc))], []
     for i in range(2):
-        batch = {k: jnp.asarray(v) for k, v in _batch(ref_cfg, i, b, s).items()}
+        batch = {k: jnp.asarray(v) for k, v in batch_of(ref_cfg, i, b, s).items()}
         st, m = step(jax.tree.map(jnp.asarray, states[-1]), batch)
         states.append(np_tree(st))
         ref_metrics.append(np_tree(m))
@@ -159,7 +163,7 @@ def check_training(ref_cfg, cfg, b=3, s=16):
         before, after = states[i], states[i + 1]
         st = train_loop.init_train_state(cfg, port_tc, device="cpu", generator=torch.Generator().manual_seed(1))
         st = load_reference_train_state(st, before)
-        st, metrics = port_step(st, {k: np.asarray(v) for k, v in _batch(cfg, i, b, s).items()})
+        st, metrics = port_step(st, {k: np.asarray(v) for k, v in batch_of(cfg, i, b, s).items()})
         assert set(metrics) == set(ref_metrics[i])
         for k, v in ref_metrics[i].items():
             assert rel(torch.as_tensor(metrics[k]), v) <= 1e-5, (i, k)

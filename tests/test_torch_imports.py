@@ -30,6 +30,7 @@ import repro_torch.train.schedule, repro_torch.train.optimizer, repro_torch.trai
 import repro_torch.train.train_loop
 import repro_torch.models.layers.moe, repro_torch.models.layers.ssm, repro_torch.models.layers.xlstm
 import repro_torch.configs.zamba2_2p7b, repro_torch.configs.xlstm_125m
+import repro_torch.configs.musicgen_large, repro_torch.configs.qwen2_vl_72b
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")

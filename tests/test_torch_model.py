@@ -94,12 +94,12 @@ def test_config_and_reduction_copy_the_reference(spectral):
 
 
 PORTED = ["arctic-480b", "deepseek-moe-16b", "gemma3-12b", "h2o-danube-1.8b", "yi-6b", "phi4-mini-3.8b",
-          "zamba2-2.7b", "xlstm-125m"]
+          "zamba2-2.7b", "xlstm-125m", "musicgen-large", "qwen2-vl-72b"]
 
 
 @pytest.mark.parametrize("arch", sorted(set(ref_base.list_archs()) - set(PORTED)))
 def test_unported_archs_name_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1" if arch == "fftbench" else "ROADMAP.md A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
         base.get_config(arch)
 
 
@@ -326,10 +326,35 @@ def test_attention_decode_past_the_cache_clamps_to_the_last_slot():
     assert cache.k[0, :3].abs().max() == 0 and cache.k[0, 3].abs().max() > 0
 
 
-def test_attention_refuses_mrope():
-    _, cfg = _cfgs(rope_kind="mrope", mrope_sections=(4, 2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        attention.Attention(cfg, device="cpu")
+@pytest.mark.parametrize("s", [20, 72])
+def test_attention_refuses_mrope(s):
+    """``rope_kind="mrope"``: with (B, 3, S) ids, forward (full, and chunked
+    above 64) and decode at ids apart from the KV slot match the
+    reference's; without ids it rotates by ``positions`` as the reference;
+    sections that do not fill head_dim / 2 are refused."""
+    ref_cfg, params, layer = _attn_pair(rope_kind="mrope", mrope_sections=(4, 2, 2))
+    x = _x((2, s, 64), seed=s)
+    pos = np.broadcast_to(np.arange(s), (2, s))
+    ids = np.stack([np.zeros(s, np.int64), np.arange(s) // 3, np.arange(s) % 5])[None].repeat(2, 0)
+    for mp in (ids, None):
+        ref = ref_attn.attn_forward(params, jnp.asarray(x), cfg=ref_cfg, positions=jnp.asarray(pos),
+                                    mrope_positions=None if mp is None else jnp.asarray(mp))
+        with torch.no_grad():
+            got = layer(_t(x), torch.from_numpy(pos.copy()),
+                        mrope_positions=None if mp is None else torch.from_numpy(mp))
+        assert _rel(got, ref) <= TOL
+    rc = ref_attn.init_kv_cache(ref_cfg, 2, 8, dtype=jnp.float32)
+    cache = attention.init_kv_cache(layer.cfg, 2, 8, dtype=torch.float32, device="cpu")
+    for t in range(4):
+        mp = ids[:, :, t + 7:t + 8]
+        yr, rc = ref_attn.attn_decode(params, jnp.asarray(x[:, t:t + 1]), rc, jnp.asarray(t, jnp.int32), cfg=ref_cfg,
+                                      mrope_positions=jnp.asarray(mp))
+        with torch.no_grad():
+            y, cache = layer.decode(_t(x[:, t:t + 1]), cache, t, torch.from_numpy(mp))
+        assert _rel(y, yr) <= TOL, t
+    layer.cfg = dataclasses.replace(layer.cfg, mrope_sections=(4, 2, 1))
+    with pytest.raises(ValueError, match="sections"):
+        layer(_t(x), torch.from_numpy(pos.copy()), mrope_positions=torch.from_numpy(ids))
 
 
 # ---------------------------------------------------------------------------
@@ -703,5 +728,3 @@ def test_model_without_a_device_needs_the_card(monkeypatch):
     _, cfg = _cfgs(True)
     with pytest.raises(faults.PlanError, match="no CUDA device"):
         DecoderLM(cfg)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        DecoderLM(dataclasses.replace(cfg, frontend="audio"), device="cpu")
