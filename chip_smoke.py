@@ -155,21 +155,45 @@ package), in phases, and fails on the first check that does not hold:
    logits; the engine then serves text prompts (standard RoPE, int8) at 4
    slots with a late insert, timed; no FFT launch, no plan
    ("serve_frontend" lines).  Then each distinct kernel call against its
-   plain version, as phase 7.
+   plain version, as phase 7;
+14. the distributed pencil FFT (``repro_torch.core.distributed``) — (a) one
+   rank over NCCL in this process at fftbench's sizes: ``pfft`` /
+   ``pifft`` natural and in pencil layout at 2^24 × 32 (pod_16m; the plan
+   collapses to the local program, 0 collectives) and ``pfft2d`` at
+   4096 × 8192 × 32 (sar_4kx8k); (b) four spawned ranks on this one card
+   over gloo (whose all-to-all stages CUDA tensors through the host: its
+   times are the host's wire, not NVLink): the four calls at 2^20 × 64
+   (pod_1m) and 2^24 × 4, K = 2 and 4 at 2^20 × 64, ``pack=False`` at
+   2^20 × 8, ``pfft2d`` at 4096 × 8192 × 4, ``pconv_os_sharded`` at
+   (32, 2^19) ⊛ 4097 taps (conv_512k) with the modelled block, and
+   Parseval's gradient 2n·x at 2^20 × 2.  Every rank builds the global
+   input from the seed and holds its shard against ``torch.fft`` in
+   complex128 of it, sliced, at 5e-5·max|ref| (the conv in float64 at
+   1e-4), round trips and the gradient at 5e-5; each call launches
+   exactly its local plans' kernels and ``PencilPlan.a2a_count``
+   collectives; no plain version runs; a rank that fails or hangs fails
+   the phase.  Lines: ``pencil`` per case and rank (errors, collectives,
+   ms per call, the local stages' ms alone by CUDA events, one packed
+   all-to-all of the slab, ``pencil_report``'s local bytes over 3.35 TB/s
+   as the local bound, peak memory, the card's name and power limit),
+   ``pencil_rank`` (launches, collectives, peak), and each rank's distinct
+   kernel calls against their plain versions ("kernel_check" lines; (a)'s
+   in this process).
 
-Phases 2–8 and 10–13 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8 and 10–14 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11, 12 and 13 each set the launch counts to 0
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14 each set the launch counts to 0
 before they start and read them when they end; every kernel of a path must
 have launched in it (phase 12's path has none, and must launch none).  Phases
 3–7 and 9 also run every one of their calls over a batch of 0: the output
 must have np.fft's shape, and the call launches nothing (0 launches, not
 ``len(plan.passes)``).  The script then prints the per-kernel JSON line
 (each kernel's launches per path, ``hybrid_launches`` phase 12's,
-``frontend_launches`` phase 13's), the
+``frontend_launches`` phase 13's, ``distributed_launches`` phase 14's, its
+four ranks' included), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -178,24 +202,32 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import inspect
 import json
 import math
+import multiprocessing
 import os
+import queue
 import re
+import socket
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.analysis import roofline as rl  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core import conv, overlap, tuning  # noqa: E402
+from repro_torch.core import conv, fft_torch, overlap, tuning, twiddle  # noqa: E402
+from repro_torch.core import distributed as D  # noqa: E402
 from repro_torch.core import fft as F  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.limits import next_pow2  # noqa: E402
@@ -267,8 +299,9 @@ ATTRS: dict = {}
 #: phase 5 (real and 2-D), phase 6 (any length), phase 7 (convolution),
 #: phase 8 (serving), phase 9 (the tuner), phase 10 (gradients and
 #: training), phase 11 (the MoE model served), phase 12 (the recurrent
-#: LMs served, which launch none) and phase 13 (the frontends served: the
-#: spectral musicgen-large's layers).
+#: LMs served, which launch none), phase 13 (the frontends served: the
+#: spectral musicgen-large's layers) and phase 14 (the distributed pencil
+#: FFT: its local plans, the 2-D plan's halves, the sharded conv's blocks).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -285,7 +318,21 @@ PATH_KERNELS = {
     "moe": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "hybrid": (),
     "frontend": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
+    "distributed": ("fft4step", "cols_pass", "rows_natural"),
 }
+
+#: The kernels phase 14's four ranks must launch between them: the column
+#: and row leaves of 2^20 (1024-point: cols_pass, dft_matmul) and 2^24
+#: (4096-point: fft4step), the 2-D halves, the sharded conv's rfft / irfft.
+PENCIL_RANK_KERNELS = ("dft_matmul", "fft4step", "cols_pass", "rfft_recomb", "irfft_recomb")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 class SmokeFailure(Exception):
@@ -1456,10 +1503,13 @@ def path_kernel_rows(path: str, seen: dict, launches: dict, gen, timed: bool = T
 
 def path_launches(name: str, phase, gen) -> dict:
     """Drive one path with the counts at 0; every kernel of the path must
-    launch in it and no plain version may run."""
+    launch in it and no plain version may run.  A phase that runs work in
+    other processes returns their counts, which are added."""
     kernels.reset_counts()
-    phase(gen)
+    others = phase(gen) or {}
     launches = kernels.counts()
+    for key, count in others.items():
+        launches[key] = launches.get(key, 0) + count
     for kernel in PATH_KERNELS[name]:
         check(launches[kernel] > 0, f"{kernel} was not launched on the {name} path")
     for key, count in launches.items():
@@ -3061,16 +3111,445 @@ def frontend_phase(gen) -> None:
     vision_case(gen)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the distributed pencil FFT
+# ---------------------------------------------------------------------------
+
+#: A rank's shard vs torch.fft in complex128 of the global input, sliced,
+#: relative to max|ref|: the reference's distributed tolerance.  Round trips
+#: and Parseval's gradient are held to it too, relative to max|x|.
+PENCIL_TOL = 5e-5
+CONV_SHARDED_TOL = 1e-4  # pconv_os_sharded vs torch.fft in float64 (the reference's pconv test)
+PENCIL_WORLD = 4
+#: Seconds: the four ranks' whole run (a hung rank is killed and fails the
+#: phase), and each collective of a group.
+PENCIL_TIMEOUT = 300
+GROUP_TIMEOUT = 120
+
+#: (a) one rank over NCCL in this process, at fftbench's own sizes: pod_16m
+#: (2^24 × 32, 4 GiB of planes) and sar_4kx8k (4096 × 8192 × 32).
+POD_16M = (1 << 24, 32)
+SAR_SCENE = (4096, 8192, 32)
+#: (b) four ranks on the one card over gloo, whose wire is the host's: the
+#: full lengths, batches cut where listed.
+POD_1M = (1 << 20, 64)  # pod_1m whole
+POD_16M_CUT = (1 << 24, 4)  # pod_16m's batch 32 → 4
+UNPACKED = (1 << 20, 8)  # pod_1m's batch 64 → 8
+SAR_CUT = (4096, 8192, 4)  # sar_4kx8k's batch 32 → 4
+CONV_512K = (32, 1 << 19, 4097)  # conv_512k: (32, 2^19) ⊛ 4097 taps, whole
+GRAD_CUT = (1 << 20, 2)  # pod_1m's batch 64 → 2
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pencil_launches(pl, natural: bool) -> dict:
+    """Kernel → launches of one call of pencil plan ``pl``: the local plan
+    (one rank in natural order), else the column plan once per chunk and
+    the row plan once."""
+    if pl.d <= 1 and natural:
+        return launches_per_call(pl.local_plan)
+    expect = launches_per_call(pl.plan_n1, pl.a2a_chunks if pl.d > 1 else 1)
+    for k, c in launches_per_call(pl.plan_n2).items():
+        expect[k] = expect.get(k, 0) + c
+    return expect
+
+
+def pencil_perm(X, n1: int, n2: int):
+    """The natural spectrum in pencil layout: [k1, k2] holds X[k1 + n1·k2]."""
+    return X.reshape(*X.shape[:-1], n2, n1).transpose(-1, -2).reshape(X.shape)
+
+
+def chunked_err(got, x, ref_fn, pick, rows: int = 4) -> float:
+    """max|Δ| / max|ref| of the planes ``got`` against ``pick(ref_fn(x))``
+    (x the global planes in complex128, ``pick`` this rank's slice), over
+    the leading axis in chunks of ``rows``."""
+    err = scale = 0.0
+    for i in range(0, x[0].shape[0], rows):
+        want = pick(ref_fn(torch.complex(x[0][i:i + rows].double(), x[1][i:i + rows].double())))
+        g = torch.complex(got[0][i:i + rows].double(), got[1][i:i + rows].double())
+        err = max(err, (g - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+        del want, g
+    return err / scale
+
+
+def planes_err(got, want) -> float:
+    """max|Δ| / max|want| over split planes."""
+    err, scale = max_err(got, want)
+    return err / scale
+
+
+def wall_ms(fn, reps: int = 2) -> float:
+    """Median host-clock ms of ``fn`` ending in a device synchronisation,
+    the ranks lined up by a barrier first (a gloo collective waits on the
+    host, so CUDA events would not see it)."""
+    times = []
+    for _ in range(reps):
+        if dist.get_world_size() > 1:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+class PencilRun:
+    """Phase 14's cases on one rank: each call held to its launches and
+    collectives, its error, its peak device memory beyond its inputs, its
+    ms per call, the ms of its local stages alone (CUDA events) and its
+    local bound; ``records`` collects them."""
+
+    def __init__(self, rank: int, world: int, smi: str):
+        self.rank, self.world, self.smi = rank, world, smi
+        self.records = []
+        self.peak = 0  # the rank's peak allocated bytes over its calls
+
+    def shard(self, t, axis: int = -1):
+        """This rank's block of ``t`` along ``axis`` (one rank: ``t`` itself)."""
+        if self.world == 1:
+            return t
+        n = t.shape[axis] // self.world
+        return t.narrow(axis, self.rank * n, n).contiguous()
+
+    def call(self, label: str, run, expect: dict, a2a: int, gather: int = 0):
+        """One call held to exactly ``expect`` kernel launches, ``a2a``
+        all-to-alls and ``gather`` all-gathers; returns its output and peak."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before, coll = kernels.counts(), D.counts()
+        y = run()
+        torch.cuda.synchronize()
+        tag = f"phase 14 {label} rank {self.rank}"
+        check_launches(tag, before, kernels.counts(), expect)
+        got = D.counts()
+        moved = (got["all_to_all"] - coll["all_to_all"], got["all_gather"] - coll["all_gather"])
+        check(moved == (a2a, gather), f"{tag}: collectives (all_to_all, all_gather) {moved}, "
+                                      f"expected {(a2a, gather)}")
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        return y, torch.cuda.max_memory_allocated() - base
+
+    def record(self, label: str, n: int, batch: int, run, errs: dict, peak: int, local, bound_bytes: float,
+               a2a: int, slab=None, **extra) -> None:
+        """Time the case (ms per call; the local stages alone; one packed
+        all-to-all of the rank's slab) and keep its line."""
+        call_ms = wall_ms(run) if self.world > 1 else time_ms(run, reps=3, warmup=0)
+        local_ms = time_ms(local, reps=3, warmup=1)
+        a2a_ms = None
+        if slab is not None and self.world > 1:
+            z = torch.zeros(slab, device="cuda")
+            a2a_ms = wall_ms(lambda: D._a2a(z, None, -1, -2)())
+            del z
+        for name, err in errs.items():
+            check(err <= (CONV_SHARDED_TOL if name == "conv" else PENCIL_TOL),
+                  f"phase 14 {label} rank {self.rank}: {name} error {err:.3e}")
+        self.records.append({
+            "case": label, "world": self.world, "rank": self.rank, "n": n, "batch": batch, **errs,
+            "collectives": a2a, "ms": call_ms, "local_ms": local_ms, "a2a_one_ms": a2a_ms,
+            "local_bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3, "peak_bytes": peak, "card": self.smi,
+            **extra,
+        })
+
+
+def pencil_local(pl, b: int, natural: bool, gen):
+    """The local stages of one call of ``pl`` on fresh planes of its shapes,
+    with no collective: the column transform per chunk with its twiddle
+    window, then the row transform (one rank in natural order: the local
+    plan)."""
+    if pl.d <= 1 and natural:
+        x = planes(gen, b, pl.n)
+        return lambda: pl.local_plan.apply_planes(*x)
+    qk = pl.q // pl.a2a_chunks if pl.d > 1 else pl.n2
+    cols = planes(gen, b, pl.n1, qk)
+    rows = planes(gen, b, pl.p, pl.n2)
+
+    def run():
+        for c in range(pl.a2a_chunks if pl.d > 1 else 1):
+            yr, yi = pl.plan_n1.apply_planes(*cols)
+            fft_torch.cmul(yr, yi, *twiddle.twiddle_window(pl.n1, pl.n2, pl.inverse, col_start=c * qk,
+                                                           col_count=qk, device="cuda"))
+        pl.plan_n2.apply_planes(*rows)
+    return run
+
+
+def pencil_1d(run_: PencilRun, gen, n: int, b: int, *, chunks=None, pack=None, cases=("nat", "pen")) -> None:
+    """pfft natural and pencil and their inverses on this rank's shard of a
+    seeded global (b, n) signal, each against torch.fft in complex128."""
+    d, lo = run_.world, run_.rank * (n // run_.world)
+    hi = lo + n // d
+    x = planes(gen, b, n)  # the same global signal on every rank
+    mine = (run_.shard(x[0]), run_.shard(x[1]))
+    kw = dict(chunks=chunks, pack=pack, tune="off")
+    tag = f"n={n} B={b}" + (f" K={chunks}" if chunks else "") + (" unpacked" if pack is False else "")
+    for case in cases:
+        natural = case == "nat"
+        fwd = D.plan_pencil(n, d, natural_order=natural, **kw)
+        inv = D.plan_pencil(n, d, inverse=True, natural_order=natural, **kw)
+        y, peak = run_.call(f"pfft {case} {tag}", lambda: D.pfft(*mine, pplan=fwd, natural_order=natural),
+                            pencil_launches(fwd, natural), fwd.a2a_count(natural))
+        if natural:
+            pick = (lambda X: X[..., lo:hi])
+        else:
+            pick = (lambda X: pencil_perm(X, fwd.n1, fwd.n2)[..., lo:hi])
+        err = chunked_err(y, x, torch.fft.fft, pick)
+        rep = rl.pencil_report(n, d, b, n1=fwd.n1, n2=fwd.n2, pack=fwd.pack, chunks=fwd.a2a_chunks,
+                               natural_order=natural)
+        slab = (2, b, fwd.p, fwd.n2)
+        run_.record(f"pfft {case} {tag}", n, b, lambda: D.pfft(*mine, pplan=fwd, natural_order=natural),
+                    {"rel_err": err}, peak, pencil_local(fwd, b, natural, gen), rep["local_hbm_bytes"],
+                    fwd.a2a_count(natural), slab, factors=[fwd.n1, fwd.n2], K=fwd.a2a_chunks, pack=fwd.pack)
+        z, zpeak = run_.call(f"pifft {case} {tag}", lambda: D.pifft(*y, pplan=inv, from_pencil=not natural),
+                             pencil_launches(inv, natural), inv.a2a_count(natural))
+        rt = planes_err(z, mine)
+        run_.record(f"pifft {case} {tag}", n, b, lambda: D.pifft(*y, pplan=inv, from_pencil=not natural),
+                    {"roundtrip_rel_err": rt}, zpeak, pencil_local(inv, b, natural, gen),
+                    rep["local_hbm_bytes"], inv.a2a_count(natural), slab)
+        del y, z
+    del x, mine
+    torch.cuda.empty_cache()
+
+
+def pencil_2d(run_: PencilRun, gen, n1: int, n2: int, b: int) -> None:
+    """pfft2d on this rank's rows of a seeded global (b, n1, n2) image
+    against torch.fft.fft2 in complex128."""
+    x = planes(gen, b, n1, n2)
+    mine = (run_.shard(x[0], -2), run_.shard(x[1], -2))
+    p = n1 // run_.world
+    joint = F.plan(F.FFTSpec(n2, kind="fft2", n2=n1))
+    a2a = 2 if run_.world > 1 else 0
+    label = f"pfft2d {n1}x{n2} B={b}"
+    y, peak = run_.call(label, lambda: D.pfft2d(*mine, n1=n1, n2=n2), launches_per_call(joint), a2a)
+    err = chunked_err(y, x, torch.fft.fft2, lambda X: X[..., run_.rank * p:(run_.rank + 1) * p, :], rows=1)
+    del x, y
+    torch.cuda.empty_cache()
+    # The local stages alone: the rows on this rank's slab, the columns on
+    # its (n1, n2 / d) slab (one rank: the same planes).
+    cols = mine if run_.world == 1 else planes(gen, b, n1, n2 // run_.world)
+    bound = rl.fft_pass_report(n2, b, n2=n1)["modeled_hbm_bytes"] / run_.world
+    run_.record(label, n2, b, lambda: D.pfft2d(*mine, n1=n1, n2=n2), {"rel_err": err}, peak,
+                lambda: (joint.apply_rows(*mine), joint.apply_cols(*cols)), bound, a2a, (2, b, p, n2), n1=n1)
+    del mine, cols
+    torch.cuda.empty_cache()
+
+
+def pencil_world1(gen, smi: str) -> list:
+    """Phase 14 (a): one rank over NCCL in this process at fftbench's
+    sizes; the plans collapse to the local program with 0 collectives."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        run_ = PencilRun(0, 1, smi)
+        pencil_1d(run_, gen, *POD_16M)
+        pencil_2d(run_, gen, *SAR_SCENE)
+    finally:
+        dist.destroy_process_group()
+    return run_.records
+
+
+def pencil_rank_cases(rank: int, world: int, port: int, smi: str) -> dict:
+    """Phase 14 (b) on one rank: its cases, its launches and collectives,
+    and each distinct kernel call it made against its plain version (its
+    "kernel_check" lines, printed from this process)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        probe = torch.arange(world, dtype=torch.float32, device="cuda")
+        try:
+            dist.all_to_all_single(torch.empty_like(probe), probe)
+        except RuntimeError as err:  # this build's gloo takes no CUDA tensor
+            return {"refused": f"{type(err).__name__}: {err}"}
+        gen = torch.Generator(device="cuda").manual_seed(14)  # the same global inputs on every rank
+        run_ = PencilRun(rank, world, smi)
+        with recorded_calls() as seen:
+            kernels.reset_counts()
+            D.reset_counts()
+            pencil_1d(run_, gen, *POD_1M)
+            pencil_1d(run_, gen, *POD_16M_CUT)
+            for k in (2, 4):
+                pencil_1d(run_, gen, *POD_1M, chunks=k, cases=("nat",))
+            pencil_1d(run_, gen, *UNPACKED, pack=False, cases=("nat",))
+            pencil_2d(run_, gen, *SAR_CUT)
+            pencil_conv(run_, gen)
+            pencil_grad(run_, gen)
+            launches, collectives = kernels.counts(), D.counts()
+        # Each distinct kernel call of this rank against its plain version
+        # ("kernel_check ... distributed rank r path #i" lines).
+        path_kernel_rows(f"distributed rank {rank}", seen, launches, gen, timed=False)
+        return {"records": run_.records, "launches": launches, "collectives": collectives,
+                "peak_bytes": run_.peak}
+    finally:
+        dist.destroy_process_group()
+
+
+def pencil_conv(run_: PencilRun, gen) -> None:
+    """pconv_os_sharded at conv_512k with the modelled block, against the
+    same causal convolution through torch.fft in float64."""
+    b, L, taps = CONV_512K
+    x = torch.randn(b, L, device="cuda", generator=gen)
+    h = torch.randn(taps, device="cuda", generator=gen) / math.sqrt(taps)
+    block = tuning.modeled_block(L, taps, b, "cuda")
+    expect = plans_launches(rplans(block, calls=(2, 1)))
+    y, peak = run_.call(f"pconv_os_sharded ({b}, {L}) * {taps} block={block}",
+                        lambda: D.pconv_os_sharded(x, h, tune="model"), expect, 0, 1 if run_.world > 1 else 0)
+    check(tuple(y.shape) == (b, L), f"phase 14 pconv_os_sharded: output {tuple(y.shape)}")
+    ref = lib_conv(x.double(), h.double(), next_pow2(L + taps - 1), L)
+    err = full_err(y, ref)
+    del ref
+    step = block - (taps - 1)
+    blocks = -(-L // step)
+    nb = -(-blocks // run_.world) * run_.world  # pconv_os_sharded's padded block count
+    frames = overlap.frame_signal(x, block, step, nb)[..., : nb // run_.world, :]
+    Hr, Hi = overlap.filter_spectrum(h, block)
+    bound = rl.conv_report(L, taps, b, block=block)["overlap_save"]["hbm_bytes"] / run_.world
+    run_.record(f"pconv_os_sharded ({b}, {L}) * {taps} block={block}", L, b,
+                lambda: D.pconv_os_sharded(x, h, tune="model"), {"conv": err}, peak,
+                lambda: overlap.conv_frames(frames, Hr, Hi, overlap=taps - 1), bound,
+                1 if run_.world > 1 else 0, None, block=block, all_gather=run_.world > 1)
+    del x, y, frames
+    torch.cuda.empty_cache()
+
+
+def pencil_grad(run_: PencilRun, gen) -> None:
+    """Parseval through the pencil schedule: d/dx Σ|FFT(x)|² = 2n·x, the
+    backward running each local plan the other way and each all-to-all in
+    reverse."""
+    n, b = GRAD_CUT
+    x = run_.shard(torch.randn(b, n, device="cuda", generator=gen)).requires_grad_()
+    pl = D.plan_pencil(n, run_.world, tune="off")
+    fwd = pencil_launches(pl, True)
+
+    def run():
+        yr, yi = D.pfft(x, torch.zeros_like(x), pplan=pl)
+        (yr.square().sum() + yi.square().sum()).backward()
+        return x.grad
+
+    g, peak = run_.call(f"grad pfft n={n} B={b}", run, {k: 2 * v for k, v in fwd.items()},
+                        2 * pl.a2a_count(True))
+    want = 2 * n * x.detach()
+    err = ((g - want).abs().max() / want.abs().max()).item()
+    x.grad = None
+    rep = rl.pencil_report(n, run_.world, b, n1=pl.n1, n2=pl.n2)
+    run_.record(f"grad pfft n={n} B={b}", n, b, run, {"grad_rel_err": err}, peak,
+                pencil_local(pl, b, True, gen), 2 * rep["local_hbm_bytes"], 2 * pl.a2a_count(True))
+    x.grad = None
+
+
+def pencil_rank(rank: int, world: int, port: int, smi: str, results) -> None:
+    """Entry of one spawned rank: its result, or its failure, on ``results``."""
+    try:
+        results.put((rank, pencil_rank_cases(rank, world, port, smi)))
+    except Exception as err:  # the parent fails the phase with this rank's traceback
+        results.put((rank, {"error": f"{type(err).__name__}: {err}", "trace": traceback.format_exc()}))
+
+
+def pencil_ranks(smi: str) -> dict:
+    """Phase 14 (b): four spawned ranks on this card over gloo; returns each
+    rank's result.  A rank that fails fails the phase; one that hangs is
+    killed at :data:`PENCIL_TIMEOUT`."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=pencil_rank, args=(r, PENCIL_WORLD, port, smi, results), daemon=True)
+             for r in range(PENCIL_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + PENCIL_TIMEOUT
+    try:
+        while len(got) < PENCIL_WORLD:
+            try:
+                rank, res = results.get(timeout=5)
+                got[rank] = res
+                continue
+            except queue.Empty:
+                pass
+            dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
+            check(not dead, f"phase 14: ranks {dead} exited ({[procs[r].exitcode for r in dead]}) with no result")
+            check(time.monotonic() < deadline,
+                  f"phase 14: ranks {sorted(set(range(PENCIL_WORLD)) - set(got))} hung past {PENCIL_TIMEOUT} s")
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got
+
+
+def pencil_phase(gen) -> dict:
+    """Phase 14: (a) one rank over NCCL in this process at fftbench's sizes,
+    then (b) four ranks on this card over gloo; returns the ranks' kernel
+    launches (this process counts its own)."""
+    smi = card_line()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for rec in pencil_world1(gen, smi):
+        print("pencil " + json.dumps(rec), flush=True)
+    print(f"phase 14 (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = pencil_ranks(smi)
+    for r in sorted(ranks):
+        check("error" not in ranks[r], f"phase 14 rank {r} failed: {ranks[r].get('error')}\n{ranks[r].get('trace')}")
+    refused = [ranks[r]["refused"] for r in sorted(ranks) if "refused" in ranks[r]]
+    if refused:
+        check(len(refused) == PENCIL_WORLD, f"phase 14: gloo refused CUDA tensors on some ranks only: {refused}")
+        print("pencil_gloo_refused " + json.dumps({"error": refused[0], "card": smi}), flush=True)
+        return {}
+    launches = {}
+    for r in sorted(ranks):
+        res = ranks[r]
+        for rec in res["records"]:
+            print("pencil " + json.dumps(rec), flush=True)
+        print("pencil_rank " + json.dumps({"rank": r, "launches": res["launches"],
+                                           "collectives": res["collectives"], "peak_bytes": res["peak_bytes"]}),
+              flush=True)
+        for key, count in res["launches"].items():
+            launches[key] = launches.get(key, 0) + count
+    for kernel in PENCIL_RANK_KERNELS:
+        check(launches.get(kernel, 0) > 0, f"phase 14: the ranks launched no {kernel}")
+    same = [ranks[r]["launches"] == ranks[0]["launches"] for r in sorted(ranks)]
+    check(all(same), f"phase 14: the ranks launched different kernels: {[ranks[r]['launches'] for r in ranks]}")
+    print(f"phase 14 (b): {time.perf_counter() - t0:.1f} s (gloo: the host's wire, not NVLink)", flush=True)
+    return launches
+
+
+def distributed_path(gen) -> dict:
+    """Phase 14 as one path: the counts at 0, :func:`pencil_phase`, every
+    kernel of the path launched and no plain version; then each distinct
+    kernel call this process made against its plain version, untimed
+    (each rank held its own).  Returns the launches, the ranks' included."""
+    t0 = time.perf_counter()
+    ranks_launches = {}
+
+    def phase(g):
+        ranks_launches.update(pencil_phase(g))
+        return ranks_launches
+
+    with tune_env("off"), recorded_calls() as seen:
+        launches = path_launches("distributed", phase, gen)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s, {len(seen)} distinct kernel calls here", flush=True)
+    own = {k: v - ranks_launches.get(k, 0) for k, v in launches.items()}
+    path_kernel_rows("distributed", seen, own, gen, timed=False)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -3131,8 +3610,10 @@ def main() -> int:
         print(f"phase 13: {time.perf_counter() - t13:.1f} s, {len(seen)} distinct kernel calls", flush=True)
         path_kernel_rows("frontend", seen, frontend, gen)
         torch.cuda.empty_cache()
+        distributed = distributed_path(gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
-                    + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name] for name in SOURCES}
+                    + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name]
+                    + distributed[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -3144,6 +3625,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
             "hybrid_launches": hybrid[name], "frontend_launches": frontend[name],
+            "distributed_launches": distributed[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

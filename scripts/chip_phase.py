@@ -5,11 +5,15 @@ plain version, "kernel ... moe path #i" lines), phase 12 (zamba2-2.7b and
 xlstm-125m at full width, the ``serve_recurrent`` lines; no kernel
 launches) or phase 13 (musicgen-large with spectral mixing and plain,
 qwen2-vl-72b at 8 of 80 layers, the ``serve_frontend`` lines, then
-"kernel ... frontend path #i" lines).
+"kernel ... frontend path #i" lines) or phase 14 (the distributed pencil
+FFT: one rank over NCCL at fftbench's sizes, then four spawned ranks on the
+card over gloo, the ``pencil`` lines, then "kernel_check ... distributed"
+lines).
 
     python3 scripts/chip_phase.py 11
     python3 scripts/chip_phase.py 12
     python3 scripts/chip_phase.py 13
+    python3 scripts/chip_phase.py 14
 
 A quicker loop than the whole smoke run while a serving path changes; the
 smoke run stays the proof.  Exits 1 on the first failed check.
@@ -27,7 +31,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 #: Phase → (its path's name in ``chip_smoke.PATH_KERNELS``, the phase).
-PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase), 13: ("frontend", cs.frontend_phase)}
+PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase), 13: ("frontend", cs.frontend_phase),
+          14: ("distributed", None)}
 
 
 def main(argv) -> int:
@@ -51,6 +56,9 @@ def main(argv) -> int:
     path, run = PHASES[phase]
     t0 = time.perf_counter()
     try:
+        if run is None:  # phase 14 drives its own path, ranks and all
+            cs.distributed_path(gen)
+            return 0
         with cs.tune_env("off"), cs.recorded_calls() as seen, torch.no_grad():
             launches = cs.path_launches(path, run, gen)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s, {len(seen)} distinct kernel calls", flush=True)

@@ -13,11 +13,15 @@ port's radix kernels read one (n,) roots table instead, so the account
 overstates what a direct leaf costs on the card (ROADMAP B queues
 re-basing it on the port's kernels).
 
+:func:`pencil_report` models the distributed pencil FFT
+(:mod:`repro_torch.core.distributed`): its all-to-all bytes divide by the
+card's link rate in one direction, its local bytes by the HBM rate.
+
 The other half of the reference module reads XLA HLO (``collective_bytes``,
 ``roofline_terms``, ``model_flops``, ``summarize_cell``: ROADMAP A8) or
-models the distributed and the ``pallas_gpu`` programs (``pencil_report``:
-A7; ``gpu_program_report``, ``gpu_plan_report``, ``xla_gpu_fft_bytes``: the
-port has one backend on the card and no crossover to model).
+models the ``pallas_gpu`` programs (``gpu_program_report``,
+``gpu_plan_report``, ``xla_gpu_fft_bytes``: the port has one backend on the
+card and no crossover to model).
 """
 
 from __future__ import annotations
@@ -29,11 +33,13 @@ from typing import Optional
 __all__ = [
     "HW",
     "H100",
+    "COLLECTIVE_LAUNCH_S",
     "fft_pass_report",
     "bluestein_report",
     "prune_candidates",
     "fft2_fallback_report",
     "conv_report",
+    "pencil_report",
 ]
 
 
@@ -47,16 +53,27 @@ class HW:
     hbm_bytes: float
 
 
+#: Fixed charge per collective call (seconds), the reference's: the wire
+#: bytes are the same whether the split-complex pair rides one stacked
+#: all-to-all or two, so without it the model could never prefer packing.
+#: It separates "fewer collectives" from "the same bytes", not one card
+#: from another.
+COLLECTIVE_LAUNCH_S = 10e-6
+
 #: NVIDIA's data sheet for the H100 SXM at its 700 W power limit (dense
 #: rates): 989 TFLOP/s bf16, 67 TFLOP/s fp32 on the CUDA cores, 80 GB of
-#: HBM3 at 3.35 TB/s, NVLink 900 GB/s.  A card set below 700 W runs slower
-#: under load; these are the published peaks, not a measurement.
+#: HBM3 at 3.35 TB/s.  ``link_bw`` is NVLink 4 in ONE direction: 18 links
+#: × 25 GB/s = 450 GB/s (the data sheet's 900 GB/s counts both
+#: directions); an all-to-all sends and receives at once, so a rank's
+#: outgoing bytes move at the one-direction rate.  A card set below 700 W
+#: runs slower under load; these are the published peaks, not a
+#: measurement.
 H100 = HW(
     name="nvidia-h100-sxm-700w",
     peak_flops_bf16=989e12,
     peak_flops_f32=67e12,
     hbm_bw=3.35e12,
-    link_bw=900e9,
+    link_bw=450e9,
     hbm_bytes=80e9,
 )
 
@@ -248,4 +265,103 @@ def conv_report(L: int, Lh: int, batch: int = 1, hw: HW = H100, block=None) -> d
         "one_shot": one,
         "overlap_save": osd,
         "bytes_ratio": one_bytes / os_bytes if os_bytes else float("inf"),
+    }
+
+
+def pencil_report(
+    n: int,
+    d: int,
+    batch: int = 1,
+    *,
+    n1: Optional[int] = None,
+    n2: Optional[int] = None,
+    pack: bool = True,
+    chunks: int = 1,
+    natural_order: bool = True,
+    hw: HW = H100,
+) -> dict:
+    """Modelled cost of the distributed pencil FFT over ``d`` ranks, the
+    reference's formulas over the port's planner:
+
+    * per-step **comm bytes**: every transpose moves the rank's whole
+      slab, ``(d − 1)/d`` of it over the wire;
+    * **local HBM bytes**: the n1 column program (at batch·q pencils), the
+      twiddle multiply (slab read + write and the rank's window), the n2
+      row program (at batch·p pencils) and the natural-order reorder;
+    * :data:`COLLECTIVE_LAUNCH_S` per collective call: what packing the
+      split-complex pair into one all-to-all halves and strip-mining into
+      ``chunks`` pieces pays more of;
+    * the pipelined middle: with ``chunks=K`` the two inner transposes
+      overlap the column FFT and twiddle chunk by chunk,
+      ``cc + fc + (K − 1)·max(cc, fc)`` instead of their sum.
+
+    ``modeled_s`` is the config's total and ``serial_s`` the unpacked K = 1
+    schedule of the same factors, so ``overlap_win`` is the speed-up the
+    tuner claims.  Seconds divide by ``hw``'s rates (the H100's here, a
+    TPU v5e's in the reference); bytes and counts are the reference's.
+    """
+    from repro_torch.core import plan as plan_lib  # local: analysis stays lazy
+
+    if n1 is None or n2 is None:
+        from repro_torch.core import distributed as dist  # lazy: distributed plans through here
+
+        n1, n2 = dist.pencil_factors(n, d)
+    if n1 * n2 != n:
+        raise ValueError(f"pencil factors {n1}x{n2} != n={n}")
+    p, q = n1 // max(d, 1), n2 // max(d, 1)
+    f32, planes = 4, 2
+    slab = batch * (n // max(d, 1))  # elements per plane per rank
+    slab_bytes = slab * planes * f32
+    wire_step = slab_bytes * (d - 1) / max(d, 1)  # one transpose, per rank
+    a2a_steps = (3 if natural_order else 2) if d > 1 else 0
+    K = max(1, chunks) if (pack and d > 1) else 1
+    # The two inner transposes are K calls each and the natural-order
+    # reorder one packed call; unpacked pays two calls (xr, xi) a step.
+    if d <= 1:
+        a2a_calls = 0
+    elif pack:
+        a2a_calls = 2 * K + (1 if natural_order else 0)
+    else:
+        a2a_calls = 2 * a2a_steps
+
+    fft1_bytes = plan_lib.program_hbm_bytes(plan_lib.plan_fft(n1).passes, batch * q)
+    fft2_bytes = plan_lib.program_hbm_bytes(plan_lib.plan_fft(n2).passes, batch * p)
+    twiddle_bytes = 2 * slab_bytes + n1 * q * planes * f32  # slab r/w + window
+    reorder_bytes = 2 * slab_bytes if (natural_order and d > 1) else 0
+    local_bytes = fft1_bytes + twiddle_bytes + fft2_bytes + reorder_bytes
+
+    t_step = wire_step / hw.link_bw
+    t_mid_compute = (fft1_bytes + twiddle_bytes) / hw.hbm_bw
+    if d > 1:
+        cc, fc = 2 * t_step / K, t_mid_compute / K
+        t_middle = cc + fc + (K - 1) * max(cc, fc)
+    else:
+        t_middle = t_mid_compute
+    t_tail = fft2_bytes / hw.hbm_bw + reorder_bytes / hw.hbm_bw
+    if natural_order and d > 1:
+        t_tail += t_step
+    modeled = t_middle + t_tail + a2a_calls * COLLECTIVE_LAUNCH_S
+    serial = a2a_steps * t_step + local_bytes / hw.hbm_bw + (2 * a2a_steps) * COLLECTIVE_LAUNCH_S
+    return {
+        "n": n,
+        "d": d,
+        "batch": batch,
+        "n1": n1,
+        "n2": n2,
+        "pack": pack,
+        "chunks": K,
+        "natural_order": natural_order,
+        "a2a_steps": a2a_steps,
+        "a2a_calls": a2a_calls,
+        "comm_bytes_per_step": wire_step,
+        "comm_bytes_total": wire_step * a2a_steps,
+        "fft1_bytes": fft1_bytes,
+        "fft2_bytes": fft2_bytes,
+        "twiddle_bytes": twiddle_bytes,
+        "local_hbm_bytes": local_bytes,
+        "comm_s": a2a_steps * t_step,
+        "memory_s": local_bytes / hw.hbm_bw,
+        "modeled_s": modeled,
+        "serial_s": serial,
+        "overlap_win": serial / modeled if modeled else float("inf"),
     }

@@ -9,15 +9,18 @@
   conv        FFT convolution (1-D, 2-D, packed) on the planned FFTs
   overlap     overlap-save convolution and StreamingConv
   tuning      the autotuner: modes, roofline pruning, the persistent cache
+  distributed the pencil FFT over torch.distributed (pfft, pifft, pfft2d,
+              pconv_os_sharded)
 """
 
-from repro_torch.core import conv, faults, fft, fft_torch, limits, overlap, plan, tuning, twiddle
+from repro_torch.core import conv, distributed, faults, fft, fft_torch, limits, overlap, plan, tuning, twiddle
 from repro_torch.core.faults import KernelError, PlanError, ReproError
 from repro_torch.core.fft import FFTSpec, PlannedFFT
 from repro_torch.core.plan import FFTPlan, plan_fft
 
 __all__ = [
     "conv",
+    "distributed",
     "overlap",
     "faults",
     "fft",

@@ -22,6 +22,8 @@ The kinds:
   plan as one in-place column pass; any other axis moves to the last);
 * ``fft2`` / ``ifft2`` — ONE joint program over the last two axes: row
   passes, then the column passes in place (strip-mined for n2 > 65536);
+  :meth:`PlannedFFT.apply_rows` / :meth:`PlannedFFT.apply_cols` run either
+  half alone (the distributed ``pfft2d`` runs them around its all-to-all);
 * ``rfft`` / ``irfft`` — the half-length complex child plan of the even/odd
   packing plus the Hermitian recombination pass (its ``epilogue``); an odd
   length runs one full-length complex child instead, with no epilogue;
@@ -73,6 +75,7 @@ import collections
 import dataclasses
 import functools
 import json
+import math
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -436,6 +439,67 @@ class PlannedFFT:
         yr, yi = self._run(xr.movedim(ax, -1), xi.movedim(ax, -1), inverse)
         return yr.movedim(-1, ax), yi.movedim(-1, ax)
 
+    @property
+    def pass_claims(self) -> tuple:
+        """The executing backend's name once per pass of :attr:`passes`.
+        The port has one backend per device and no per-pass fallback, so
+        its backend claims every pass."""
+        return tuple(self.backend.name for _ in self.passes)
+
+    def _half(self, axis: int) -> tuple:
+        """The passes of a 2-D program over ``axis`` (-1 the rows, -2 the
+        columns) and their tuned forms re-indexed onto that half."""
+        idx = [i for i, p in enumerate(self.fft_plan.passes) if p.axis == axis]
+        forms = {j: self.forms[i] for j, i in enumerate(idx) if i in self.forms}
+        return tuple(self.fft_plan.passes[i] for i in idx), forms
+
+    def _check_2d(self, what: str) -> None:
+        if self.spec.kind not in ("fft2", "ifft2"):
+            raise PlanError(f"{what} needs a 2-D complex plan, not {self.spec.kind!r}")
+
+    def _run_half(self, xr, xi, inverse: bool, axis: int) -> Planes:
+        """One half of the 2-D program; an autograd leaf when an input needs
+        a gradient."""
+        if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
+            return _HalfProgram.apply(xr, xi, self, inverse, axis)
+        return self._half_planes(xr, xi, inverse, axis)
+
+    def _half_planes(self, xr, xi, inverse: bool, axis: int) -> Planes:
+        from repro_torch.kernels import ops
+
+        passes, forms = self._half(axis)
+        if axis == -1:
+            lead, n = xr.shape[:-1], xr.shape[-1]
+            b = math.prod(lead)
+            yr, yi = ops.execute_program(xr.contiguous().view(b, n), xi.contiguous().view(b, n), passes,
+                                         inverse=inverse, forms=forms)
+            return yr.view(*lead, n), yi.view(*lead, n)
+        if not passes:
+            return xr, xi
+        lead, (rows, w) = xr.shape[:-2], xr.shape[-2:]
+        b = math.prod(lead)
+        yr, yi = ops.execute_program2d(xr.contiguous().view(b, rows, w), xi.contiguous().view(b, rows, w),
+                                       passes, inverse=inverse, forms=forms)
+        return yr.view(*lead, rows, w), yi.view(*lead, rows, w)
+
+    def apply_rows(self, xr: torch.Tensor, xi: torch.Tensor) -> Planes:
+        """Run only the row (last-axis) passes of a 2-D plan over (..., n)
+        planes: the distributed pencil FFT runs the joint program in two
+        halves around its all-to-all, the rows on the row-sharded slab."""
+        self._check_2d("apply_rows")
+        if xr.shape[-1] != self.spec.n:
+            raise PlanError(f"plan is for rows of n={self.spec.n}, got {xr.shape[-1]}")
+        return self._run_half(xr, xi, self.spec.kind == "ifft2", -1)
+
+    def apply_cols(self, xr: torch.Tensor, xi: torch.Tensor) -> Planes:
+        """Run only the column (axis -2) passes of a 2-D plan, in place over
+        whatever width the (..., n2, w) slab carries (see :meth:`apply_rows`)."""
+        self._check_2d("apply_cols")
+        if xr.ndim < 2 or xr.shape[-2] != self.spec.n2:
+            rows = xr.shape[-2] if xr.ndim >= 2 else None
+            raise PlanError(f"plan is for n2={self.spec.n2} columns, got {rows}")
+        return self._run_half(xr, xi, self.spec.kind == "ifft2", -2)
+
     def _recomb(self, ar, ai, kind: Optional[str] = None, luts: tuple = ()) -> Planes:
         """The epilogue pass over the last axis, row-wise over any leading
         dims: the packed (…, m) spectrum → the (…, m + 1) bins (rfft
@@ -642,6 +706,26 @@ class _PassProgram(torch.autograd.Function):
         size = planned.spec.n * (planned.spec.n2 or 1)
         scale = 1.0 / size if ctx.inverse else float(size)
         yr, yi = planned._run(gr, gi, not ctx.inverse, ctx.axis)
+        return yr * scale, yi * scale, None, None, None
+
+
+class _HalfProgram(torch.autograd.Function):
+    """One half of a 2-D plan's program (the row passes, ``axis=-1``, or the
+    column passes, ``axis=-2``) as one autograd leaf: as
+    :class:`_PassProgram`, the adjoint is the same half run the other way,
+    scaled by its length (n for the rows, n2 for the columns)."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, planned: "PlannedFFT", inverse: bool, axis: int):
+        ctx.planned, ctx.inverse, ctx.axis = planned, inverse, axis
+        return planned._half_planes(xr, xi, inverse, axis)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        planned = ctx.planned
+        size = planned.spec.n if ctx.axis == -1 else planned.spec.n2
+        scale = 1.0 / size if ctx.inverse else float(size)
+        yr, yi = planned._run_half(gr, gi, not ctx.inverse, ctx.axis)
         return yr * scale, yi * scale, None, None, None
 
 

@@ -17,9 +17,14 @@ With ``block=None`` the block is a tuned decision
 default) the roofline's modelled minimum, ``"measure"`` the winner timed
 once per (device, L, Lh, batch) and kept in the persistent cache.
 
-Deliberate differences from the reference: ``spmd=True`` raises (ROADMAP
-A7).  Framing is ``F.pad`` and ``Tensor.unfold`` (a strided view,
-materialised once by the plan) where the reference gathers.
+``StreamingConv(spmd=True)`` takes the block from the shape alone
+(:func:`repro_torch.core.tuning.modeled_block`: no cache, no measurement),
+so every rank of a process group builds the same stream.  The distributed
+overlap-save convolution is :func:`repro_torch.core.distributed.pconv_os_sharded`.
+
+Deliberate difference from the reference: framing is ``F.pad`` and
+``Tensor.unfold`` (a strided view, materialised once by the plan) where the
+reference gathers.
 """
 
 from __future__ import annotations
@@ -216,8 +221,14 @@ class StreamingConv:
     is the expected chunk length, to which the decision is keyed (its
     measurement times chunk calls); without it the tuner models a long
     ingest of 8 heuristic blocks.  ``device``: as the convolutions' (the
-    filter tensor's own device, the card for a host array).  ``spmd=True``
-    raises: the distributed engine is not ported.
+    filter tensor's own device, the card for a host array).
+
+    ``spmd=True`` makes the block pick cache- and measurement-free
+    (:func:`~repro_torch.core.tuning.modeled_block`): every rank of a
+    process group derives the same block from the shape alone, where a
+    per-rank cache hit or timing could differ and desynchronise the ranks'
+    shapes, the rule :func:`~repro_torch.core.distributed.pconv_os_sharded`
+    follows.
     """
 
     def __init__(
@@ -230,18 +241,16 @@ class StreamingConv:
         chunk_hint: Optional[int] = None,
         spmd: bool = False,
     ):
-        if spmd:
-            raise NotImplementedError(
-                "spmd=True: the multi-host block pick needs the distributed engine, "
-                "not ported yet: ROADMAP A7"
-            )
         self.device = resolve_device(h, device)
         self.h = as_filter(h, self.device)
         self.filter_len = int(self.h.shape[-1])
         self.overlap = self.filter_len - 1
         self.chunk_hint = chunk_hint
         L_tune = chunk_hint or 8 * pick_block(self.filter_len)
-        self.block = _resolve_block(self.filter_len, block, L_tune, 1, self.device, tune, chunk=chunk_hint)
+        if spmd and block is None:
+            self.block = tuning.modeled_block(L_tune, self.filter_len, 1, self.device, chunk=chunk_hint)
+        else:
+            self.block = _resolve_block(self.filter_len, block, L_tune, 1, self.device, tune, chunk=chunk_hint)
         self._Hr, self._Hi = filter_spectrum(self.h, self.block, self.device)
 
     def init_state(self, lead: tuple = (), dtype=torch.float32) -> torch.Tensor:

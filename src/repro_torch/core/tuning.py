@@ -34,6 +34,12 @@ move the modelled bytes, so ``"model"`` keeps the table's forms and only
 route's plain versions have no forms and run the heuristic program, as the
 reference's ``xla`` backend does.
 
+The distributed pencil FFT's decisions (:meth:`TuningSpace.for_pencil`,
+:func:`pencil_config`: factor balance, the all-to-all chunk count, packing)
+and the SPMD block pick (:func:`modeled_block`) are modelled only: no
+cache, no measurement, so every rank of a process group derives the same
+schedule from the shape alone.
+
 Every timing is appended to :func:`measure_log`, which is how the tests show
 that a cache hit measures nothing.
 """
@@ -63,6 +69,7 @@ __all__ = [
     "plan_config",
     "tuned_block",
     "modeled_block",
+    "pencil_config",
     "measure_log",
     "clear_measure_log",
 ]
@@ -523,6 +530,61 @@ class TuningSpace:
         key = f"cuda|plan|{spec.kind}|{size}|batch={spec.batch_hint or 0}"
         return cls("plan", key, cands, measure, budget=budget, device=dev)
 
+    @classmethod
+    def for_pencil(cls, n: int, d: int, batch: int = 1, natural_order: bool = True):
+        """The distributed pencil FFT's decisions as ONE joint space, the
+        reference's candidates in the reference's order: every power-of-two
+        split n1·n2 = n with both factors divisible by ``d`` (the balanced
+        :func:`~repro_torch.core.distributed.pencil_factors` first), the
+        all-to-all chunk count K ∈ {1, 2, 4, 8} the two inner transposes
+        are strip-mined into (K | q, packed only), and whether the
+        split-complex pair is packed into one collective per transpose.
+
+        Costs are :func:`~repro_torch.analysis.roofline.pencil_report`'s
+        ``modeled_s`` at the H100's rates: seconds, since the decision
+        trades link time against HBM time.  The working set is the port's
+        own: the largest per-block shared memory
+        (:func:`~repro_torch.kernels.pencil.form_smem_bytes`) of the table
+        forms the two local programs' column and row passes take, where the
+        reference's is TPU VMEM; it never reaches the pruning's budget, so
+        the pick does not depend on it.  No ``measure_fn``: a per-rank
+        timing or cache hit could pick different schedules on different
+        ranks and desynchronise the collectives.
+        """
+        from repro_torch.analysis import roofline as rl
+        from repro_torch.core import distributed as dist  # lazy: distributed plans through here
+
+        base = dist.pencil_factors(n, d)
+        splits = []
+        n1 = 1
+        while n1 <= n:
+            n2 = n // n1
+            if n1 * n2 == n and n1 % d == 0 and n2 % d == 0:
+                splits.append((n1, n2))
+            n1 *= 2
+        if base in splits:  # the balanced factorization first
+            splits.remove(base)
+        splits.insert(0, base)
+
+        cands = []
+        for n1, n2 in splits:
+            q = n2 // d
+            work = max(_pencil_smem_bytes(n1, -2), _pencil_smem_bytes(n2, -1))
+            for pack in (True, False):
+                for K in (1, 2, 4, 8):
+                    if K > 1 and (not pack or K > q or q % K):
+                        continue
+                    rep = rl.pencil_report(n, d, batch, n1=n1, n2=n2, pack=pack, chunks=K,
+                                           natural_order=natural_order)
+                    cfg = {"n1": n1, "n2": n2, "pack": pack, "a2a_chunks": K}
+                    cands.append((cfg, rep["modeled_s"], work))
+        # The heuristic (balanced, packed, K = 1) leads, so modelled ties
+        # keep the simplest schedule.
+        cands.sort(key=lambda c: ((c[0]["n1"], c[0]["n2"]) != base, not c[0]["pack"],
+                                  c[0]["a2a_chunks"]))
+        key = f"cuda|pencil|n={n},d={d},batch={batch},natural={int(natural_order)}"
+        return cls("pencil", key, cands, measure_fn=None)
+
     # -- decision ----------------------------------------------------------
 
     def decide(self, mode: str) -> dict:
@@ -585,12 +647,52 @@ def tuned_block(L: int, Lh: int, batch: int = 1, device=None, tune: Optional[str
 
 def modeled_block(L: int, Lh: int, batch: int = 1, device=None, chunk: Optional[int] = None) -> int:
     """The pure roofline block pick, with no cache and no measurement: a
-    function of the shape alone, the same on every host of a multi-process
-    run (the distributed engine's rule, ROADMAP A7)."""
+    function of the shape alone, the same on every rank of a process group.
+    :func:`~repro_torch.core.distributed.pconv_os_sharded` and
+    ``StreamingConv(spmd=True)`` take it; ``chunk`` keys it to a streaming
+    call grain as :func:`tuned_block`'s does."""
     from repro_torch.analysis.roofline import prune_candidates
 
     space = TuningSpace.for_os_block(L, Lh, batch, device, chunk=chunk)
     return int(prune_candidates(space.candidates, tol=PRUNE_TOL)[0][0]["block"])
+
+
+def pencil_config(n: int, d: int, batch: int = 1, tune: Optional[str] = None,
+                  natural_order: bool = True) -> dict:
+    """The distributed pencil FFT's decisions (factors, all-to-all chunk
+    count K, packing) for a length-``n`` transform over ``d`` ranks.
+
+    Cache-free and measurement-free: a function of ``(n, d, batch, mode)``
+    alone, so every rank derives the same config.  ``"measure"`` clamps to
+    the modelled pick; ``"off"`` is the balanced, packed schedule with
+    K = 1; ``d ≤ 1`` is the balanced split with nothing to exchange.
+    """
+    from repro_torch.analysis.roofline import prune_candidates
+
+    mode = resolve_mode(tune)
+    if d <= 1:
+        from repro_torch.core import distributed as dist  # lazy: distributed plans through here
+
+        n1, n2 = dist.pencil_factors(n, max(d, 1))
+        return {"n1": n1, "n2": n2, "pack": True, "a2a_chunks": 1}
+    space = TuningSpace.for_pencil(n, d, batch, natural_order)
+    if mode == "off":
+        return space.candidates[0][0]
+    return dict(prune_candidates(space.candidates, tol=PRUNE_TOL)[0][0])
+
+
+def _pencil_smem_bytes(m: int, axis: int) -> int:
+    """The largest per-block shared memory of the table forms a local
+    length-``m`` program over ``axis`` runs its column and row passes in
+    (0: whole-signal passes only, or a length the executor does not run)."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.kernels import ops, pencil
+
+    try:
+        takes = ops.form_passes(plan_lib.plan_fft(m), axis)
+    except NotImplementedError:  # a pass the executor does not run yet
+        return 0
+    return max((pencil.form_smem_bytes(pencil.table_form(k, f)) for k, f in takes.values()), default=0)
 
 
 def plan_config(spec, backend_name: str, tune: Optional[str] = None, device=None,

@@ -8,8 +8,13 @@ kernels' :func:`roots` table through the read-only path).  The values are
 bit-equal to the reference's tables (:func:`roots`, which the reference
 does not have, to row 1 of its DFT matrix).
 
-The reference's on-device generators (``traced_twiddle``, ``mulfrac_pow2``)
-are not ported yet: no pass of the 1-D complex slice uses them.
+:func:`twiddle_window` is the one table built on the device instead: the
+distributed pencil FFT's per-rank column window of the inter-factor grid
+(the reference's ``traced_twiddle``), with :func:`mulfrac_pow2` keeping
+its phase exact past 2³¹ points.  Its angles are bit for bit the
+reference's; its planes come from the device's float32 ``cos``/``sin``,
+within one ulp of the reference's (XLA's CPU polynomials round
+differently from torch's).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 __all__ = [
     "dft_matrix",
@@ -28,6 +34,9 @@ __all__ = [
     "bluestein_chirp",
     "bluestein_postchirp",
     "bluestein_spectrum",
+    "mulfrac_pow2",
+    "window_angles",
+    "twiddle_window",
 ]
 
 
@@ -120,6 +129,73 @@ def roots(n: int, inverse: bool = False) -> tuple[np.ndarray, np.ndarray]:
         np.cos(ang).astype(np.float32),
         (sign * np.sin(ang)).astype(np.float32),
     )
+
+
+def mulfrac_pow2(k1: torch.Tensor, m2: torch.Tensor, n: int) -> torch.Tensor:
+    """frac((k1·m2) / n) for power-of-two ``n``, exact for any ``n`` up to
+    2⁶², as the reference computes it.
+
+    Both operands split into 16-bit halves, so every partial product stays
+    below 2³² (held in int64: torch has no unsigned 32-bit arithmetic).
+    Because ``n`` is a power of two each partial's share of the phase
+    reduces on its own: ``frac(p·2^s / n) = (p mod (n >> s)) / (n >> s)``
+    when ``n > 2^s`` and 0 otherwise; the mod is skipped when ``n >> s``
+    exceeds 2³².  The four float32 terms are summed in the reference's
+    order, so the float32 result is the reference's.
+
+    ``k1``/``m2``: non-negative integer tensors (values < 2³¹) that
+    broadcast.  Returns float32 in [0, 4); only the value mod 1 matters to
+    cos/sin.
+    """
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"n must be a power of two, got {n}")
+    k1 = k1.to(torch.int64)
+    m2 = m2.to(torch.int64)
+    a, b = k1 >> 16, k1 & 0xFFFF
+    c, d = m2 >> 16, m2 & 0xFFFF
+
+    def term(p, shift):
+        if n <= (1 << shift):
+            return torch.zeros((), dtype=torch.float32, device=p.device)
+        mod = n >> shift
+        if mod < (1 << 32):
+            p = p % mod
+        return p.to(torch.float32) * torch.tensor(np.float32(1.0 / mod), device=p.device)
+
+    # k1·m2 = ac·2³² + (ad + bc)·2¹⁶ + bd, each partial < 2³².
+    return term(a * c, 32) + term(a * d, 16) + term(b * c, 16) + term(b * d, 0)
+
+
+def window_angles(n1: int, n2: int, *, col_start: int = 0, col_count: int | None = None,
+                  device=None) -> torch.Tensor:
+    """The (n1, col_count) float32 angles 2π·k1·m2/n of :func:`twiddle_window`
+    (``n = n1·n2``, ``m2 = col_start + j``), built on ``device``: for
+    n < 2³¹ ``float32(2π/n) · float32((k1·m2) mod n)``, beyond it
+    ``float32(2π) · mulfrac_pow2(k1, m2, n)`` — the reference's float32
+    values, bit for bit."""
+    n = n1 * n2
+    q = n2 if col_count is None else col_count
+    k1 = torch.arange(n1, dtype=torch.int64, device=device)[:, None]
+    m2 = (col_start + torch.arange(q, dtype=torch.int64, device=device))[None, :]
+    if n < 2**31:
+        red = ((k1 * m2) % n).to(torch.float32)
+        return torch.tensor(np.float32(2.0 * np.pi / n), device=device) * red
+    return torch.tensor(np.float32(2.0 * np.pi), device=device) * mulfrac_pow2(k1, m2, n)
+
+
+def twiddle_window(n1: int, n2: int, inverse: bool = False, *, col_start: int = 0,
+                   col_count: int | None = None, device=None) -> tuple:
+    """On-device window of the four-step twiddle grid: (real, imag) float32
+    planes ``T[k1, j] = exp(∓2πi·k1·m2/n)``, ``n = n1·n2``, for the columns
+    ``m2 ∈ [col_start, col_start + col_count)`` (default: the whole grid).
+
+    Only the window is built, on ``device``: a rank of the distributed
+    pencil FFT passes its own column offset and never holds another rank's
+    table.  The counterpart of the reference's ``traced_twiddle``; see
+    :func:`window_angles` for the phase."""
+    ang = window_angles(n1, n2, col_start=col_start, col_count=col_count, device=device)
+    sign = 1.0 if inverse else -1.0
+    return torch.cos(ang), sign * torch.sin(ang)
 
 
 def _chirp_angles(n: int) -> np.ndarray:

@@ -16,6 +16,7 @@ import chip_smoke
 import repro_torch
 import repro_torch.core.fft, repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.core.conv, repro_torch.core.overlap, repro_torch.core.tuning
+import repro_torch.core.distributed
 import repro_torch.analysis.roofline, repro_torch.data
 import repro_torch.models.layers.spectral, repro_torch.utils.params
 import repro_torch.configs.base, repro_torch.configs.reduce, repro_torch.configs.h2o_danube_1p8b

@@ -5,7 +5,7 @@ Mirrors ``tests/test_overlap.py``: block sizing and framing against the
 reference's, ``fft_conv_os`` against the reference (``backend="xla"``,
 ``tune="off"``) and against the one-shot conv, the plan log's proof that
 nothing is planned past ``FUSED_MAX``, StreamingConv's schedules against
-one shot, the tuned blocks, and the deliberate ``spmd`` difference.
+one shot, the tuned blocks, and ``spmd=True``'s modelled block.
 """
 
 import functools
@@ -23,6 +23,7 @@ from repro_torch.core import faults
 from repro_torch.core import fft as F
 from repro_torch.core import overlap as O
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import tuning
 
 TOL = 1e-3
 
@@ -322,7 +323,7 @@ def test_streaming_empty_batch_runs_nothing():
 
 
 # ---------------------------------------------------------------------------
-# tuned blocks and the deliberate difference: no spmd
+# tuned blocks, and spmd=True's modelled block
 # ---------------------------------------------------------------------------
 
 
@@ -332,7 +333,6 @@ def test_tuning_modes_raise(tune, tmp_path, monkeypatch):
     # (model: the reference's own; measure: timed on the CPU), the output
     # the heuristic block's at tolerance.
     from repro.core import tuning as ref_tuning
-    from repro_torch.core import tuning
 
     monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
     tuning.cache.clear()
@@ -354,5 +354,11 @@ def test_unknown_tune_and_spmd_raise():
     h = _t(_real((17,)))
     with pytest.raises(faults.PlanError, match="tune must be"):
         O.StreamingConv(h, tune="fast")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        O.StreamingConv(h, spmd=True)
+    # spmd=True takes the modelled block (no cache, no measurement), the
+    # reference's rule; an explicit block still wins.
+    before = len(tuning.measure_log())
+    sc = O.StreamingConv(h, spmd=True, tune="measure")
+    assert sc.block == tuning.modeled_block(8 * O.pick_block(17), 17, 1, "cpu")
+    assert sc.block == ref_ov.StreamingConv(jnp.asarray(h.numpy()), spmd=True).block
+    assert len(tuning.measure_log()) == before
+    assert O.StreamingConv(h, spmd=True, block=256).block == 256
