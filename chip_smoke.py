@@ -178,22 +178,47 @@ package), in phases, and fails on the first check that does not hold:
    as the local bound, peak memory, the card's name and power limit),
    ``pencil_rank`` (launches, collectives, peak), and each rank's distinct
    kernel calls against their plain versions ("kernel_check" lines; (a)'s
-   in this process).
+   in this process).  A build whose gloo refuses CUDA tensors fails the
+   phase (the probe's error on stderr);
+15. sharded training (``repro_torch.sharding``: parameters as ``DTensor``
+   shards by the reference's rules, a unit per block gathered over
+   ``data``, the layers on model shards) — (a) one rank over NCCL in this
+   process: phase 10 (c)'s run (h2o-danube-1.8b + use_spectral_mixer at
+   full width, B 2, S 4096, bf16, remat, AdamW) on a 1×1 ``DeviceMesh``,
+   3 steps: every parameter a ``DTensor``, 0 collectives, phase 10 (c)'s
+   launches a step, the losses within 5e-2 of phase 10 (c)'s; then the
+   one-device references of (b) and (c) on the card from seed 0; then four
+   spawned ranks on this card over gloo: (b) the same model cut to 4 of 24
+   layers, 2×2 (data, model) with FSDP, B 4, S 2048, float32, 3 steps:
+   losses within 1e-4 relative and every rank's parameter shards within
+   1e-4·max|p| of the one-device run's; (d) (b)'s state saved at 2×2
+   (topology-free, rank 0 writes), restored at 4×1 on the same ranks, one
+   more step equal (1e-4) to a step of the uninterrupted 2×2 run;
+   (c) deepseek-moe-16b + use_spectral_mixer at full width cut to 2 layers,
+   experts over ``model``, B 4, S 1024, float32, 2 steps: losses and aux
+   within 1e-4 and the dropped counts equal to the one-device run's.
+   Every step launches exactly phase 10's expectation and exactly the
+   collectives ``shard.step_collectives`` predicts.  Lines: ``sharded``
+   per case and rank (ms a step on the host clock after a barrier,
+   collectives by kind and their bytes, peak, errors), ``sharded_rank``
+   (launches), and each rank's distinct kernel calls against their plain
+   versions ("kernel_check ... sharded" lines).  A gloo rank that refuses
+   CUDA tensors fails the phase.
 
-Phases 2–8 and 10–14 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8 and 10–15 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14 each set the launch counts to 0
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 each set the launch counts to 0
 before they start and read them when they end; every kernel of a path must
 have launched in it (phase 12's path has none, and must launch none).  Phases
 3–7 and 9 also run every one of their calls over a batch of 0: the output
 must have np.fft's shape, and the call launches nothing (0 launches, not
 ``len(plan.passes)``).  The script then prints the per-kernel JSON line
 (each kernel's launches per path, ``hybrid_launches`` phase 12's,
-``frontend_launches`` phase 13's, ``distributed_launches`` phase 14's, its
-four ranks' included), the
+``frontend_launches`` phase 13's, ``distributed_launches`` phase 14's and
+``sharded_launches`` phase 15's, their four ranks' included), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -233,6 +258,7 @@ from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.limits import next_pow2  # noqa: E402
 from repro_torch.kernels import bluestein, build, dft_matmul, fft4step, ops, pencil, ref  # noqa: E402
 from repro_torch.models.layers.spectral import SpectralMixer, SpectralStreamCache, stream_plan_info  # noqa: E402
+from repro_torch.sharding import shard  # noqa: E402
 from repro_torch.models.model import DecoderLM  # noqa: E402
 from repro_torch.models.stack import find_unit  # noqa: E402
 from repro_torch.serving.engine import Engine, PrefillResult, ServeConfig  # noqa: E402
@@ -300,8 +326,10 @@ ATTRS: dict = {}
 #: phase 8 (serving), phase 9 (the tuner), phase 10 (gradients and
 #: training), phase 11 (the MoE model served), phase 12 (the recurrent
 #: LMs served, which launch none), phase 13 (the frontends served: the
-#: spectral musicgen-large's layers) and phase 14 (the distributed pencil
-#: FFT: its local plans, the 2-D plan's halves, the sharded conv's blocks).
+#: spectral musicgen-large's layers), phase 14 (the distributed pencil
+#: FFT: its local plans, the 2-D plan's halves, the sharded conv's blocks)
+#: and phase 15 (sharded training: the mixers' rfft / irfft at 8192, 4096
+#: and 2048 points, forward and backward, on every rank).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -319,6 +347,7 @@ PATH_KERNELS = {
     "hybrid": (),
     "frontend": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "distributed": ("fft4step", "cols_pass", "rows_natural"),
+    "sharded": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
 }
 
 #: The kernels phase 14's four ranks must launch between them: the column
@@ -2067,6 +2096,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 8
 TRAIN_CKPT_LAYERS, TRAIN_CKPT_STEPS = 2, 4
 
 
+#: Phase 10 (c)'s losses and ms a step: phase 15 (a)'s baseline.
+TRAIN_RECORD: dict = {}
+
+
 def train_config():
     from repro_torch.configs.base import TrainConfig
 
@@ -2209,6 +2242,7 @@ def train_case(gen) -> None:
     check(all(math.isfinite(v) for v in losses), f"phase 10: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"phase 10: the loss did not fall on a repeated batch: {losses}")
     step_ms = run_ms / (TRAIN_STEPS - 1)
+    TRAIN_RECORD.update(losses=losses, step_ms=step_ms)
     split = device_split(lambda: step(state, batch))
     classes = device_classes(lambda: step(state, batch))
     peak = torch.cuda.max_memory_allocated()
@@ -3352,6 +3386,24 @@ def pencil_world1(gen, smi: str) -> list:
     return run_.records
 
 
+def gloo_cuda_probe(phase: str, rank: int, world: int, ops: tuple) -> None:
+    """A gloo rank's first collectives, ``ops``, on CUDA tensors.  A torch
+    build whose gloo refuses them fails the phase (the error goes to stderr
+    as well): the ranks never fall back to the host's tensors."""
+    x = torch.arange(world, dtype=torch.float32, device="cuda")
+    calls = {"all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+             "all_reduce": lambda: dist.all_reduce(x.clone()),
+             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(x.new_empty(1), x),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(x.new_empty(world * world), x)}
+    for op in ops:
+        try:
+            calls[op]()
+        except RuntimeError as err:
+            msg = f"{phase} rank {rank}: gloo refused a CUDA tensor in {op}: {type(err).__name__}: {err}"
+            print(msg, file=sys.stderr, flush=True)
+            raise SmokeFailure(msg) from err
+
+
 def pencil_rank_cases(rank: int, world: int, port: int, smi: str) -> dict:
     """Phase 14 (b) on one rank: its cases, its launches and collectives,
     and each distinct kernel call it made against its plain version (its
@@ -3361,11 +3413,7 @@ def pencil_rank_cases(rank: int, world: int, port: int, smi: str) -> dict:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
     try:
-        probe = torch.arange(world, dtype=torch.float32, device="cuda")
-        try:
-            dist.all_to_all_single(torch.empty_like(probe), probe)
-        except RuntimeError as err:  # this build's gloo takes no CUDA tensor
-            return {"refused": f"{type(err).__name__}: {err}"}
+        gloo_cuda_probe("phase 14", rank, world, ("all_to_all_single",))
         gen = torch.Generator(device="cuda").manual_seed(14)  # the same global inputs on every rank
         run_ = PencilRun(rank, world, smi)
         with recorded_calls() as seen:
@@ -3442,29 +3490,31 @@ def pencil_grad(run_: PencilRun, gen) -> None:
     x.grad = None
 
 
-def pencil_rank(rank: int, world: int, port: int, smi: str, results) -> None:
-    """Entry of one spawned rank: its result, or its failure, on ``results``."""
+def rank_main(cases, rank: int, world: int, port: int, *args) -> None:
+    """Entry of one spawned rank: ``cases(rank, world, port, *args[:-1])``'s
+    result, or its failure, on the queue ``args[-1]``."""
     try:
-        results.put((rank, pencil_rank_cases(rank, world, port, smi)))
+        args[-1].put((rank, cases(rank, world, port, *args[:-1])))
     except Exception as err:  # the parent fails the phase with this rank's traceback
-        results.put((rank, {"error": f"{type(err).__name__}: {err}", "trace": traceback.format_exc()}))
+        args[-1].put((rank, {"error": f"{type(err).__name__}: {err}", "trace": traceback.format_exc()}))
 
 
-def pencil_ranks(smi: str) -> dict:
-    """Phase 14 (b): four spawned ranks on this card over gloo; returns each
+def spawn_ranks(phase: str, cases, args: tuple, world: int, timeout: float) -> dict:
+    """``world`` spawned ranks on this card, each running ``cases(rank,
+    world, port, *args)`` (a gloo group on ``tcp://localhost:port``); each
     rank's result.  A rank that fails fails the phase; one that hangs is
-    killed at :data:`PENCIL_TIMEOUT`."""
+    killed at ``timeout`` seconds."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=pencil_rank, args=(r, PENCIL_WORLD, port, smi, results), daemon=True)
-             for r in range(PENCIL_WORLD)]
+    procs = [ctx.Process(target=rank_main, args=(cases, r, world, port, *args, results), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     got = {}
-    deadline = time.monotonic() + PENCIL_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
-        while len(got) < PENCIL_WORLD:
+        while len(got) < world:
             try:
                 rank, res = results.get(timeout=5)
                 got[rank] = res
@@ -3472,15 +3522,17 @@ def pencil_ranks(smi: str) -> dict:
             except queue.Empty:
                 pass
             dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
-            check(not dead, f"phase 14: ranks {dead} exited ({[procs[r].exitcode for r in dead]}) with no result")
+            check(not dead, f"{phase}: ranks {dead} exited ({[procs[r].exitcode for r in dead]}) with no result")
             check(time.monotonic() < deadline,
-                  f"phase 14: ranks {sorted(set(range(PENCIL_WORLD)) - set(got))} hung past {PENCIL_TIMEOUT} s")
+                  f"{phase}: ranks {sorted(set(range(world)) - set(got))} hung past {timeout} s")
     finally:
         for p in procs:
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
                 p.join()
+    for r in sorted(got):
+        check("error" not in got[r], f"{phase} rank {r} failed: {got[r].get('error')}\n{got[r].get('trace')}")
     return got
 
 
@@ -3496,14 +3548,7 @@ def pencil_phase(gen) -> dict:
     print(f"phase 14 (a): {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = pencil_ranks(smi)
-    for r in sorted(ranks):
-        check("error" not in ranks[r], f"phase 14 rank {r} failed: {ranks[r].get('error')}\n{ranks[r].get('trace')}")
-    refused = [ranks[r]["refused"] for r in sorted(ranks) if "refused" in ranks[r]]
-    if refused:
-        check(len(refused) == PENCIL_WORLD, f"phase 14: gloo refused CUDA tensors on some ranks only: {refused}")
-        print("pencil_gloo_refused " + json.dumps({"error": refused[0], "card": smi}), flush=True)
-        return {}
+    ranks = spawn_ranks("phase 14", pencil_rank_cases, (smi,), PENCIL_WORLD, PENCIL_TIMEOUT)
     launches = {}
     for r in sorted(ranks):
         res = ranks[r]
@@ -3539,6 +3584,334 @@ def distributed_path(gen) -> dict:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s, {len(seen)} distinct kernel calls here", flush=True)
     own = {k: v - ranks_launches.get(k, 0) for k, v in launches.items()}
     path_kernel_rows("distributed", seen, own, gen, timed=False)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: sharded training (repro_torch.sharding)
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 4
+#: Seconds: the four ranks' whole run (a hung rank is killed and fails the phase).
+SHARD_TIMEOUT = 480
+SHARD_TOL = 1e-4  # (b)–(d), float32: losses, aux relative; parameters relative to max|p|
+SHARD_A_STEPS = 3
+#: (b) h2o-danube-1.8b + use_spectral_mixer at full width, cut to 4 of 24
+#: layers (two spectral/attn pairs): gloo's host wire moves each step's
+#: FSDP gathers and reduce-scatters.  (layers, batch, seq, steps)
+SHARD_B = (4, 4, 2048, 3)
+#: (c) deepseek-moe-16b + use_spectral_mixer at full width, cut to 2 layers
+#: (one spectral, one MoE), experts over ``model``.
+SHARD_C = (2, 4, 1024, 2)
+
+
+def shard_case(cfg, layers: int, batch: int, seq: int):
+    """(cfg cut to ``layers`` at float32 compute, its TrainConfig, its
+    DataConfig)."""
+    from repro_torch.data.pipeline import DataConfig
+
+    cfg = dataclasses.replace(cfg, num_layers=layers, compute_dtype="float32")
+    tc = dataclasses.replace(train_config(), batch_size=batch, seq_len=seq)
+    return cfg, tc, DataConfig(cfg.vocab_size, seq, batch)
+
+
+def shard_batch(dcfg, i: int) -> dict:
+    from repro_torch.data.pipeline import make_batch
+
+    return {k: v.cuda() for k, v in make_batch(dcfg, i).items()}
+
+
+def moe_dropped(model) -> list:
+    return [int(layer.dropped) for layer in moe_layers(model)]
+
+
+def shard_steps(state, cfg, tc, dcfg, first: int, count: int, label: str, ranked: bool,
+                profile_last: bool = False) -> tuple:
+    """``count`` steps from batch ``first``, each timed on the host clock
+    (after a barrier where ``ranked``), its launches exactly
+    :func:`step_expect`'s and (a sharded model) its collectives exactly
+    ``shard.step_collectives``'; ``profile_last`` runs the last under the
+    profiler (:func:`device_split`: the FFT kernels' and the other device
+    ms, the busy share).  Returns (state, per-step records)."""
+    from repro_torch.train.train_loop import make_train_step
+
+    step = make_train_step(cfg, tc)
+    expect = step_expect(state.model, dcfg.seq_len)
+    sharded = shard.is_sharded(state.model)
+    schedule = shard.step_collectives(state.model, dcfg.seq_len) if sharded else {}
+    rows = []
+    for i in range(first, first + count):
+        batch = shard_batch(dcfg, i)
+        before, comm = kernels.counts(), shard.counts()
+        torch.cuda.synchronize()
+        if ranked:
+            dist.barrier()
+        t0 = time.perf_counter()
+        split, ran = None, {}
+        if profile_last and i == first + count - 1:
+            split = device_split(lambda: ran.update(out=step(state, batch)))
+            state, met = ran["out"]
+        else:
+            state, met = step(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        if ranked:
+            dist.barrier()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_launches(f"{label} step {i}", before, kernels.counts(), expect)
+        after = shard.counts()
+        moved = {k: v - comm["counts"].get(k, 0) for k, v in after["counts"].items() if v != comm["counts"].get(k, 0)}
+        nbytes = {k: v - comm["bytes"].get(k, 0) for k, v in after["bytes"].items() if v != comm["bytes"].get(k, 0)}
+        check(moved == schedule, f"{label} step {i}: collectives {moved}, the schedule's {schedule}")
+        rows.append({"step": i, "loss": loss, "aux": float(met["aux"]), "grad_norm": float(met["grad_norm"]),
+                     "dropped": moe_dropped(state.model), "ms": ms, "collectives": moved, "bytes": nbytes})
+        if split:
+            rows[-1].update(profiled=True, fft_kernel_ms=split[0], other_device_ms=split[1],
+                            fft_kernel_share=split[0] / ms, busy=(split[0] + split[1]) / ms, other_top=split[2])
+    return state, rows
+
+
+def sharded_world1(smi: str) -> dict:
+    """Phase 15 (a): phase 10 (c)'s run (h2o-danube-1.8b + use_spectral_mixer
+    at full width, B 2, S 4096, bf16, remat, AdamW, one repeated batch)
+    through the sharded code path on one rank over NCCL: a 1×1
+    ``DeviceMesh``, every parameter a ``DTensor``, each block a unit, 0
+    collectives; its losses against phase 10 (c)'s at the bf16 gate."""
+    from repro_torch.launch.mesh import make_mesh, parallel_config_for
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    from repro_torch.data.pipeline import DataConfig
+
+    cfg, tc = serve_config(), train_config()
+    dcfg = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = shard_batch(dcfg, 0)
+    if not TRAIN_RECORD:  # run alone (scripts/chip_phase.py 15): phase 10 (c)'s steps first
+        state = init_train_state(cfg, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(cfg, tc)
+        losses = []
+        for _ in range(SHARD_A_STEPS):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+        TRAIN_RECORD.update(losses=losses, step_ms=None)
+        del state, step
+        torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                                 mesh=mesh, par=parallel_config_for(mesh))
+        check(all(shard.layout(p) is not None for p in state.model.parameters()),
+              "phase 15 (a): a parameter is not a DTensor")
+        step = make_train_step(cfg, tc)
+        expect = step_expect(state.model, TRAIN_SEQ)
+        shard.reset_counts()
+        losses, ms = [], []
+        for i in range(SHARD_A_STEPS):
+            before = kernels.counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check_launches(f"phase 15 (a) step {i}", before, kernels.counts(), expect)
+        check(not shard.counts()["counts"], f"phase 15 (a): collectives at world 1: {shard.counts()}")
+        ref = TRAIN_RECORD["losses"][:SHARD_A_STEPS]
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        check(max(errs) <= BF16_TOL, f"phase 15 (a): losses {losses} vs phase 10 (c)'s {ref}")
+        rec = {"case": "a", "config": cfg.name + " use_spectral_mixer", "layers": cfg.num_layers, "mesh": "1x1",
+               "backend": "nccl", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "compute": cfg.compute_dtype,
+               "losses": losses, "unsharded_losses": ref, "loss_rel_errs": errs, "step_ms": ms,
+               "step_ms_after_first": statistics.mean(ms[1:]), "unsharded_step_ms": TRAIN_RECORD["step_ms"],
+               "launches_per_step": expect, "collectives": {}, "peak_bytes": torch.cuda.max_memory_allocated(),
+               "card": smi}
+        del state, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_reference(cfg, tc, dcfg, steps: int, keep_params: bool) -> dict:
+    """The one-device steps of a (b) or (c) case on the card from seed 0,
+    float32: the records, and the final parameters on the host."""
+    from repro_torch.train.train_loop import init_train_state
+
+    state = init_train_state(cfg, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    state, rows = shard_steps(state, cfg, tc, dcfg, 0, steps, f"phase 15 one device {cfg.name}", False)
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()} if keep_params else None
+    del state
+    torch.cuda.empty_cache()
+    return {"rows": rows, "params": params}
+
+
+def shard_errs(label: str, rows: list, ref: list, keys=("loss", "aux")) -> list:
+    """Each step's metrics against the one-device run's at SHARD_TOL
+    (relative; aux absolute where 0) and its dropped counts exactly."""
+    errs = []
+    for got, want in zip(rows, ref, strict=True):
+        for k in keys:
+            err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) if want[k] else abs(got[k])
+            check(err <= SHARD_TOL, f"{label} step {got['step']}: {k} {got[k]} vs one device {want[k]}")
+            errs.append(err)
+        check(got["dropped"] == want["dropped"], f"{label} step {got['step']}: dropped {got['dropped']} "
+                                                 f"vs one device {want['dropped']}")
+    return errs
+
+
+def params_err(model, ref: dict) -> float:
+    """max over parameters of max|local − ref's chunk| / max|ref|: each rank
+    holds its own shards."""
+    worst = 0.0
+    for name, p in model.named_parameters():
+        full = ref[name]
+        lay = shard.layout(p)
+        want = shard.local_chunk(full, lay[0], p.placements).cuda() if lay else full.cuda()
+        worst = max(worst, ((shard.local(p.detach()) - want).abs().max() / full.abs().max().clamp(min=1e-30)).item())
+    return worst
+
+
+def sharded_rank_cases(rank: int, world: int, port: int, smi: str, ref_path: str) -> dict:
+    """Phase 15 (b)–(d) on one rank: its cases against the one-device
+    records, its launches, and each distinct kernel call it made against
+    its plain version ("kernel_check ... sharded rank r" lines)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh, parallel_config_for
+    from repro_torch.train.train_loop import init_train_state
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        gloo_cuda_probe("phase 15", rank, world, ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce"))
+        ref = torch.load(ref_path, mmap=True)
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        m22, m41 = make_mesh((2, 2), ("data", "model")), make_mesh((4, 1), ("data", "model"))
+        p22, p41 = parallel_config_for(m22, fsdp=True), parallel_config_for(m41, fsdp=True)
+        records = []
+
+        def fresh(cfg, tc, mesh, par):
+            return init_train_state(cfg, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                                    mesh=mesh, par=par)
+
+        with recorded_calls() as seen:
+            kernels.reset_counts()
+            shard.reset_counts()
+            # (b) h2o-danube-1.8b + spectral, 4 layers, 2x2 with FSDP
+            cfg, tc, dcfg = shard_case(serve_config(), *SHARD_B[:3])
+            torch.cuda.reset_peak_memory_stats()
+            state, rows = shard_steps(fresh(cfg, tc, m22, p22), cfg, tc, dcfg, 0, SHARD_B[3], "phase 15 (b)", True)
+            errs = shard_errs(f"phase 15 (b) rank {rank}", rows, ref["b"]["rows"], ("loss",))
+            perr = params_err(state.model, ref["b"]["params"])
+            check(perr <= SHARD_TOL, f"phase 15 (b) rank {rank}: parameters off by {perr:.3e} of max|p|")
+            records.append({"case": "b", "mesh": "2x2", "fsdp": True, "rows": rows, "loss_rel_errs": errs,
+                            "param_rel_err": perr, "peak_bytes": torch.cuda.max_memory_allocated()})
+            # (d) elastic: save at 2x2, restore at 4x1, one more step each way
+            directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "sharded_ckpt")
+            mgr = CheckpointManager(directory, keep=1)
+            t0 = time.perf_counter()
+            mgr.save(SHARD_B[3], state, extra={"data_step": SHARD_B[3]})
+            save_s = time.perf_counter() - t0
+            state, straight = shard_steps(state, cfg, tc, dcfg, SHARD_B[3], 1, "phase 15 (d) 2x2", True,
+                                          profile_last=True)
+            t0 = time.perf_counter()
+            restored, extra = mgr.restore(SHARD_B[3], fresh(cfg, tc, m41, p41))
+            restore_s = time.perf_counter() - t0
+            check(restored.step == extra["data_step"] == SHARD_B[3], "phase 15 (d): the restored step")
+            restored, resumed = shard_steps(restored, cfg, tc, dcfg, SHARD_B[3], 1, "phase 15 (d) 4x1", True)
+            errs = shard_errs(f"phase 15 (d) rank {rank}", resumed, straight, ("loss",))
+            worst = 0.0
+            for (name, a), (_, b) in zip(restored.model.named_parameters(), state.model.named_parameters()):
+                fa, fb = shard.full_tensor(a.detach()), shard.full_tensor(b.detach())
+                worst = max(worst, ((fa - fb).abs().max() / fb.abs().max().clamp(min=1e-30)).item())
+                del fa, fb
+            check(worst <= SHARD_TOL, f"phase 15 (d) rank {rank}: parameters after the restored step off by {worst:.3e}")
+            dist.barrier()
+            if rank == 0:
+                import shutil
+
+                shutil.rmtree(directory, ignore_errors=True)
+            records.append({"case": "d", "meshes": "2x2 -> 4x1", "fsdp": True, "straight": straight,
+                            "resumed": resumed, "loss_rel_errs": errs, "param_rel_err": worst,
+                            "save_s": save_s, "restore_s": restore_s})
+            del state, restored
+            torch.cuda.empty_cache()
+            # (c) deepseek-moe-16b + spectral, 2 layers, 2x2 with FSDP, experts over model
+            cfg, tc, dcfg = shard_case(moe_config(), *SHARD_C[:3])
+            torch.cuda.reset_peak_memory_stats()
+            # one more step than the one-device run's, under the profiler
+            state, rows = shard_steps(fresh(cfg, tc, m22, p22), cfg, tc, dcfg, 0, SHARD_C[3] + 1, "phase 15 (c)",
+                                      True, profile_last=True)
+            errs = shard_errs(f"phase 15 (c) rank {rank}", rows[:-1], ref["c"]["rows"])
+            records.append({"case": "c", "mesh": "2x2", "fsdp": True, "rows": rows, "rel_errs": errs,
+                            "peak_bytes": torch.cuda.max_memory_allocated()})
+            del state
+            torch.cuda.empty_cache()
+            launches = kernels.counts()
+        path_kernel_rows(f"sharded rank {rank}", seen, launches, gen, timed=False)
+        return {"records": records, "launches": launches}
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(gen) -> dict:
+    """Phase 15: (a) one rank over NCCL in this process, then the one-device
+    references of (b) and (c) here, then (b)–(d) on four ranks on this card
+    over gloo; returns the ranks' kernel launches (this process counts its
+    own)."""
+    smi = card_line()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = sharded_world1(smi)
+    print("sharded " + json.dumps(rec), flush=True)
+    print(f"phase 15 (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ref = {"b": sharded_reference(*shard_case(serve_config(), *SHARD_B[:3]), SHARD_B[3], True),
+           "c": sharded_reference(*shard_case(moe_config(), *SHARD_C[:3]), SHARD_C[3], False)}
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "sharded_ref.pt")
+    os.makedirs(os.path.dirname(ref_path), exist_ok=True)
+    torch.save(ref, ref_path)
+    print("sharded_reference " + json.dumps({k: v["rows"] for k, v in ref.items()}), flush=True)
+    del ref
+    print(f"phase 15 one-device references: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks("phase 15", sharded_rank_cases, (smi, ref_path), SHARD_WORLD, SHARD_TIMEOUT)
+    finally:
+        os.remove(ref_path)
+    launches = {}
+    for r in sorted(ranks):
+        for rec in ranks[r]["records"]:
+            print("sharded " + json.dumps({"rank": r, "card": smi, **rec}), flush=True)
+        print("sharded_rank " + json.dumps({"rank": r, "launches": ranks[r]["launches"]}), flush=True)
+        for key, count in ranks[r]["launches"].items():
+            launches[key] = launches.get(key, 0) + count
+    same = [ranks[r]["launches"] == ranks[0]["launches"] for r in sorted(ranks)]
+    check(all(same), f"phase 15: the ranks launched different kernels: {[ranks[r]['launches'] for r in ranks]}")
+    print(f"phase 15 (b)-(d): {time.perf_counter() - t0:.1f} s (gloo: the host's wire, not NVLink)", flush=True)
+    return launches
+
+
+def sharded_path(gen) -> dict:
+    """Phase 15 as one path: the counts at 0, :func:`sharded_phase`, every
+    kernel of the path launched and no plain version; then each distinct
+    kernel call this process made against its plain version, untimed.
+    Returns the launches, the ranks' included."""
+    t0 = time.perf_counter()
+    ranks_launches = {}
+
+    def phase(g):
+        ranks_launches.update(sharded_phase(g))
+        return ranks_launches
+
+    with tune_env("off"), recorded_calls() as seen:
+        launches = path_launches("sharded", phase, gen)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s, {len(seen)} distinct kernel calls here", flush=True)
+    own = {k: v - ranks_launches.get(k, 0) for k, v in launches.items()}
+    path_kernel_rows("sharded", seen, own, gen, timed=False)
     torch.cuda.empty_cache()
     return launches
 
@@ -3611,9 +3984,10 @@ def main() -> int:
         path_kernel_rows("frontend", seen, frontend, gen)
         torch.cuda.empty_cache()
         distributed = distributed_path(gen)
+        sharded = sharded_path(gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
                     + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name]
-                    + distributed[name] for name in SOURCES}
+                    + distributed[name] + sharded[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -3625,7 +3999,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
             "hybrid_launches": hybrid[name], "frontend_launches": frontend[name],
-            "distributed_launches": distributed[name],
+            "distributed_launches": distributed[name], "sharded_launches": sharded[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

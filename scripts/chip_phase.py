@@ -8,12 +8,16 @@ qwen2-vl-72b at 8 of 80 layers, the ``serve_frontend`` lines, then
 "kernel ... frontend path #i" lines) or phase 14 (the distributed pencil
 FFT: one rank over NCCL at fftbench's sizes, then four spawned ranks on the
 card over gloo, the ``pencil`` lines, then "kernel_check ... distributed"
-lines).
+lines) or phase 15 (sharded training: one rank over NCCL, then four
+spawned ranks on the card over gloo, the ``sharded`` lines, then
+"kernel_check ... sharded" lines; run alone, it first takes phase 10 (c)'s
+unsharded steps for (a)'s baseline).
 
     python3 scripts/chip_phase.py 11
     python3 scripts/chip_phase.py 12
     python3 scripts/chip_phase.py 13
     python3 scripts/chip_phase.py 14
+    python3 scripts/chip_phase.py 15
 
 A quicker loop than the whole smoke run while a serving path changes; the
 smoke run stays the proof.  Exits 1 on the first failed check.
@@ -32,7 +36,7 @@ import chip_smoke as cs  # noqa: E402
 
 #: Phase → (its path's name in ``chip_smoke.PATH_KERNELS``, the phase).
 PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase), 13: ("frontend", cs.frontend_phase),
-          14: ("distributed", None)}
+          14: ("distributed", None), 15: ("sharded", None)}
 
 
 def main(argv) -> int:
@@ -56,8 +60,9 @@ def main(argv) -> int:
     path, run = PHASES[phase]
     t0 = time.perf_counter()
     try:
-        if run is None:  # phase 14 drives its own path, ranks and all
-            cs.distributed_path(gen)
+        if run is None:  # phases 14 and 15 drive their own paths, ranks and all
+            (cs.distributed_path if phase == 14 else cs.sharded_path)(gen)
+            print(f"phase {phase} alone: {time.perf_counter() - t0:.1f} s", flush=True)
             return 0
         with cs.tune_env("off"), cs.recorded_calls() as seen, torch.no_grad():
             launches = cs.path_launches(path, run, gen)

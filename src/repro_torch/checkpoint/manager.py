@@ -18,6 +18,13 @@ state's leaves ``leaf_0`` … in order) and ``manifest.json`` (``step``,
   ``like`` (a model's parameters are written in place) on whatever device
   it lives.
 * **Auto-resume** — ``latest_step`` finds the newest complete checkpoint.
+* **Elastic restore** — a sharded state's ``DTensor`` leaves (a model after
+  :func:`repro_torch.sharding.shard.shard_model`, its optimizer and
+  error-feedback state) are saved whole: every rank joins their gathers and
+  rank 0 writes, so the files hold no topology.  ``restore`` places each
+  array onto whatever layout ``like`` has, another mesh or one device,
+  every rank keeping its own chunk.  ``wait()`` (and a blocking ``save``)
+  then holds every rank until rank 0 has published.
 
 A state is any nesting of named tuples, tuples, lists, dicts,
 ``nn.Module``s (their named parameters), tensors and Python numbers, such
@@ -36,7 +43,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.sharding import shard
 
 __all__ = ["CheckpointManager"]
 
@@ -69,13 +79,11 @@ def _rebuild(tree, values):
     :func:`_leaves` order: tensors written in place (cast to their dtype,
     on their device), numbers replaced."""
     if isinstance(tree, nn.Module):
-        with torch.no_grad():
-            for _, p in tree.named_parameters():
-                p.copy_(torch.from_numpy(next(values)).to(p.device, p.dtype))
+        for _, p in tree.named_parameters():
+            _place(p, next(values))
         return tree
     if torch.is_tensor(tree):
-        with torch.no_grad():
-            tree.copy_(torch.from_numpy(next(values)).to(tree.device, tree.dtype))
+        _place(tree, next(values))
         return tree
     if isinstance(tree, (bool, int, float, np.number)):
         return type(tree)(next(values))
@@ -88,10 +96,25 @@ def _rebuild(tree, values):
     return tree
 
 
+@torch.no_grad()
+def _place(t: torch.Tensor, value: np.ndarray) -> None:
+    """The saved whole ``value`` into ``t`` in place: a ``DTensor`` takes
+    this rank's chunk of it in its layout."""
+    full = torch.from_numpy(value)
+    lay = shard.layout(t)
+    if lay is not None:
+        full = shard.local_chunk(full, lay[0], t.placements)
+    shard.local(t).copy_(full.to(t.device, t.dtype))
+
+
 def _host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        return shard.full_tensor(leaf.detach()).to("cpu", copy=True).numpy()
     return np.asarray(leaf)
+
+
+def _sharded(leaves) -> bool:
+    return any(torch.is_tensor(leaf) and shard.layout(leaf) is not None for _, leaf in leaves)
 
 
 class CheckpointManager:
@@ -102,15 +125,23 @@ class CheckpointManager:
         self._q: queue.Queue = queue.Queue()
         self._worker: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False  # the last save gathered shards: rank 0 writes
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Any, extra: Optional[dict] = None, *, blocking: bool = True):
         """Snapshot ``state`` and ``extra`` (JSON-able) at ``step``."""
         # Materialise on the host now, so the trainer can update its state.
         leaves = list(_leaves(state))
+        self._sharded = _sharded(leaves)
         payload = (step, [_host(leaf) for _, leaf in leaves], [name for name, _ in leaves], extra or {})
+        if self._sharded and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
         if blocking:
             self._write(payload)
+            if self._sharded:
+                dist.barrier()
         else:
             self._ensure_worker()
             self._q.put(payload)
@@ -119,6 +150,8 @@ class CheckpointManager:
         """Block until every async save is durable; raise the writer's error."""
         if self._worker is not None:
             self._q.join()
+        if self._sharded:
+            dist.barrier()
         if self._error:
             raise self._error
 

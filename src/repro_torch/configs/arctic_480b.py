@@ -4,8 +4,9 @@ MoE: 128 experts, top-2, with a dense residual MLP in parallel (arctic's
 dense+MoE hybrid).  [hf:Snowflake/snowflake-arctic-base]
 long_500k: SKIPPED — full attention.  Trains with adafactor + fsdp (480B
 params would not fit per-chip optimizer state otherwise): the port's
-sharding is ROADMAP.md A6 (item 4), and until then the port runs it at
-reduced size only.
+sharded model (``repro_torch.sharding``) places it by the reference's
+rules (its specs are held against the reference's), but 480 B parameters
+need many cards, so the port runs it at reduced size only.
 """
 
 from repro_torch.configs.base import ModelConfig

@@ -1,9 +1,9 @@
 """Config system: model and shape definitions.
 
 Port of ``repro/configs/base.py``, a copy of its data: ``ModelConfig`` field
-for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``ParallelConfig`` (its fields only: the
-mesh it maps is ``ROADMAP.md`` A6, sharding) and ``TrainConfig`` with the
-reference's defaults.  ``get_config(arch_id)`` resolves a registry name to
+for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``ParallelConfig`` (how
+:mod:`repro_torch.sharding` maps logical axes onto a ``DeviceMesh``) and
+``TrainConfig`` with the reference's defaults.  ``get_config(arch_id)`` resolves a registry name to
 the ``ModelConfig`` in its own module under ``repro_torch.configs``.  The
 registry knows every name the reference knows; ``fftbench``, the paper's
 benchmark, raises ``NotImplementedError`` naming ``ROADMAP.md`` A1.
@@ -136,7 +136,11 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """How logical axes map onto the mesh: the reference's fields and
-    defaults.  The port trains on one card; a mesh is ``ROADMAP.md`` A6."""
+    defaults.  :mod:`repro_torch.sharding` reads the axes, ``pod_axis``,
+    ``fsdp``, ``sequence_parallel`` and ``decode_weight_stationary`` (the
+    rules); the sharded model trains on a (data, model) mesh
+    (``launch/train.py --mesh DxM``); ``remat_policy`` shapes the
+    reference's XLA program (the port's remat is ``ModelConfig.remat``)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -18,6 +18,11 @@ contractions as ``einsum``.
 
 GQA K/V are expanded to the full head count before the score einsums in the
 forward; the cache stays in kv-head form.  Logit softcap where configured.
+In a sharded model (heads over ``model``) the forward computes this rank's
+heads: the input enters the head shards through ``model_copy``, kv heads
+that do not divide the axis (replicated, as the rules' fallback gives) are
+expanded and cut to the local heads, and the output projection's partial
+sums meet in ``model_sum``, where the reference annotates q/k/v and y.
 q and k rotate by M-RoPE where ``cfg.rope_kind == "mrope"`` and (B, 3, S)
 ``mrope_positions`` are given, else by standard RoPE on ``positions`` (the
 reference's rule: a vision config served as text rotates as any other).
@@ -32,6 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import rope as rope_lib
+from repro_torch.sharding.shard import model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
 __all__ = ["Attention", "KVCache", "init_kv_cache", "slot_index", "quant_tok"]
@@ -107,9 +113,11 @@ class Attention(nn.Module):
         """Project and rotate.  x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd);
         positions (B, S), mrope_positions (B, 3, S) or None."""
         cd = x.dtype
-        q = (x @ self.wq.to(cd).flatten(1)).unflatten(-1, self.wq.shape[1:])
-        k = (x @ self.wk.to(cd).flatten(1)).unflatten(-1, self.wk.shape[1:])
-        v = (x @ self.wv.to(cd).flatten(1)).unflatten(-1, self.wv.shape[1:])
+        xq = model_copy(x) if self._sharded() else x
+        xkv = xq if self.wk.shape[1] != self.cfg.num_kv_heads else x
+        q = (xq @ self.wq.to(cd).flatten(1)).unflatten(-1, self.wq.shape[1:])
+        k = (xkv @ self.wk.to(cd).flatten(1)).unflatten(-1, self.wk.shape[1:])
+        v = (xkv @ self.wv.to(cd).flatten(1)).unflatten(-1, self.wv.shape[1:])
         cfg = self.cfg
         if cfg.rope_kind == "mrope" and mrope_positions is not None:
             q = rope_lib.apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
@@ -118,6 +126,19 @@ class Attention(nn.Module):
             q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
             k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
+
+    def _sharded(self) -> bool:
+        """Whether this rank holds a shard of the heads (a sharded model)."""
+        return self.wq.shape[1] != self.cfg.num_heads
+
+    def _expand(self, t: torch.Tensor, g: int) -> torch.Tensor:
+        """k or v (B, S, KV, hd) → the keys or values of this rank's heads:
+        all of them unsharded; kv heads replicated over ``model`` while the
+        heads are sharded are expanded and cut to the local heads."""
+        heads = self.wq.shape[1]
+        if t.shape[2] * g == heads:
+            return _expand_kv(t, g)
+        return _expand_kv(model_copy(t), g).narrow(2, tp().rank * heads, heads)
 
     def _softcap(self, scores: torch.Tensor) -> torch.Tensor:
         cap = self.cfg.attn_logit_softcap
@@ -131,7 +152,8 @@ class Attention(nn.Module):
         return torch.einsum("bhqk,bkhd->bqhd", probs.to(v_full.dtype), v_full)
 
     def _out(self, out: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-        return out.flatten(2) @ self.wo.to(cd).flatten(0, 1)
+        y = out.flatten(2) @ self.wo.to(cd).flatten(0, 1)
+        return model_sum(y) if self._sharded() else y
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False,
                 mrope_positions: Optional[torch.Tensor] = None):
@@ -146,7 +168,7 @@ class Attention(nn.Module):
             mask = pos[None, :] <= pos[:, None]
             if self.window:
                 mask &= pos[None, :] > (pos[:, None] - self.window)
-            out = self._attend(q, _expand_kv(k, g), _expand_kv(v, g), mask)
+            out = self._attend(q, self._expand(k, g), self._expand(v, g), mask)
         else:
             out = self._chunked(q, k, v, g)
         y = self._out(out, x.dtype)
@@ -169,7 +191,7 @@ class Attention(nn.Module):
         s_pad = s + pad
         banded = window is not None and window < s_pad
         band = ((window + c - 1) // c + 1) * c if banded else s_pad
-        k_full, v_full = _expand_kv(k, g), _expand_kv(v, g)
+        k_full, v_full = self._expand(k, g), self._expand(v, g)
         dev = q.device
         outs = []
         for start in range(0, s_pad, c):

@@ -2,7 +2,10 @@
 
 Port of ``repro/models/layers/mlp.py``.  ``gelu`` is the tanh approximation
 (the reference's default gelu); the weights are cast to the activation's dtype
-at each use, as the reference writes ``params[...].astype(cd)``.
+at each use, as the reference writes ``params[...].astype(cd)``.  In a
+sharded model with ``ff`` over ``model`` each rank computes its ff shard:
+the input enters through ``model_copy`` and the partial outputs meet in
+``model_sum`` (the reference's ``ann`` of h and y).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as tF
 from torch import nn
 
+from repro_torch.sharding.shard import model_copy, model_sum
 from repro_torch.utils.params import normal
 
 __all__ = ["MLP", "ACTIVATIONS"]
@@ -33,13 +37,17 @@ class MLP(nn.Module):
         super().__init__()
         if act not in ACTIVATIONS:
             raise ValueError(f"act must be one of {sorted(ACTIVATIONS)}, got {act!r}")
-        self.act = act
+        self.act, self.d_ff = act, d_ff
         self.wi_gate = normal((d_model, d_ff), dtype=dtype, device=device, generator=generator)
         self.wi_up = normal((d_model, d_ff), dtype=dtype, device=device, generator=generator)
         self.wo = normal((d_ff, d_model), scale=d_ff**-0.5, dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = x.dtype
+        sharded = self.wo.shape[0] != self.d_ff
+        if sharded:
+            x = model_copy(x)
         g = x @ self.wi_gate.to(cd)
         u = x @ self.wi_up.to(cd)
-        return (ACTIVATIONS[self.act](g) * u) @ self.wo.to(cd)
+        y = (ACTIVATIONS[self.act](g) * u) @ self.wo.to(cd)
+        return model_sum(y) if sharded else y

@@ -17,6 +17,15 @@ dispatch writes them with ``index_copy`` (no atomics on the card) into the
 expert-major (E, G·C, D) buffer directly, and a dropped assignment goes to a
 spare last row that is cut off, where the reference adds a zeroed
 contribution into its slot.  The outputs are the same.
+
+In a sharded model the experts lie over ``model`` (the rules' ``experts``)
+and the tokens are replicated over it (the batch is over ``data`` only):
+every model rank routes the same tokens, dispatches the assignments to its
+own experts into its (E/m, B·C, D) slice of the buffer, runs them, and the
+ranks' combines meet in ``model_sum`` — no all-to-all.  The input and the
+routing weights enter the expert shards through ``model_copy``.  The
+load-balance statistics and the dropped count are summed over ``data``
+first, so the aux term is the global batch's, as the reference's.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers.mlp import ACTIVATIONS, MLP
+from repro_torch.sharding.logical import data_shard_count
+from repro_torch.sharding.shard import data_sum, model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
 __all__ = ["MoE", "Routing"]
@@ -98,20 +109,33 @@ class MoE(nn.Module):
         cap = _capacity(s, self.cfg)
         return Routing(probs, top / (top.sum(-1, keepdim=True) + 1e-9), idx, onehot, pos, pos < cap, cap)
 
-    def dispatch(self, x: torch.Tensor, r: Routing) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Each kept (token, choice) of x (B, S, D) copied to its slot: the
-        expert-major buffer (E, B·cap, D) and every assignment's row in it
-        (B, S·k), a dropped one's clamped slot."""
+    def _experts_here(self) -> Tuple[int, int]:
+        """(the first expert this rank holds, how many): all of them
+        unsharded."""
+        e = self.wi_gate.shape[0]
+        return (0, e) if e == self.cfg.num_experts else (tp().rank * e, e)
+
+    def dispatch(self, x: torch.Tensor, r: Routing) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Each kept (token, choice) of x (B, S, D) to one of this rank's
+        experts copied to its slot: the expert-major buffer (E_here, B·cap,
+        D), every assignment's row in it (B, S·k), a dropped or another
+        rank's one's clamped, and which assignments it holds (B, S·k)."""
         b, s, d = x.shape
-        e, k, cap = self.cfg.num_experts, self.cfg.top_k, r.capacity
-        rows = r.idx.reshape(b, s * k) * (b * cap) + torch.arange(b, device=x.device)[:, None] * cap
+        k, cap = self.cfg.top_k, r.capacity
+        e0, e = self._experts_here()
+        at, mine = r.idx.reshape(b, s * k), r.keep
+        if e != self.cfg.num_experts:  # this rank's experts only
+            at = at - e0
+            mine = mine & (at >= 0) & (at < e)
+            at = at.clamp(0, e - 1)
+        rows = at * (b * cap) + torch.arange(b, device=x.device)[:, None] * cap
         rows = rows + r.pos.clamp(max=cap - 1)
         # A dropped assignment writes the spare last row, which is cut off.
         spare = e * b * cap
-        dest = torch.where(r.keep, rows, spare).reshape(-1)
+        dest = torch.where(mine, rows, spare).reshape(-1)
         contrib = x[:, :, None].expand(b, s, k, d).reshape(b * s * k, d)
         h = x.new_zeros(spare + 1, d).index_copy(0, dest, contrib)[:spare].view(e, b * cap, d)
-        return h, rows
+        return h, rows, mine
 
     def experts(self, h: torch.Tensor) -> torch.Tensor:
         """The expert FFN over the buffer (E, C, D), each weight cast to the
@@ -120,23 +144,31 @@ class MoE(nn.Module):
         act = ACTIVATIONS[self.cfg.act](torch.bmm(h, self.wi_gate.to(cd))) * torch.bmm(h, self.wi_up.to(cd))
         return torch.bmm(act, self.wo.to(cd))
 
-    def combine(self, y_e: torch.Tensor, rows: torch.Tensor, r: Routing) -> torch.Tensor:
-        """Each assignment's expert output gathered back, weighted by
-        ``w·keep`` in the buffer's dtype and summed over the k choices:
-        (B, S, D)."""
+    def combine(self, y_e: torch.Tensor, rows: torch.Tensor, mine: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+        """Each held assignment's expert output gathered back, weighted by
+        ``w·keep`` (``weights`` (B, S, k), ``mine`` the held ones) in the
+        buffer's dtype and summed over the k choices: (B, S, D)."""
         b, sk = rows.shape
         k, d = self.cfg.top_k, y_e.shape[-1]
         y_tok = y_e.reshape(-1, d).index_select(0, rows.reshape(-1)).view(b, sk, d)
-        w = (r.weights.reshape(b, sk) * r.keep.float()).to(y_e.dtype)
+        w = (weights.reshape(b, sk) * mine.float()).to(y_e.dtype)
         return (y_tok * w[..., None]).view(b, sk // k, k, d).sum(2)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, S, D) → (y (B, S, D) in x's dtype, aux loss, float32 0-d)."""
         cfg = self.cfg
         r = self.route(x)
-        self.dropped = (~r.keep).sum()
-        h, rows = self.dispatch(x, r)
-        y = self.combine(self.experts(h), rows, r)
+        sharded = self.wi_gate.shape[0] != cfg.num_experts
+        self.dropped = data_sum((~r.keep).sum())
+        if sharded:
+            xe, we = model_copy(x), model_copy(r.weights)
+        else:
+            xe, we = x, r.weights
+        h, rows, mine = self.dispatch(xe, r)
+        y = self.combine(self.experts(h), rows, mine, we)
+        if sharded:
+            y = model_sum(y)
         if cfg.num_shared_experts:
             y = y + self.shared(x)
         if cfg.moe_dense_residual:
@@ -145,4 +177,7 @@ class MoE(nn.Module):
         b, s, _ = x.shape
         me = r.probs.mean((0, 1))  # mean router probability per expert
         ce = r.onehot.sum((0, 2)).float() / (b * s)  # assignments per token, dropped ones too
+        shards = data_shard_count()
+        if shards > 1:  # the global batch's means (equal rows per shard)
+            me, ce = data_sum(torch.stack([me, ce])) / shards
         return y, (me * ce).sum() * cfg.num_experts * cfg.router_aux_loss

@@ -34,6 +34,7 @@ from repro_torch.core import fft as fft_lib
 from repro_torch.core import overlap as ov_lib
 from repro_torch.core.conv import fft_conv
 from repro_torch.core.limits import next_pow2
+from repro_torch.sharding.shard import model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
 __all__ = [
@@ -161,6 +162,13 @@ class SpectralMixer(nn.Module):
         the projections; with ``return_cache`` also the decode state after
         the prompt (ring or stream, by ``decode_mode``), built without a
         graph as every decode step is."""
+        channels = self.w_in.shape[1]
+        if channels != self.d_model:
+            # A sharded model: this rank's channels of the ff axis, the
+            # filter's rows of them, and the projections' partial sums.
+            u, g = self._in_gate(model_copy(x))
+            filt = model_copy(self.filt).narrow(0, tp().rank * channels, channels)
+            return model_sum(self._out(fft_conv(u.to(torch.float32), filt, axis=1), g))
         u, g = self._in_gate(x)
         # The conv runs along the sequence axis; fft_conv routes to
         # overlap-save past the fused regime.

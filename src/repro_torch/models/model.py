@@ -44,6 +44,7 @@ from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.embedding import Embedding, Head
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.stack import Stack
+from repro_torch.sharding import shard
 
 __all__ = ["DecoderLM", "loss_fn"]
 
@@ -109,8 +110,10 @@ class DecoderLM(nn.Module):
 
     def logits_fn(self, tokens=None, positions=None, **inputs) -> torch.Tensor:
         """(B, S, vocab) float32 logits: the small-model and check path
-        (``inputs``: :meth:`forward`'s keywords)."""
-        return self.head(self(tokens, positions, **inputs)[0], self.embed.table)
+        (``inputs``: :meth:`forward`'s keywords; a sharded model's are this
+        rank's vocab slice)."""
+        with shard.gathered(self):
+            return self.head(self(tokens, positions, **inputs)[0], self.embed.table)
 
     @torch.no_grad()
     def prefill(self, tokens=None, *, frame_embeds=None, vision_embeds=None,
@@ -190,15 +193,26 @@ def _chunk_ce(model: DecoderLM, hidden: torch.Tensor, targets: torch.Tensor, mas
 
     hidden (B, S, D); targets and mask (B, S).  Returns (Σ nll, Σ lse², Σ
     mask), each float32, summed chunk after chunk as the reference's scan
-    and its remainder."""
+    and its remainder.  With the vocab over ``model`` each rank's logits
+    are its slice: the max, the sum of exponentials and the target's logit
+    meet over ``model``."""
     s = hidden.shape[1]
     c = min(model.cfg.loss_chunk, s)
     nll = z2 = cnt = hidden.new_zeros((), dtype=torch.float32)
     for start in range(0, s, c):
         ms = mask[:, start:start + c]
         logits = model.head(hidden[:, start:start + c], model.embed.table)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[:, start:start + c, None])[..., 0]
+        tc = targets[:, start:start + c]
+        vocab = logits.shape[-1]
+        if vocab == model.cfg.vocab_size:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, tc[..., None])[..., 0]
+        else:
+            top = shard.model_max(logits.detach().amax(-1))
+            lse = shard.model_sum((logits - top[..., None]).exp().sum(-1)).log() + top
+            at = tc - shard.tp().rank * vocab
+            mine = (at >= 0) & (at < vocab)
+            tgt = shard.model_sum(logits.gather(-1, at.clamp(0, vocab - 1)[..., None])[..., 0] * mine)
         nll = nll + ((lse - tgt) * ms).sum()
         z2 = z2 + (lse.square() * ms).sum()
         cnt = cnt + ms.sum()
@@ -213,14 +227,24 @@ def loss_fn(model: DecoderLM, batch: dict, train_cfg=None):
 
     loss = Σ nll / n + z_loss · Σ lse² / n + aux, n = max(Σ mask, 1), aux
     the MoE layers' load-balance term (0 without one); metrics ``loss``,
-    ``ce``, ``aux``, ``tokens`` as 0-d float32 tensors."""
+    ``ce``, ``aux``, ``tokens`` as 0-d float32 tensors.
+
+    A sharded model's (:func:`repro_torch.sharding.shard.shard_model`)
+    ``batch`` holds this rank's rows; the sums over them (nll, lse², mask)
+    are summed over ``data`` before the quotients, so the loss and the
+    metrics are the global batch's, on every rank."""
+    with shard.gathered(model):
+        return _loss(model, batch, train_cfg)
+
+
+def _loss(model: DecoderLM, batch: dict, train_cfg):
     hidden, aux = model(batch.get("tokens"), batch.get("positions"), frame_embeds=batch.get("frame_embeds"),
                         vision_embeds=batch.get("vision_embeds"), mrope_positions=batch.get("mrope_positions"))
     targets = torch.as_tensor(batch["targets"], dtype=torch.long, device=model.device)
     mask = batch.get("loss_mask")
     mask = (torch.ones(targets.shape, device=model.device) if mask is None
             else torch.as_tensor(mask, device=model.device).to(torch.float32))
-    nll, z2, cnt = _chunk_ce(model, hidden, targets, mask)
+    nll, z2, cnt = shard.data_sum(torch.stack(_chunk_ce(model, hidden, targets, mask)))
     cnt = cnt.clamp(min=1.0)
     ce = nll / cnt
     z_coef = getattr(train_cfg, "z_loss", 1e-4) if train_cfg else 1e-4

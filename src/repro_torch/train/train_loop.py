@@ -13,6 +13,16 @@ averaged; the metrics are the last microbatch's, as the reference's
 :func:`repro_torch.models.model.loss_fn`, so on the card they run through
 the FFT kernels' backward (``core/fft.py``'s autograd leaves).  Nothing is
 read back to the host: the metrics are 0-d device tensors (``lr`` a float).
+
+A sharded model (:func:`repro_torch.sharding.shard.shard_model`) takes the
+same step over its mesh: every rank is given the global batch and takes
+its data coordinate's rows of each microbatch
+(:func:`repro_torch.data.pipeline.host_batch_slice`; microbatch i is the
+global batch's i-th split, so the metrics equal one device's), and model
+ranks of one data coordinate take the same rows.  The loss is the global
+batch's; the backward sums the gradients over ``data`` (the units'
+reduce-scatter, or an all-reduce of a replicated parameter) and the
+optimizer updates each rank's shards.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.data.pipeline import host_batch_slice
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import shard
 from repro_torch.train import compression as comp_lib
 from repro_torch.train.optimizer import OptState, clip_by_global_norm, make_optimizer
 from repro_torch.train.schedule import make_schedule
@@ -36,11 +48,16 @@ class TrainState(NamedTuple):
     err_state: dict  # grad-compression residuals per reference leaf (empty without)
 
 
-def init_train_state(cfg, train_cfg, *, device=None, generator: Optional[torch.Generator] = None) -> TrainState:
+def init_train_state(cfg, train_cfg, *, device=None, generator: Optional[torch.Generator] = None,
+                     mesh=None, par=None) -> TrainState:
     """A fresh model of ``cfg`` (parameters from ``generator``; the card by
     default, ``device="cpu"`` for the plain route) and its optimizer and
-    error-feedback state."""
+    error-feedback state.  With a ``mesh`` (and its ``ParallelConfig``
+    ``par``) the model is sharded over it and the state is shards: every
+    rank draws the same values from the same seed and keeps its own."""
     model = model_lib.DecoderLM(cfg, device=device, generator=generator)
+    if mesh is not None:
+        shard.shard_model(model, mesh, par)
     opt_init, _ = make_optimizer(train_cfg)
     err = comp_lib.init_error_state(model) if train_cfg.grad_compression else {}
     return TrainState(step=0, model=model, opt_state=opt_init(model), err_state=err)
@@ -62,17 +79,28 @@ def make_train_step(cfg, train_cfg):
         # table: frame embeddings replace the lookup) gets a zero gradient,
         # as the reference's does.
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = [torch.zeros_like(shard.local(p)) if g is None else shard.local(g) for p, g in zip(params, grads)]
         return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
 
-    def accumulated_grads(model, batch):
+    def micro(model, batch):
+        """The microbatches, this rank's rows of each."""
         b = next(iter(batch.values())).shape[0]
-        if b % nmicro:
-            raise ValueError(f"batch of {b} rows does not split into {nmicro} microbatches")
+        shards = 1
+        if shard.is_sharded(model):
+            mesh, par = model._sharding
+            dim = mesh.mesh_dim_names.index(par.data_axis)
+            shards, index = mesh.size(dim), mesh.get_local_rank(dim)
+        if b % (nmicro * shards):
+            raise ValueError(f"batch of {b} rows does not split into {nmicro} microbatches "
+                             f"over {shards} data shards")
         per = b // nmicro
+        parts = [{k: v[i * per:(i + 1) * per] for k, v in batch.items()} for i in range(nmicro)]
+        return [host_batch_slice(p, index, shards) for p in parts] if shards > 1 else parts
+
+    def accumulated_grads(model, parts):
         acc, metrics = None, None
-        for i in range(nmicro):
-            grads, metrics = single_grads(model, {k: v[i * per:(i + 1) * per] for k, v in batch.items()})
+        for part in parts:
+            grads, metrics = single_grads(model, part)
             if acc is None:
                 acc = {k: g.float().clone() for k, g in grads.items()}
             else:
@@ -82,15 +110,15 @@ def make_train_step(cfg, train_cfg):
 
     def train_step(state: TrainState, batch: dict) -> tuple:
         model = state.model
-        batch = _to(batch, model.device)
+        parts = micro(model, _to(batch, model.device))
         if nmicro > 1:
-            grads, metrics = accumulated_grads(model, batch)
+            grads, metrics = accumulated_grads(model, parts)
         else:
-            grads, metrics = single_grads(model, batch)
+            grads, metrics = single_grads(model, parts[0])
         err_state = state.err_state
         if train_cfg.grad_compression:
             grads, err_state = comp_lib.compress_grads(grads, err_state, model)
-        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip, model)
         lr = schedule(state.step)
         new_opt = opt_update(grads, state.opt_state, model, lr)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)

@@ -23,6 +23,7 @@ __all__ = [
     "load_reference_model",
     "load_reference_train_state",
     "reference_leaves",
+    "param_axes",
 ]
 
 
@@ -104,6 +105,42 @@ def reference_leaves(module: nn.Module) -> dict:
         key = f"stack.unit.b{int(layer) % width}.{rest}"
         leaves[key] = (True, leaves.get(key, (True, ()))[1] + (name,))
     return leaves
+
+
+#: The reference's logical axes of each parameter, by the port's module
+#: class and attribute (the reference's ``Param(value, axes)`` of each
+#: layer's init).  A plain array leaf of the reference (a norm's scale) is
+#: replicated: ``(None,) * ndim``.
+AXES = {
+    "Embedding": {"table": ("vocab", "embed")},
+    "Head": {"w": ("embed", "vocab")},
+    "Attention": {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+                  "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")},
+    "MLP": {"wi_gate": ("embed", "ff"), "wi_up": ("embed", "ff"), "wo": ("ff", "embed")},
+    "MoE": {"router": ("embed", "experts"), "wi_gate": ("experts", "embed", "expert_ff"),
+            "wi_up": ("experts", "embed", "expert_ff"), "wo": ("experts", "expert_ff", "embed")},
+    "SpectralMixer": {"filt": ("embed", "filter"), "w_gate": ("embed", "ff"), "w_in": ("embed", "ff"),
+                      "w_out": ("ff", "embed")},
+    "Mamba2": {"w_in": ("embed", "ff"), "conv_w": ("conv", "ff"), "conv_b": ("ff",), "a_log": ("heads",),
+               "dt_bias": ("heads",), "d_skip": ("heads",), "w_out": ("ff", "embed")},
+    "MLSTM": {"w_up": ("embed", "ff"), "w_qkv": ("ff", "ff"), "w_if": ("ff", "heads"), "b_if": ("heads",),
+              "w_down": ("ff", "embed")},
+    "SLSTM": {"w_x": ("embed", "ff"), "w_h": ("embed", "ff"), "bias": ("ff",), "w_out": ("embed", "embed")},
+}
+
+
+def param_axes(module: nn.Module) -> dict:
+    """The reference's logical axes of each of ``module``'s parameters, by
+    the port's names: a layer's without the ``"layers"`` axis the
+    reference's stack prepends (the port keeps one parameter per layer;
+    :func:`reference_leaves` gives the stacked leaves)."""
+    out = {}
+    for prefix, sub in module.named_modules():
+        table = AXES.get(type(sub).__name__, {})
+        for name, p in sub.named_parameters(prefix=prefix, recurse=False):
+            attr = name.rpartition(".")[2]
+            out[name] = table.get(attr, (None,) * p.dim())
+    return out
 
 
 def _unstacked(values: Mapping, width: int) -> dict:

@@ -180,7 +180,8 @@ def test_zamba2_checkpoint_keeps_one_copy_of_the_shared_block(tmp_path):
 
 
 def test_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    # A sharded mesh needs its ranks: none here (no group, no torchrun).
+    with pytest.raises(ValueError, match="--mesh 2x1 needs 2 ranks"):
         train_launch.main(["--arch", "h2o-danube-1.8b", "--reduced", "--mesh", "2x1", "--device", "cpu"])
 
 

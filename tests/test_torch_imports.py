@@ -32,6 +32,8 @@ import repro_torch.train.train_loop
 import repro_torch.models.layers.moe, repro_torch.models.layers.ssm, repro_torch.models.layers.xlstm
 import repro_torch.configs.zamba2_2p7b, repro_torch.configs.xlstm_125m
 import repro_torch.configs.musicgen_large, repro_torch.configs.qwen2_vl_72b
+import repro_torch.sharding.logical, repro_torch.sharding.partition, repro_torch.sharding.shard
+import repro_torch.launch.mesh, repro_torch.launch.shardings
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")
