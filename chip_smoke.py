@@ -203,14 +203,49 @@ package), in phases, and fails on the first check that does not hold:
    collectives by kind and their bytes, peak, errors), ``sharded_rank``
    (launches), and each rank's distinct kernel calls against their plain
    versions ("kernel_check ... sharded" lines).  A gloo rank that refuses
-   CUDA tensors fails the phase.
+   CUDA tensors fails the phase;
+16. the dry run held against the card (``repro_torch.launch.dryrun``: a
+   cell's real step on fake tensors as rank 0 of a ``fake`` process group,
+   counted by ``repro_torch.analysis.trace``) — (e)'s production cells
+   start in a CPU-only subprocess (no card: ``CUDA_VISIBLE_DEVICES``
+   empty) while (a)–(d) run here: (a) phase 10 (c)'s step traced on a
+   fake 1×1 group, then two real steps of the one-device model (the first
+   profiled: ``torch.profiler``'s ``with_flops`` over the mm / bmm ops
+   that ran a kernel; the second timed, its peak after a reset): the
+   launches equal, the traced peak within 10 % of the measured (the
+   process's other tensors taken out), the traced dot flops within 1 %,
+   the trace's lower bound at most the measured step; (b) the same for
+   phase 8's 4096-token prefill, a decode step at 4 slots of the bf16
+   model and the step that flushes its spectral streams (the caches at
+   phase C − 1; kernels #1, #2, #6); (c) phase 14 (a)'s ``pfft`` at 2^24 × 32 and ``pfft2d`` at
+   4096 × 8192 × 32 traced at world 1 and run on one rank: the artifact's
+   leaf lengths, round trips and all-to-all count are the plan's that ran,
+   the launches equal, the traced bytes over 3.35 TB/s at most the
+   measured ms; (d) sharded serving: at world 1 over NCCL at full width,
+   float32, phase 8's prompts through the model's prefill and 16 greedy
+   steps, then the same weights on a 1×1 mesh: the same tokens, logits
+   within 1e-3·max|ref|, no collective; on four spawned gloo ranks on the
+   card, 2×2 (the parameters replicated over ``data``): h2o-danube-1.8b +
+   spectral at 4 layers and deepseek-moe-16b + spectral at 2 layers
+   (experts over ``model``), a prefill of each rank's rows and 8
+   teacher-forced decode steps within 1e-4·max|ref| of the one-device run
+   on the rank, every step's collectives equal to
+   ``shard.decode_collectives`` and to the trace of the same cell on a
+   fake group of 4; (e) h2o-danube-1.8b train_4k and decode_32k at 16×16,
+   arctic-480b train_4k at 2×16×16, deepseek-moe-16b prefill_32k at 16×16
+   and fftbench pod_16m at 16×16 through ``run_cell``: every record
+   printed, each ``ok``.  Lines: ``dryrun`` per case (launches, ms,
+   peaks, dot flops, the bound and its ratio to the measured time, the
+   card's name and power limit), ``dryrun_profiled``, ``dryrun_cell``
+   per cell, then each distinct kernel call this process made against
+   its plain version ("kernel_check ... dryrun" lines).
 
-Phases 2–8 and 10–15 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8 and 10–16 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 each set the launch counts to 0
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 each set the launch counts to 0
 before they start and read them when they end; every kernel of a path must
 have launched in it (phase 12's path has none, and must launch none).  Phases
 3–7 and 9 also run every one of their calls over a batch of 0: the output
@@ -218,7 +253,8 @@ must have np.fft's shape, and the call launches nothing (0 launches, not
 ``len(plan.passes)``).  The script then prints the per-kernel JSON line
 (each kernel's launches per path, ``hybrid_launches`` phase 12's,
 ``frontend_launches`` phase 13's, ``distributed_launches`` phase 14's and
-``sharded_launches`` phase 15's, their four ranks' included), the
+``sharded_launches`` phase 15's and ``dryrun_launches`` phase 16's,
+their four ranks' included), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -239,6 +275,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -328,8 +365,10 @@ ATTRS: dict = {}
 #: LMs served, which launch none), phase 13 (the frontends served: the
 #: spectral musicgen-large's layers), phase 14 (the distributed pencil
 #: FFT: its local plans, the 2-D plan's halves, the sharded conv's blocks)
-#: and phase 15 (sharded training: the mixers' rfft / irfft at 8192, 4096
-#: and 2048 points, forward and backward, on every rank).
+#: phase 15 (sharded training: the mixers' rfft / irfft at 8192, 4096
+#: and 2048 points, forward and backward, on every rank) and phase 16 (the
+#: real runs beside the dry run: phase 10's step, phase 8's prefill and
+#: serving, phase 14 (a)'s transforms, the four ranks' 512-token prompts).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -348,6 +387,7 @@ PATH_KERNELS = {
     "frontend": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "distributed": ("fft4step", "cols_pass", "rows_natural"),
     "sharded": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
+    "dryrun": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "rfft_recomb", "irfft_recomb"),
 }
 
 #: The kernels phase 14's four ranks must launch between them: the column
@@ -525,10 +565,15 @@ def kernel_phase(gen) -> dict:
         rows.setdefault("dft_matmul", row)
     del x, xc
 
-    # 2. fft4step: the whole-signal leaves, natural and k1-major order, the
-    # inverse through the slab, and the lengths phase 5 gives them (the
+    # 2. fft4step: its slab decision's shared memory is the library's, then
+    # the whole-signal leaves, natural and k1-major order, the inverse
+    # through the slab, and the lengths phase 5 gives them (the
     # 8192-point child of rfft 16384, the 2048-point rows of fft2
     # (131072, 2048)).
+    smem = build.function("repro_fft4step_smem_bytes", (build.I64,), build.I64)
+    for n in (1 << k for k in range(1, 25)):
+        check(fft4step.smem_bytes(n) == smem(n), f"fft4step.smem_bytes({n}) {fft4step.smem_bytes(n)}, "
+                                                 f"the library's {smem(n)}")
     for n, b, orders in ((4096, 4096, (True, False)), (16384, 4096, (True, False)),
                          (65536, 1024, (True, False, "inverse")), (8192, 8192, (True,)),
                          (2048, 131072, (True,))):
@@ -3916,6 +3961,502 @@ def sharded_path(gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+DRY_PEAK_TOL = 0.10  # the traced peak vs the measured, relative to the measured
+DRY_FLOPS_TOL = 0.01  # the traced dot flops vs the profiler's mm / bmm flops
+DRY_RANK_TOL = 1e-4  # (d) four ranks, float32, vs one device, relative to max|ref|
+DRY_WORLD1_STEPS = 16  # (d) greedy decode steps at world 1
+DRY_RANK_STEPS = 8  # (d) decode steps on the four ranks
+DRY_TIMEOUT = 300  # seconds, for (d)'s ranks and (e)'s cells
+DRY_BUDGET_S = 150  # seconds: phase 16 as a whole
+#: (d) four ranks: (label, config, layers, batch, prompt) at float32, 2×2,
+#: the parameters replicated over ``data`` (each decode step gathers only
+#: the weights a layer takes whole over ``model``).
+DRY_RANK_CASES = (("h2o-danube-1.8b + spectral", "serve", 4, 4, 512),
+                  ("deepseek-moe-16b + spectral", "moe", 2, 4, 256))
+#: (e) production cells through ``run_cell``: (arch, shape, 2x16x16?).
+DRY_CELLS = (("h2o-danube-1.8b", "train_4k", False), ("h2o-danube-1.8b", "decode_32k", False),
+             ("arctic-480b", "train_4k", True), ("deepseek-moe-16b", "prefill_32k", False),
+             ("fftbench", "pod_16m", False))
+#: The ops whose flops ``torch.profiler`` (``with_flops``) and the trace's
+#: ``dot_flops`` both count.
+DOT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+#: The two CPU-only subprocesses of phase 16: (a)–(d)'s traces, in the
+#: order they are read, and (e)'s cells; each prints one "dryrun_record"
+#: line per record.
+_TRACES = r"""
+import json, sys, warnings
+warnings.filterwarnings("ignore")
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+for key, rec in chip_smoke.dry_traces():
+    print("dryrun_record " + json.dumps([key, rec]), flush=True)
+"""
+_CELLS = r"""
+import json, sys, warnings
+warnings.filterwarnings("ignore")
+from repro_torch.launch import dryrun
+for arch, shape, multi in json.loads(sys.argv[2]):
+    rec = dryrun.run_cell(arch, shape, multi, force=True)
+    print("dryrun_record " + json.dumps([f"{arch} {shape} {multi}", rec]), flush=True)
+"""
+
+
+class Background:
+    """A subprocess that needs no card (``CUDA_VISIBLE_DEVICES`` empty)
+    tracing while the card works here: :meth:`get` waits for a record by
+    key, :meth:`close` stops the process."""
+
+    def __init__(self, code: str, *args: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": os.path.join(root, "src")}
+        self.proc = subprocess.Popen([sys.executable, "-c", code, root, *args], env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines: queue.Queue = queue.Queue()
+        self.records, self.other = [], []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def get(self, key: str) -> dict:
+        """The record ``key`` (failing the phase past DRY_TIMEOUT, or when
+        the process ends without it)."""
+        deadline = time.monotonic() + DRY_TIMEOUT
+        while True:
+            for k, rec in self.records:
+                if k == key:
+                    return rec
+            try:
+                line = self.lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise SmokeFailure(f"phase 16: no record {key!r} within {DRY_TIMEOUT} s")
+            check(line is not None, f"phase 16: the tracing process ended without {key!r}: "
+                                    + "".join(self.other[-40:]))
+            if line.startswith("dryrun_record "):
+                self.records.append(tuple(json.loads(line.split(" ", 1)[1])))
+            else:
+                self.other.append(line)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def traced(cfg, shape, mesh_shape=(1, 1), train_cfg=None, fsdp=None) -> dict:
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.trace_cell(cfg, shape, mesh_shape, train_cfg, fsdp=fsdp)
+    check(rec["status"] == "ok", f"phase 16: the trace of {shape.name} failed: {rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+    return rec
+
+
+def dry_traces():
+    """Every trace (a)–(d) holds against the card, in the order they are
+    read (run in :class:`Background`): phase 10 (c)'s step, with
+    ``torch.utils.checkpoint``'s early stop on and off; phase 8's prefill
+    and decode step; phase 14 (a)'s transforms at world 1; (d)'s cells on
+    a fake group of 4."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.configs import fftbench as fb
+    from repro_torch.configs.base import ShapeConfig
+
+    cfg = serve_config()
+    train = ShapeConfig("phase 10 (c)", TRAIN_SEQ, TRAIN_BATCH, "train")
+    yield "a", traced(cfg, train, train_cfg=train_config())
+    with set_checkpoint_early_stop(False):
+        yield "a early stop off", traced(cfg, train, train_cfg=train_config())
+    yield "b prefill", traced(cfg, ShapeConfig("phase 8 prefill", SERVE_PROMPTS[0], 1, "prefill"))
+    yield "b decode", traced(cfg, ShapeConfig("phase 8 decode", SERVE_MAX_LEN, SERVE_SLOTS, "decode"))
+    shapes = {s.name: s for s in fb.FFT_SHAPES}
+    for name in ("pod_16m", "sar_4kx8k"):
+        yield name, traced(fb.CONFIG, shapes[name])
+    for label, which, layers, batch, prompt in DRY_RANK_CASES:
+        yield label, traced(dry_rank_config(which, layers),
+                            ShapeConfig(label, prompt + DRY_RANK_STEPS, batch, "decode"), (2, 2), fsdp=False)
+
+
+def own_bytes(*objs) -> int:
+    """Bytes of the distinct storages of ``objs``' tensors on the card."""
+    from repro_torch.analysis.trace import live_tensors
+
+    seen = {}
+    for t in live_tensors(*objs):
+        if t.is_cuda:
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def measured_call(label: str, fn, args: tuple):
+    """``fn()`` once after a synchronisation and a reset of the peak:
+    (its result, ms on the host clock, the peak device bytes of the call
+    with ``args`` — what the trace counts live from the start — and
+    nothing else the process holds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    other = torch.cuda.memory_allocated() - own_bytes(*args)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - other
+
+
+def profiled_dot_flops(fn) -> float:
+    """The mm / bmm flops of ``fn()`` by ``torch.profiler``'s ``with_flops``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.name in DOT_OPS and e.flops]
+    print("dryrun_profiled " + json.dumps({"dot_ops": len(events)}), flush=True)
+    return float(sum(e.flops for e in events))
+
+
+def held_to_trace(label: str, rec: dict, launches: dict, ms: float, peak: int, flops=None, smi: str = "") -> dict:
+    """A real call against its trace: launches equal, the peak within
+    DRY_PEAK_TOL, the dot flops within DRY_FLOPS_TOL (where measured), the
+    trace's lower bound at most the measured time."""
+    pc = rec["per_chip"]
+    traced_launches = {k: int(v) for k, v in rec["launches"].items()}
+    check(launches == traced_launches, f"phase 16 {label}: launches {launches}, the trace's {traced_launches}")
+    peak_err = abs(pc["peak_memory_bytes"] - peak) / peak
+    check(peak_err <= DRY_PEAK_TOL, f"phase 16 {label}: traced peak {pc['peak_memory_bytes']} vs measured {peak}")
+    row = {"case": label, "launches": launches, "ms": ms, "peak_bytes": peak,
+           "traced_peak_bytes": pc["peak_memory_bytes"], "peak_rel_err": peak_err,
+           "traced_dot_flops": pc["dot_flops"], "traced_bytes": pc["hbm_bytes"],
+           "bound_ms": rec["roofline"]["step_lower_bound_s"] * 1e3, "bound_by": rec["roofline"]["bound"],
+           "bound_over_measured": rec["roofline"]["step_lower_bound_s"] * 1e3 / ms, "eager_ops": pc["eager_ops"],
+           "card": smi}
+    check(row["bound_ms"] <= ms, f"phase 16 {label}: the trace's bound {row['bound_ms']:.2f} ms > measured {ms:.2f}")
+    if flops is not None:
+        err = abs(pc["dot_flops"] - flops) / flops
+        check(err <= DRY_FLOPS_TOL, f"phase 16 {label}: traced dot flops {pc['dot_flops']} vs profiled {flops}")
+        row.update(profiled_dot_flops=flops, dot_flops_rel_err=err)
+    print("dryrun " + json.dumps(row), flush=True)
+    return row
+
+
+def delta(before: dict) -> dict:
+    now = kernels.counts()
+    return {k: v - before[k] for k, v in now.items() if v != before[k]}
+
+
+def dry_train(traces: Background, smi: str) -> None:
+    """(a): phase 10 (c)'s step traced on a fake 1×1 group, then two real
+    steps of the one-device model: the first profiled (its mm / bmm flops),
+    the second timed with its peak.  The profiled step and a second trace
+    run with ``torch.utils.checkpoint``'s early stop off: with it on, the
+    profiler records the product each block's recompute stops at (its
+    saved input ends the recompute before the product runs), which no
+    kernel computes and no trace sees."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    cfg, tc = serve_config(), train_config()
+    state = init_train_state(cfg, tc, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = shard_batch(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0)
+    step = make_train_step(cfg, tc)
+    ran = {}
+    with set_checkpoint_early_stop(False):
+        flops = profiled_dot_flops(lambda: ran.update(out=step(state, batch)))
+    state = ran.pop("out")[0]
+    before = kernels.counts()
+    (state, met), ms, peak = measured_call("train", lambda: step(state, batch), (state, batch))
+    check(math.isfinite(float(met["loss"])), "phase 16 (a): a non-finite loss")
+    launches = delta(before)
+    rec, full = traces.get("a"), traces.get("a early stop off")
+    check(rec["launches"] == {k: float(v) for k, v in step_expect(state.model, TRAIN_SEQ).items()},
+          f"phase 16 (a): traced launches {rec['launches']}, phase 10's {step_expect(state.model, TRAIN_SEQ)}")
+    err = abs(full["per_chip"]["dot_flops"] - flops) / flops
+    check(err <= DRY_FLOPS_TOL, f"phase 16 (a): traced dot flops {full['per_chip']['dot_flops']} (early stop "
+                                f"off) vs profiled {flops}")
+    row = held_to_trace("(a) train B 2 S 4096", rec, launches, ms, peak, smi=smi)
+    print("dryrun " + json.dumps({"case": "(a) dot flops, checkpoint early stop off",
+                                  "traced_dot_flops": full["per_chip"]["dot_flops"], "profiled_dot_flops": flops,
+                                  "dot_flops_rel_err": err, "early_stop_saves": full["per_chip"]["dot_flops"]
+                                  - row["traced_dot_flops"], "card": smi}), flush=True)
+    del state, batch, step, ran
+    torch.cuda.empty_cache()
+
+
+def dry_serve(traces: Background, smi: str) -> None:
+    """(b): phase 8's 4096-token prefill, a decode step at 4 slots of the
+    bf16 model, and the step that flushes its spectral streams (the caches
+    at phase C − 1), each traced at 1×1 and run once profiled, once timed;
+    the flush step launches kernel #6 and #1 or #2."""
+    cfg = serve_config()
+    with torch.no_grad():
+        model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        ids = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPTS[0]), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(16))
+        model.prefill(ids)  # plans and LUTs made once, as a served model's are
+        flops = profiled_dot_flops(lambda: model.prefill(ids))
+        before = kernels.counts()
+        _, ms, peak = measured_call("prefill", lambda: model.prefill(ids), (model, ids))
+        held_to_trace("(b) prefill 4096", traces.get("b prefill"), delta(before), ms, peak, flops, smi)
+        caches = model.cache_init(SERVE_SLOTS, SERVE_MAX_LEN, dtype=torch.bfloat16)
+        tok = ids[0, :SERVE_SLOTS].clone()
+        t = SERVE_MAX_LEN - 1
+        model.decode_step(tok, caches, t)
+        flops = profiled_dot_flops(lambda: model.decode_step(tok, caches, t))
+        before = kernels.counts()
+        _, ms, peak = measured_call("decode", lambda: model.decode_step(tok, caches, t), (model, tok, caches))
+        rec = traces.get("b decode")
+        held_to_trace("(b) decode step 4 slots", rec, delta(before), ms, peak, flops, smi)
+        c = model.stack[0].mixer.grain[0]
+        check(rec.get("decode_cycle", {}).get("chunk") == c, f"phase 16 (b): the trace's cycle, C = {c}")
+        flushing = [x._replace(phase=c - 1) if isinstance(x, SpectralStreamCache) else x for x in caches]
+        model.decode_step(tok, flushing, t)
+        flops = profiled_dot_flops(lambda: model.decode_step(tok, flushing, t))
+        before = kernels.counts()
+        _, ms, peak = measured_call("flush", lambda: model.decode_step(tok, flushing, t), (model, tok, flushing))
+        row = held_to_trace("(b) flush step 4 slots", rec["flush_step"], delta(before), ms, peak, flops, smi)
+        check({"rfft_recomb", "irfft_recomb"} < set(row["launches"]),
+              f"phase 16 (b): the flush step launched {row['launches']}")
+    del model, caches, flushing
+    torch.cuda.empty_cache()
+
+
+def dry_fft(traces: Background, gen, smi: str) -> None:
+    """(c): phase 14 (a)'s ``pfft`` at 2^24 × 32 and ``pfft2d`` at 4096 ×
+    8192 × 32, traced at world 1 and run on one rank: the artifact's plan
+    is the plan that ran, the launches equal, the traced bytes over 3.35
+    TB/s at most the measured ms."""
+    from repro_torch.configs import fftbench as fb
+
+    shapes = {s.name: s for s in fb.FFT_SHAPES}
+    for name in ("pod_16m", "sar_4kx8k"):
+        shape = shapes[name]
+        rec = traces.get(name)
+        info = rec["fft_plan"]
+        if shape.kind == "fft1d":
+            n, b = POD_16M
+            pl = D.plan_pencil(n, 1)
+            ran = {"leaf_lengths": [pl.n1, pl.n2], "a2a_count": pl.a2a_count(True),
+                   "hbm_round_trips": max(p.fft_plan.hbm_round_trips for p in (pl.plan_n1, pl.plan_n2))}
+            x = planes(gen, b, n)
+            run = lambda: D.pfft(*x, n=n)  # noqa: E731
+        else:
+            n1, n2, b = SAR_SCENE
+            ran = {"leaf_lengths": [n1, n2],
+                   "hbm_round_trips": F.plan(F.FFTSpec(n=n2, kind="fft2", n2=n1)).fft_plan.hbm_round_trips}
+            x = planes(gen, b, n1, n2)
+            run = lambda: D.pfft2d(*x, n1=n1, n2=n2)  # noqa: E731
+        check({k: info[k] for k in ran} == ran, f"phase 16 (c) {name}: the artifact's plan {info}, ran {ran}")
+        run()
+        ms = time_ms(run, reps=3, warmup=0)
+        before = kernels.counts()
+        run()
+        torch.cuda.synchronize()
+        launches = delta(before)
+        traced_launches = {k: int(v) for k, v in rec["launches"].items()}
+        check(launches == traced_launches, f"phase 16 (c) {name}: launches {launches}, traced {traced_launches}")
+        bound = rec["per_chip"]["hbm_bytes"] / HBM_BYTES_PER_S * 1e3
+        check(bound <= ms, f"phase 16 (c) {name}: traced bytes over HBM {bound:.2f} ms > measured {ms:.2f}")
+        print("dryrun " + json.dumps({"case": f"(c) {name}", "fft_plan": ran, "launches": launches, "ms": ms,
+                                      "traced_bytes": rec["per_chip"]["hbm_bytes"], "bytes_bound_ms": bound,
+                                      "bound_over_measured": bound / ms, "card": smi}), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
+def serve_rows(model, ids, prompt: int, steps: int, greedy: bool) -> tuple:
+    """A prefill of ``ids[:, :prompt]`` and ``steps`` decode steps (greedy,
+    or fed ``ids`` after the prompt): (float32 logits per step (steps + 1,
+    rows, vocab) on the host, the tokens fed, each decode step's
+    collectives, each decode step's ms on the host clock)."""
+    logits, caches = model.prefill(ids[:, :prompt])
+    caches = model.prepare_decode_caches(caches, prompt + steps)
+    rows, fed, colls, ms = [logits.float().cpu()], [], [], []
+    for i in range(steps):
+        tok = logits.argmax(-1) if greedy else ids[:, prompt + i]
+        fed.append(tok.cpu())
+        shard.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(tok, caches, prompt + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        colls.append(shard.counts()["counts"])
+        rows.append(logits.float().cpu())
+    return torch.stack(rows), torch.stack(fed, 1), colls, ms
+
+
+def dry_sharded_world1(smi: str) -> None:
+    """(d) at world 1 over NCCL, full width, float32: phase 8's prompts
+    through the model's prefill and 16 greedy steps, unsharded, then the
+    same weights sharded on a 1×1 mesh: the same tokens, logits within
+    phase 8's 1e-3·max|ref|, 0 collectives."""
+    from repro_torch.launch.mesh import make_mesh, parallel_config_for
+
+    cfg = dataclasses.replace(serve_config(), compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    with torch.no_grad():
+        model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        prompts = [torch.randint(0, cfg.vocab_size, (1, s), device="cuda", generator=gen) for s in SERVE_PROMPTS]
+        want = [serve_rows(model, p, p.shape[1], DRY_WORLD1_STEPS, True) for p in prompts]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            shard.shard_model(model, mesh, parallel_config_for(mesh))
+            for p, (ref, ref_tok, _, ref_ms) in zip(prompts, want):
+                got, tok, colls, ms = serve_rows(model, p, p.shape[1], DRY_WORLD1_STEPS, True)
+                err = ((got - ref).abs().max() / ref.abs().max()).item()
+                check(torch.equal(tok, ref_tok), f"phase 16 (d) world 1 prompt {p.shape[1]}: tokens differ")
+                check(err <= SERVE_TOL, f"phase 16 (d) world 1 prompt {p.shape[1]}: logits off by {err:.3e}")
+                check(not any(colls), f"phase 16 (d) world 1: collectives {colls}")
+                print("dryrun " + json.dumps({"case": "(d) world 1", "backend": "nccl", "prompt": p.shape[1],
+                                              "steps": DRY_WORLD1_STEPS, "rel_err": err, "tokens_equal": True,
+                                              "step_ms": statistics.median(ms[1:]),
+                                              "unsharded_step_ms": statistics.median(ref_ms[1:]), "card": smi}),
+                      flush=True)
+        finally:
+            dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+
+
+def dry_rank_config(which: str, layers: int):
+    return dataclasses.replace(serve_config() if which == "serve" else moe_config(), num_layers=layers,
+                               compute_dtype="float32")
+
+
+def dry_rank_cases(rank: int, world: int, port: int, smi: str) -> dict:
+    """(d) on one of four gloo ranks on the card: each case's one-device
+    run here, then the same weights sharded 2×2, a prefill of this rank's
+    rows and 8 decode steps against the one-device rows at 1e-4·max|ref|,
+    every decode step's collectives = ``shard.decode_collectives``."""
+    from repro_torch.launch.mesh import make_mesh, parallel_config_for
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        gloo_cuda_probe("phase 16", rank, world, ("all_gather_into_tensor", "all_reduce"))
+        mesh = make_mesh((2, 2), ("data", "model"))
+        records = []
+        with torch.no_grad():
+            for label, which, layers, batch, prompt in DRY_RANK_CASES:
+                cfg = dry_rank_config(which, layers)
+                ids = torch.randint(0, cfg.vocab_size, (batch, prompt + DRY_RANK_STEPS), device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(16))
+                model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+                ref, _, _, ref_ms = serve_rows(model, ids, prompt, DRY_RANK_STEPS, False)
+                shard.shard_model(model, mesh, parallel_config_for(mesh))
+                got, _, colls, ms = serve_rows(model, shard.data_rows(model, ids), prompt, DRY_RANK_STEPS, False)
+                per = batch // mesh.size(0)
+                mine = ref[:, mesh.get_local_rank(0) * per:(mesh.get_local_rank(0) + 1) * per]
+                err = ((got - mine).abs().max() / ref.abs().max()).item()
+                check(err <= DRY_RANK_TOL, f"phase 16 (d) {label} rank {rank}: logits off by {err:.3e}")
+                schedule = shard.decode_collectives(model)
+                check(all(c == schedule for c in colls),
+                      f"phase 16 (d) {label} rank {rank}: collectives {colls}, the schedule's {schedule}")
+                records.append({"case": label, "mesh": "2x2", "layers": layers, "batch": batch, "prompt": prompt,
+                                "steps": DRY_RANK_STEPS, "rel_err": err, "collectives": schedule,
+                                "step_ms": statistics.median(ms[1:]), "one_device_step_ms": statistics.median(ref_ms[1:])})
+                del model
+                torch.cuda.empty_cache()
+        return {"records": records, "launches": kernels.counts()}
+    finally:
+        dist.destroy_process_group()
+
+
+def dry_sharded_ranks(background: Background, smi: str) -> dict:
+    """(d) on four gloo ranks, each case's decode collectives also held to
+    the dry run's trace of the same cell on a fake group of 4; returns the
+    ranks' launches."""
+    ranks = spawn_ranks("phase 16", dry_rank_cases, (smi,), 4, DRY_TIMEOUT)
+    traces = {}
+    for label, *_ in DRY_RANK_CASES:
+        counts = background.get(label)["per_chip"]["collective_count_by_type"]
+        traces[label] = {k: int(v) for k, v in counts.items()}
+    launches = {}
+    for r in sorted(ranks):
+        for rec in ranks[r]["records"]:
+            check(rec["collectives"] == traces[rec["case"]],
+                  f"phase 16 (d) {rec['case']}: collectives {rec['collectives']}, traced {traces[rec['case']]}")
+            print("dryrun " + json.dumps({"rank": r, "backend": "gloo", "traced_collectives": traces[rec["case"]],
+                                          "card": smi, **rec}), flush=True)
+        for key, count in ranks[r]["launches"].items():
+            launches[key] = launches.get(key, 0) + count
+    return launches
+
+
+def dry_cells(cells: Background) -> None:
+    """(e): every production cell's record line; each ``ok`` (none of
+    them is a ``long_500k`` cell, the only ones that may refuse)."""
+    for arch, shape, multi in DRY_CELLS:
+        rec = dict(cells.get(f"{arch} {shape} {multi}"))
+        rec.pop("traceback", None)
+        print("dryrun_cell " + json.dumps(rec), flush=True)
+        check((rec["arch"], rec["shape"], rec["mesh"]) == (arch, shape, "2x16x16" if multi else "16x16"),
+              f"phase 16 (e): the record of {rec['arch']} {rec['shape']} {rec['mesh']} out of order")
+        check(rec["status"] == "ok",
+              f"phase 16 (e) {rec['arch']} {rec['shape']} {rec['mesh']}: {rec.get('error')}")
+
+
+def dryrun_phase(gen) -> dict:
+    """Phase 16: the traces of (a)–(d) and (e)'s cells start in two CPU-only
+    subprocesses, then (a)–(d) run here; returns (d)'s ranks' launches."""
+    smi = card_line()
+    traces, cells = Background(_TRACES), Background(_CELLS, json.dumps(DRY_CELLS))
+    try:
+        for label, run in (("(a)", lambda: dry_train(traces, smi)), ("(b)", lambda: dry_serve(traces, smi)),
+                           ("(c)", lambda: dry_fft(traces, gen, smi)),
+                           ("(d) world 1", lambda: dry_sharded_world1(smi))):
+            t0 = time.perf_counter()
+            run()
+            print(f"phase 16 {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        ranks = dry_sharded_ranks(traces, smi)
+        print(f"phase 16 (d) four ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        dry_cells(cells)
+        print(f"phase 16 (e): waited {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        traces.close()
+        cells.close()
+    return ranks
+
+
+def dryrun_path(gen) -> dict:
+    """Phase 16 as one path: the counts at 0, :func:`dryrun_phase`, every
+    kernel of the path launched and no plain version; then each distinct
+    kernel call this process made against its plain version, untimed (the
+    traces launch nothing: their fake tensors stay on the host)."""
+    t0 = time.perf_counter()
+    ranks_launches = {}
+
+    def phase(g):
+        ranks_launches.update(dryrun_phase(g))
+        return ranks_launches
+
+    with tune_env("off"), recorded_calls() as seen:
+        launches = path_launches("dryrun", phase, gen)
+    took = time.perf_counter() - t0
+    print(f"phase 16: {took:.1f} s, {len(seen)} distinct kernel calls here", flush=True)
+    check(took <= DRY_BUDGET_S, f"phase 16 took {took:.1f} s, past its {DRY_BUDGET_S} s")
+    own = {k: v - ranks_launches.get(k, 0) for k, v in launches.items()}
+    path_kernel_rows("dryrun", seen, own, gen, timed=False)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -3985,9 +4526,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         distributed = distributed_path(gen)
         sharded = sharded_path(gen)
+        dryrun = dryrun_path(gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
                     + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name]
-                    + distributed[name] + sharded[name] for name in SOURCES}
+                    + distributed[name] + sharded[name] + dryrun[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -4000,6 +4542,7 @@ def main() -> int:
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
             "hybrid_launches": hybrid[name], "frontend_launches": frontend[name],
             "distributed_launches": distributed[name], "sharded_launches": sharded[name],
+            "dryrun_launches": dryrun[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

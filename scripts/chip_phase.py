@@ -11,13 +11,19 @@ card over gloo, the ``pencil`` lines, then "kernel_check ... distributed"
 lines) or phase 15 (sharded training: one rank over NCCL, then four
 spawned ranks on the card over gloo, the ``sharded`` lines, then
 "kernel_check ... sharded" lines; run alone, it first takes phase 10 (c)'s
-unsharded steps for (a)'s baseline).
+unsharded steps for (a)'s baseline) or phase 16 (the dry run held against
+the card: traces of phase 10 (c)'s step, phase 8's prefill, decode step and
+flush step and phase 14 (a)'s transforms against the real runs, sharded serving at
+world 1 and on four gloo ranks, the production cells through
+``run_cell``; the ``dryrun`` and ``dryrun_cell`` lines, then
+"kernel_check ... dryrun" lines).
 
     python3 scripts/chip_phase.py 11
     python3 scripts/chip_phase.py 12
     python3 scripts/chip_phase.py 13
     python3 scripts/chip_phase.py 14
     python3 scripts/chip_phase.py 15
+    python3 scripts/chip_phase.py 16
 
 A quicker loop than the whole smoke run while a serving path changes; the
 smoke run stays the proof.  Exits 1 on the first failed check.
@@ -36,7 +42,7 @@ import chip_smoke as cs  # noqa: E402
 
 #: Phase → (its path's name in ``chip_smoke.PATH_KERNELS``, the phase).
 PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase), 13: ("frontend", cs.frontend_phase),
-          14: ("distributed", None), 15: ("sharded", None)}
+          14: ("distributed", None), 15: ("sharded", None), 16: ("dryrun", None)}
 
 
 def main(argv) -> int:
@@ -60,8 +66,8 @@ def main(argv) -> int:
     path, run = PHASES[phase]
     t0 = time.perf_counter()
     try:
-        if run is None:  # phases 14 and 15 drive their own paths, ranks and all
-            (cs.distributed_path if phase == 14 else cs.sharded_path)(gen)
+        if run is None:  # phases 14–16 drive their own paths, ranks and all
+            {14: cs.distributed_path, 15: cs.sharded_path, 16: cs.dryrun_path}[phase](gen)
             print(f"phase {phase} alone: {time.perf_counter() - t0:.1f} s", flush=True)
             return 0
         with cs.tune_env("off"), cs.recorded_calls() as seen, torch.no_grad():

@@ -17,11 +17,15 @@ re-basing it on the port's kernels).
 (:mod:`repro_torch.core.distributed`): its all-to-all bytes divide by the
 card's link rate in one direction, its local bytes by the HBM rate.
 
-The other half of the reference module reads XLA HLO (``collective_bytes``,
-``roofline_terms``, ``model_flops``, ``summarize_cell``: ROADMAP A8) or
-models the ``pallas_gpu`` programs (``gpu_program_report``,
-``gpu_plan_report``, ``xla_gpu_fft_bytes``: the port has one backend on the
-card and no crossover to model).
+The dry run's half: :func:`collective_bytes` reads a trace
+(:class:`repro_torch.analysis.trace.TraceCost`) where the reference parses
+HLO text, :func:`roofline_terms` divides a cell's flops, bytes and
+collective bytes by :data:`H100`'s rates (flops by the peak of their dtype
+where given a ``{dtype: flops}`` mapping), :func:`model_flops` is 6·N·D and
+:func:`summarize_cell` prints one record.  The reference's models of the
+``pallas_gpu`` programs (``gpu_program_report``, ``gpu_plan_report``,
+``xla_gpu_fft_bytes``) stay unported: the port has one backend on the card
+and no crossover to model.
 """
 
 from __future__ import annotations
@@ -40,6 +44,10 @@ __all__ = [
     "fft2_fallback_report",
     "conv_report",
     "pencil_report",
+    "collective_bytes",
+    "model_flops",
+    "roofline_terms",
+    "summarize_cell",
 ]
 
 
@@ -365,3 +373,74 @@ def pencil_report(
         "serial_s": serial,
         "overlap_win": serial / modeled if modeled else float("inf"),
     }
+
+
+def collective_bytes(cost) -> dict:
+    """Per-rank collective payload bytes by kind, from a trace (the
+    reference's keys; its HLO walk's loop flag is always 0 here: a Python
+    loop runs and is counted)."""
+    return {
+        "per_device_bytes": float(cost.collective_bytes),
+        "by_type": dict(cost.collective_by_type),
+        "num_ops": float(cost.collective_ops),
+        "unknown_trip_loops": int(cost.unknown_trip_loops),
+    }
+
+
+def model_flops(n_params_active: int, tokens: int) -> float:
+    """6·N·D — the useful-FLOPs yardstick (N = active params)."""
+    return 6.0 * n_params_active * tokens
+
+
+def _peak(hw: HW, dtype: str) -> float:
+    """The peak a dtype's flops run at: bf16 / fp16 on the tensor cores,
+    fp32 (TF32 off, the port's setting) and everything else on the CUDA
+    cores."""
+    return hw.peak_flops_bf16 if dtype in ("bf16", "bfloat16", "float16", "f16") else hw.peak_flops_f32
+
+
+def roofline_terms(
+    flops_per_chip,
+    bytes_per_chip: float,
+    coll_bytes_per_chip: float,
+    hw: HW = H100,
+    dtype: str = "bf16",
+) -> dict:
+    """The compute, memory and collective terms of one step on one card
+    and the bound among them, with the reference's keys.  ``flops_per_chip``
+    is a count (all at ``dtype``'s peak, as the reference charges it) or a
+    ``{dtype: flops}`` mapping, each part at its own dtype's peak: the
+    port's fp32 GEMMs (the spectral mixer's, TF32 off) at 67 TFLOP/s and
+    its bf16 ones at 989."""
+    if isinstance(flops_per_chip, dict):
+        t_c = sum(f / _peak(hw, dt) for dt, f in flops_per_chip.items())
+    else:
+        t_c = flops_per_chip / _peak(hw, dtype)
+    t_m = bytes_per_chip / hw.hbm_bw
+    t_x = coll_bytes_per_chip / hw.link_bw
+    dom = max(("compute", t_c), ("memory", t_m), ("collective", t_x), key=lambda kv: kv[1])
+    return {
+        "compute_s": t_c,
+        "memory_s": t_m,
+        "collective_s": t_x,
+        "bound": dom[0],
+        "step_lower_bound_s": dom[1],
+        # fraction of roofline the *dominant* resource achieves if the other
+        # two overlap perfectly; the perf loop drives the dominant term down.
+        "balance": {
+            "compute": t_c / dom[1] if dom[1] else 0.0,
+            "memory": t_m / dom[1] if dom[1] else 0.0,
+            "collective": t_x / dom[1] if dom[1] else 0.0,
+        },
+    }
+
+
+def summarize_cell(record: dict, hw: HW = H100) -> str:
+    r = record
+    t = r["roofline"]
+    return (
+        f"{r['arch']:18s} {r['shape']:12s} {r['mesh']:9s} "
+        f"C={t['compute_s']*1e3:9.2f}ms M={t['memory_s']*1e3:9.2f}ms "
+        f"X={t['collective_s']*1e3:9.2f}ms bound={t['bound']:10s} "
+        f"useful={r.get('useful_flops_frac', 0):5.1%}"
+    )

@@ -5,8 +5,9 @@ for field, ``ShapeConfig`` and ``LM_SHAPES``.  ``ParallelConfig`` (how
 :mod:`repro_torch.sharding` maps logical axes onto a ``DeviceMesh``) and
 ``TrainConfig`` with the reference's defaults.  ``get_config(arch_id)`` resolves a registry name to
 the ``ModelConfig`` in its own module under ``repro_torch.configs``.  The
-registry knows every name the reference knows; ``fftbench``, the paper's
-benchmark, raises ``NotImplementedError`` naming ``ROADMAP.md`` A1.
+registry knows every name the reference knows, in its order, ``fftbench``
+(the paper's benchmark, :mod:`repro_torch.configs.fftbench`) among them;
+``shapes_for`` gives an arch's shape cells as the reference's.
 
 Of the execution fields the port reads ``compute_dtype``, ``param_dtype``,
 ``attn_chunk``, ``attn_chunk_threshold``, ``kv_cache_dtype``,
@@ -28,6 +29,7 @@ __all__ = [
     "ShapeConfig",
     "LM_SHAPES",
     "get_config",
+    "shapes_for",
     "list_archs",
     "register",
 ]
@@ -187,22 +189,21 @@ LM_SHAPES: dict[str, ShapeConfig] = {
 }
 
 
-#: Registry names whose configurations the port resolves.
+#: Registry names whose configurations the port resolves, in the
+#: reference's order.
 _REGISTRY: dict[str, str] = {
-    "arctic-480b": "repro_torch.configs.arctic_480b",
-    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
-    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
-    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
+    "fftbench": "repro_torch.configs.fftbench",
 }
-
-#: The reference's other registry name: the paper's benchmark.
-_NOT_PORTED = ("fftbench",)
 
 _EXTRA: dict[str, ModelConfig] = {}
 
@@ -219,9 +220,15 @@ def list_archs() -> list[str]:
 def get_config(arch: str) -> ModelConfig:
     if arch in _EXTRA:
         return _EXTRA[arch]
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet: it waits for the paper's benchmark, "
-                                  f"ROADMAP.md A1; ported: {sorted(_REGISTRY)}")
     if arch not in _REGISTRY:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY) + sorted(_NOT_PORTED)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[arch]).CONFIG
+
+
+def shapes_for(arch: str) -> list[ShapeConfig]:
+    """The arch's shape cells (its module's ``SHAPES``, else train_4k,
+    prefill_32k and decode_32k; none for ``fftbench``, whose cells are
+    its ``FFT_SHAPES``)."""
+    mod = importlib.import_module(_REGISTRY[arch])
+    names = getattr(mod, "SHAPES", ["train_4k", "prefill_32k", "decode_32k"])
+    return [LM_SHAPES[n] for n in names if n in LM_SHAPES]

@@ -67,7 +67,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import faults
+from repro_torch.core import fake, faults
 from repro_torch.core import fft as fft_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import twiddle as tw
@@ -262,7 +262,7 @@ class PencilPlan:
                 f"K={self.a2a_chunks}, device={self.device!r})")
 
 
-@functools.lru_cache(maxsize=256)
+@fake.device_cache(maxsize=256)
 def _pencil_plan_cached(n: int, d: int, inverse: bool, device: str, mode: str, factors: Optional[tuple],
                         pack: Optional[bool], chunks: Optional[int], natural_order: bool) -> PencilPlan:
     from repro_torch.core import tuning  # lazy: tuning plans through here

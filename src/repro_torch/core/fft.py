@@ -73,7 +73,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 import json
 import math
 from typing import Callable, Optional, Tuple, Union
@@ -81,6 +80,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import fake
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.faults import NumericsError, PlanError
 
@@ -211,7 +211,10 @@ def available_backends() -> tuple:
 
 
 def _backend_for(device: torch.device) -> Backend:
-    """The first registered backend that runs on ``device``'s type."""
+    """The first registered backend that runs on ``device``'s type (under
+    the dry run's fake mode, the card's)."""
+    if fake.active():
+        return _REGISTRY["cuda"]
     for entry in _REGISTRY.values():
         if device.type in entry.device_types:
             return entry
@@ -762,6 +765,8 @@ def _energy(arrays) -> float:
 
 
 def _resolve_device(device) -> torch.device:
+    if fake.active():  # the dry run: every device is the simulated card
+        return fake.card()
     if device is None:
         if not torch.cuda.is_available():
             raise PlanError(
@@ -841,7 +846,7 @@ def clear_plan_log() -> None:
     _PLAN_LOG.clear()
 
 
-@functools.lru_cache(maxsize=256)
+@fake.device_cache(maxsize=256)
 def _plan_cached(spec: FFTSpec, device: str, tune: str = "model") -> PlannedFFT:
     planned = _build_plan(spec, device, tune)
     _PLAN_LOG.append((spec, planned.backend.name))

@@ -80,6 +80,11 @@ def memory_budget(device_kind=None) -> int:
     if device_kind is None or not isinstance(device_kind, str):
         import torch
 
+        from repro_torch.core import fake
+
+        if fake.active():  # the dry run's simulated card
+            return fake.CARD_SMEM
+
         device = torch.device("cuda" if device_kind is None else device_kind)
         if device.type != "cuda" or not torch.cuda.is_available():
             return VMEM_BUDGET

@@ -54,7 +54,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import fake, faults
 
 __all__ = [
     "TUNE_MODES",
@@ -151,6 +151,8 @@ def device_key(device=None) -> str:
     """The hardware half of every cache key: the card's name for a CUDA
     device (None: the current card when there is one), ``"cpu"`` off it.
     A config tuned on one card must not leak onto another."""
+    if fake.active():
+        return fake.CARD_NAME
     device = torch.device(device) if device is not None else None
     if device is None:
         if not torch.cuda.is_available():
@@ -604,6 +606,12 @@ class TuningSpace:
             return self.candidates[0][0]
         key = f"{KEY_PREFIX}|{device_key(self.device)}|{self.key}"
         hit = cache.get(key)
+        if fake.active():
+            # The simulated card times nothing and writes nothing: a cached
+            # winner, else the model's pick.
+            if hit is not None:
+                return hit["config"]
+            return prune_candidates(self.candidates, tol=PRUNE_TOL, vmem_budget=self.budget)[0][0]
         if hit is not None and (mode == "model" or hit.get("mode") == "measure"):
             return hit["config"]
         survivors = prune_candidates(self.candidates, tol=PRUNE_TOL, vmem_budget=self.budget)

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fake
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
@@ -156,7 +157,7 @@ def bluestein_fwd_call(xr, xi, luts, *, n: int, m_pad: int, in1: int = 0):
     split of the slab form (0: the balanced split)."""
     _check_fused("bluestein_fwd", n, m_pad, in1)
     _check("bluestein_fwd", xr, xi, n, luts, [(n,)] * 2 + [(m_pad,)] * 4)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return bluestein_fwd_plain(xr, xi, luts, n=n, m_pad=m_pad)
     return _launch_fwd(xr, xi, luts, n, m_pad, in1)
 
@@ -169,6 +170,8 @@ def _launch_fwd(xr, xi, luts, n, m_pad, in1=0):
     if xr.numel() == 0:  # an empty batch: nothing to launch
         return yr, yi
     mr, mi, n1 = _slab(xr, m_pad, in1)
+    if fake.launch("bluestein_fwd", (xr, xi, *luts), (yr, yi), (mr, mi), n=n, m_pad=m_pad):
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_bluestein_fwd", _FWD)(
         b, n, m_pad, n1, p(xr), p(xi), *map(p, luts), p(yr), p(yi), p(mr), p(mi),
@@ -195,7 +198,7 @@ def bluestein_inv_call(xr, xi, luts, *, n: int, m_pad: int, in1: int = 0):
     in for an outer inverse).  ``in1`` as :func:`bluestein_fwd_call`'s."""
     _check_fused("bluestein_inv", n, m_pad, in1)
     _check("bluestein_inv", xr, xi, m_pad, luts, [(m_pad,)] * 2 + [(n,)] * 2)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return bluestein_inv_plain(xr, xi, luts, n=n, m_pad=m_pad)
     return _launch_inv(xr, xi, luts, n, m_pad, in1)
 
@@ -208,6 +211,8 @@ def _launch_inv(xr, xi, luts, n, m_pad, in1=0):
     if xr.numel() == 0:  # an empty batch: nothing to launch
         return yr, yi
     mr, mi, n1 = _slab(xr, m_pad, in1)
+    if fake.launch("bluestein_inv", (xr, xi, *luts), (yr, yi), (mr, mi), n=n, m_pad=m_pad):
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_bluestein_inv", _INV)(
         b, n, m_pad, n1, p(xr), p(xi), *map(p, luts), p(yr), p(yi), p(mr), p(mi),
@@ -248,7 +253,7 @@ def bluestein_elem_call(xr, xi, planes, *, stage: str, n: int, m_pad: int):
     _check_pad("bluestein_elem", n, m_pad)
     w_in, w_out, w_lut = _elem_widths(stage, n, m_pad)
     _check("bluestein_elem", xr, xi, w_in, planes, [(w_lut,)] * 2)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return bluestein_elem_plain(xr, xi, planes, stage=stage, n=n, m_pad=m_pad)
     return _launch_elem(xr, xi, planes, w_in, w_out)
 
@@ -259,6 +264,8 @@ def _launch_elem(xr, xi, planes, w_in, w_out):
     yr = torch.empty((b, w_out), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, w_out), dtype=xr.dtype, device=xr.device)
     if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
+    if fake.launch("bluestein_elem", (xr, xi, *planes), (yr, yi)):
         return yr, yi
     p = build.ptr
     rc = build.function("repro_bluestein_elem", _ELEM)(

@@ -214,6 +214,10 @@ def on_device(launch):
 
     @functools.wraps(launch)
     def run(x, *args, **kwargs):
+        from repro_torch.core import fake
+
+        if fake.is_fake(x):  # the simulated card: the launch takes its fake branch
+            return launch(x, *args, **kwargs)
         with torch.cuda.device(x.device):
             return launch(x, *args, **kwargs)
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fft_torch import cmul, stockham_fft
+from repro_torch.core import fake
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
 
@@ -71,9 +72,9 @@ def dft_matmul_call(xr, xi, rr, ri, *, inverse=False, twiddle=None):
         xr=(xr, (b, n)), xi=(xi, (b, n)), rr=(rr, (n,)), ri=(ri, (n,)),
         er=(er, (n,)), ei=(ei, (n,)),
     )
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return dft_matmul_plain(xr, xi, rr, ri, inverse=inverse, twiddle=twiddle)
-    if xr.device.type != "cuda":
+    if xr.device.type != "cuda" and not fake.is_fake(xr):
         raise PlanError(f"dft_matmul runs on cuda or cpu tensors, got {xr.device}")
     return _launch(xr, xi, rr, ri, er, ei, inverse)
 
@@ -84,6 +85,8 @@ def _launch(xr, xi, rr, ri, er, ei, inverse):
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
+    if fake.launch("dft_matmul", (xr, xi, rr, ri, er, ei), (yr, yi), twiddle=er is not None):
         return yr, yi
     p = build.ptr
     rc = build.function("repro_dft_matmul", _ARGS)(

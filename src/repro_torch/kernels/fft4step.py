@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import limits
+from repro_torch.core import fake, limits
 from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
@@ -93,9 +93,9 @@ def fft4step_call(xr, xi, rr, ri, *, n1, inverse=False, natural_order=True, twid
         er=(er, (n,)), ei=(ei, (n,)),
     )
     kw = dict(n1=n1, inverse=inverse, natural_order=natural_order)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return fft4step_plain(xr, xi, rr, ri, twiddle_after=twiddle_after, **kw)
-    if xr.device.type != "cuda":
+    if xr.device.type != "cuda" and not fake.is_fake(xr):
         raise PlanError(f"fft4step runs on cuda or cpu tensors, got {xr.device}")
     return _launch(xr, xi, rr, ri, er, ei, n1, inverse, natural_order)
 
@@ -103,9 +103,16 @@ def fft4step_call(xr, xi, rr, ri, *, n1, inverse=False, natural_order=True, twid
 def slab_needed(like, n: int) -> bool:
     """Whether a length-n signal takes the scratch slab on ``like``'s card:
     the radix kernel's shared memory for the whole signal
-    (``repro_fft4step_smem_bytes``) is past the block's budget."""
-    fn = build.function("repro_fft4step_smem_bytes", (build.I64,), build.I64)
-    return fn(n) > limits.memory_budget(like.device)
+    (:func:`smem_bytes`) is past the block's budget."""
+    return smem_bytes(n) > limits.memory_budget(like.device)
+
+
+def smem_bytes(n: int) -> int:
+    """``repro_fft4step_smem_bytes`` (``radix_smem_bytes`` of radix.cuh):
+    the exchange buffer of a tile of max(n, 4096) points, both planes,
+    with one padding word per 32."""
+    m = max(n, 4096)
+    return 2 * (m + (m >> 5)) * 4
 
 
 @build.on_device
@@ -119,6 +126,8 @@ def _launch(xr, xi, rr, ri, er, ei, n1, inverse, natural_order):
     if slab_needed(xr, n):
         sr = torch.empty_like(xr)
         si = torch.empty_like(xi)
+    if fake.launch("fft4step", (xr, xi, rr, ri, er, ei), (yr, yi), (sr, si), twiddle=er is not None):
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_fft4step", _ARGS)(
         b, n, n1, int(natural_order), int(inverse),

@@ -46,13 +46,12 @@ its store).
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import fake, faults
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import twiddle as tw
 from repro_torch.kernels import bluestein, dft_matmul, fft4step, pencil
@@ -76,45 +75,49 @@ __all__ = [
 def device_key(device) -> str:
     """Canonical device string of a LUT cache key (``cuda`` → ``cuda:<i>``)."""
     device = torch.device(device)
+    if fake.active():
+        return str(fake.card())
     if device.type == "cuda" and device.index is None:
         return f"cuda:{torch.cuda.current_device()}"
     return str(device)
 
 
 def _upload(planes, device: str) -> tuple:
+    if fake.active():  # the simulated card: the shapes, no values to upload
+        return tuple(torch.empty(np.shape(a), dtype=torch.float32, device=device) for a in planes)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in planes)
 
 
-@functools.lru_cache(maxsize=64)
+@fake.device_cache(maxsize=64)
 def _roots_luts(device: str, n: int, inverse: bool) -> tuple:
     """The (n,) roots table of a radix pass (no 1/n folded)."""
     return _upload(tw.roots(n, inverse), device)
 
 
-@functools.lru_cache(maxsize=16)
+@fake.device_cache(maxsize=16)
 def _pass_twiddle_luts(device: str, n_bins: int, n_phases: int, inverse: bool) -> tuple:
     """The (n_bins, n_phases) inter-factor grid of a column pass."""
     return _upload(tw.pass_twiddle(n_bins, n_phases, inverse), device)
 
 
-@functools.lru_cache(maxsize=64)
+@fake.device_cache(maxsize=64)
 def recomb_luts(device: str, n: int, inverse: bool) -> tuple:
     """The (n//2 + 1,) phasor LUT of the real-FFT recombination:
     e^{∓2πik/n}, conjugated for the inverse."""
     return _upload(tw.rfft_recomb_twiddle(n, inverse=inverse), device)
 
 
-@functools.lru_cache(maxsize=64)
+@fake.device_cache(maxsize=64)
 def _chirp_luts(device: str, n: int, inverse: bool) -> tuple:
     return _upload(tw.bluestein_chirp(n, inverse), device)
 
 
-@functools.lru_cache(maxsize=64)
+@fake.device_cache(maxsize=64)
 def _spectrum_luts(device: str, n: int, m_pad: int, inverse: bool) -> tuple:
     return _upload(tw.bluestein_spectrum(n, m_pad, inverse), device)
 
 
-@functools.lru_cache(maxsize=64)
+@fake.device_cache(maxsize=64)
 def _postchirp_luts(device: str, n: int, inverse: bool) -> tuple:
     return _upload(tw.bluestein_postchirp(n, inverse), device)
 

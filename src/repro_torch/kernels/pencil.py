@@ -54,7 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import fft_torch
+from repro_torch.core import fake, fft_torch
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
@@ -234,7 +234,7 @@ def cols_pass_call(xr, xi, rr, ri, twiddle=None, *, n1: int = 0, inverse=False,
     r, f, s = xr.shape
     _check_tw_every(s, tw_every)
     _check_radix("cols_pass", xr, xi, (r, f, s), rr, ri, f, n1, twiddle, (f, s // tw_every), tile)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return cols_pass_plain(xr, xi, rr, ri, twiddle, inverse=inverse, tw_every=tw_every)
     return _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1, tw_every, tile)
 
@@ -254,6 +254,8 @@ def _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1=0, tw_every=1, tile=None):
     mr = mi = None
     if tile == SLAB:
         mr, mi = _slab(xr, r * -(-s // SLAB_GROUP) * SLAB_GROUP * f)
+    if fake.launch("cols_pass", (xr, xi, rr, ri, tr, ti), (yr, yi), (mr, mi), twiddle=tr is not None):
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_cols_pass", _COLS)(
         r, f, s, tw_every, _slab_split(f, n1, tile), tile, int(inverse), p(rr), p(ri), p(xr), p(xi),
@@ -294,7 +296,7 @@ def cols_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False, tile=None):
     ``tile`` as :func:`cols_pass_call`'s."""
     b, pp, f, w = xr.shape
     _check_radix("cols_natural", xr, xi, (b, pp, f, w), rr, ri, f, n1, tile=tile)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return cols_natural_plain(xr, xi, rr, ri, inverse=inverse)
     return _launch_cols_natural(xr, xi, rr, ri, inverse, n1, tile)
 
@@ -311,6 +313,8 @@ def _launch_cols_natural(xr, xi, rr, ri, inverse, n1=0, tile=None):
     mr = mi = None
     if tile == SLAB:
         mr, mi = _slab(xr, b * pp * -(-w // SLAB_GROUP) * SLAB_GROUP * f)
+    if fake.launch("cols_natural", (xr, xi, rr, ri), (yr, yi), (mr, mi)):
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_cols_natural", _NATURAL)(
         b, pp, f, w, _slab_split(f, n1, tile), tile, int(inverse), p(rr), p(ri), p(xr), p(xi),
@@ -342,7 +346,7 @@ def rows_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False, tile=None):
     :func:`cols_pass_call`'s."""
     b, pp, f = xr.shape
     _check_radix("rows_natural", xr, xi, (b, pp, f), rr, ri, f, n1, tile=tile)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return rows_natural_plain(xr, xi, rr, ri, inverse=inverse)
     return _launch_rows(xr, xi, rr, ri, inverse, n1, tile)
 
@@ -359,6 +363,8 @@ def _launch_rows(xr, xi, rr, ri, inverse, n1=0, tile=None):
     mr = mi = None
     if tile == SLAB:
         mr, mi = _slab(xr, b * -(-pp // SLAB_GROUP) * SLAB_GROUP * f)
+    if fake.launch("rows_natural", (xr, xi, rr, ri), (yr, yi), (mr, mi)):
+        return yr, yi
     p = build.ptr
     rc = build.function("repro_rows_natural", _ROWS)(
         b, pp, f, _slab_split(f, n1, tile), tile, int(inverse), p(rr), p(ri), p(xr), p(xi),
@@ -397,7 +403,7 @@ def rfft_recomb_call(zr, zi, wr, wi):
     (``twiddle.rfft_recomb_twiddle(n)``)."""
     m = zr.shape[-1]
     _check_recomb("rfft_recomb", zr, zi, wr, wi, m)
-    if zr.device.type == "cpu":
+    if zr.device.type == "cpu" and not fake.is_fake(zr):
         return rfft_recomb_plain(zr, zi, wr, wi)
     return _launch_recomb(zr, zi, wr, wi, "rfft_recomb", m, m + 1)
 
@@ -414,7 +420,7 @@ def irfft_recomb_call(xr, xi, wr, wi):
     (``twiddle.rfft_recomb_twiddle(n, inverse=True)``)."""
     m = xr.shape[-1] - 1
     _check_recomb("irfft_recomb", xr, xi, wr, wi, m)
-    if xr.device.type == "cpu":
+    if xr.device.type == "cpu" and not fake.is_fake(xr):
         return irfft_recomb_plain(xr, xi, wr, wi)
     return _launch_recomb(xr, xi, wr, wi, "irfft_recomb", m, m)
 
@@ -425,6 +431,8 @@ def _launch_recomb(xr, xi, wr, wi, name, m, width):
     yr = torch.empty((b, width), dtype=xr.dtype, device=xr.device)
     yi = torch.empty((b, width), dtype=xr.dtype, device=xr.device)
     if xr.numel() == 0:  # an empty batch: nothing to launch
+        return yr, yi
+    if fake.launch(name, (xr, xi, wr, wi), (yr, yi)):
         return yr, yi
     p = build.ptr
     rc = build.function(f"repro_{name}", _RECOMB)(

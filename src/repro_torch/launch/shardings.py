@@ -11,8 +11,14 @@ the compression residuals are per reference leaf (a layer parameter
 stacked with its repeats, its spec led by the unmapped ``"layers"`` axis),
 the factored ones with the reduced dim's axis dropped, as the reference's
 ``_opt_spec_tree``.  Everything is computed on the ``meta`` device: no
-parameter is allocated.  The decode caches' specs (``cache_shardings``)
-serve the reference's dry run and wait with it (``ROADMAP.md`` A8).
+parameter is allocated.  :func:`abstract_params` and
+:func:`abstract_train_state` are the model and its train state on the meta
+device, what the dry run (:mod:`repro_torch.launch.dryrun`) traces after
+making them fake.  :func:`cache_shardings` gives each layer's decode cache
+the reference's spec (its rules at ``src/repro/launch/shardings.py:149``,
+less the leading repeats axis of the reference's stacked caches); where
+the kv heads do not divide ``model`` the port's sharded attention caches
+whole kv heads instead, as its compute reads them (``ROADMAP.md`` A6).
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.sharding import partition
 from repro_torch.sharding.partition import spec_for_shape
 
-__all__ = ["param_count", "param_specs", "train_state_shardings", "batch_shardings"]
+__all__ = ["abstract_params", "abstract_train_state", "param_count", "param_specs", "train_state_shardings",
+           "batch_shardings", "cache_shardings"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -36,6 +43,24 @@ def _abstract(cfg: ModelConfig):
     model = DecoderLM(cfg, device="meta")
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     return shapes, param_axes(model), reference_leaves(model)
+
+
+def abstract_params(cfg: ModelConfig):
+    """(name → meta tensor, name → logical axes) of ``cfg``'s parameters,
+    without allocating anything."""
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.utils.params import param_axes
+
+    model = DecoderLM(cfg, device="meta")
+    return dict(model.named_parameters()), param_axes(model)
+
+
+def abstract_train_state(cfg: ModelConfig, train_cfg):
+    """A :class:`~repro_torch.train.train_loop.TrainState` on the meta
+    device: the model, its optimizer state and its compression residuals."""
+    from repro_torch.train.train_loop import init_train_state
+
+    return init_train_state(cfg, train_cfg, device="meta")
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -93,3 +118,72 @@ def batch_shardings(cfg: ModelConfig, shape, mesh, par: ParallelConfig, batch: d
     replicated (seq stays unsharded for train)."""
     return {k: () if x.ndim == 0 else spec_for_shape(("batch",) + (None,) * (x.ndim - 1), tuple(x.shape), mesh, par)
             for k, x in batch.items()}
+
+
+def _axis_size(mesh, names) -> int:
+    return partition.axis_size(mesh, names)
+
+
+def cache_shardings(cfg: ModelConfig, mesh, par: ParallelConfig, caches) -> list:
+    """Each layer's decode-cache specs, by the reference's rules: a cache of
+    the same type whose fields are specs (``()`` for a non-tensor field).
+    KV (B, S, KV, hd): batch over the data axes where divisible, kv heads
+    over ``model``; else head_dim over ``model`` when the batch took
+    ``data``; else the sequence over (data, model) as far as it divides.
+    The int8 scales (B, S, KV) follow the kv heads or replicate.  Recurrent
+    and spectral states (B, ...): batch over data, their widest dim that
+    ``model`` divides over it."""
+    batch_axes = (par.pod_axis, par.data_axis) if par.pod_axis else (par.data_axis,)
+    batch_axes = tuple(a for a in batch_axes if a)
+    model_ax = par.model_axis
+    m = _axis_size(mesh, model_ax)
+    # a spec entry names one axis as a string, several as a tuple
+    batch_entry = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+
+    def div(n, names):
+        return n % _axis_size(mesh, names) == 0
+
+    def kv_spec(t):
+        if t.dim() == 3:  # int8 scale planes (B, S, KV)
+            b, s, kv = t.shape
+            b_sh = batch_entry if div(b, batch_axes) else None
+            return (b_sh, None, model_ax if kv % m == 0 else None)
+        b, s, kv, hd = t.shape
+        b_sh = batch_entry if div(b, batch_axes) else None
+        if kv % m == 0:
+            return (b_sh, None, model_ax, None)
+        if b_sh is not None and hd % m == 0:
+            return (b_sh, None, None, model_ax)
+        seq_axes = (model_ax,) if b_sh is not None else batch_axes + (model_ax,)
+        while seq_axes and not div(s, seq_axes):
+            seq_axes = seq_axes[1:]
+        if seq_axes:
+            return (b_sh, seq_axes if len(seq_axes) > 1 else seq_axes[0], None, None)
+        return (b_sh, None, None, None)
+
+    def generic_spec(t):
+        shape = t.shape
+        if len(shape) == 0:
+            return ()
+        b_sh = batch_entry if div(shape[0], batch_axes) else None
+        entries = [b_sh] + [None] * (len(shape) - 1)
+        best, best_dim = None, 0
+        for i in range(1, len(shape)):
+            if shape[i] % m == 0 and shape[i] > best_dim:
+                best, best_dim = i, shape[i]
+        if best is not None:
+            entries[best] = model_ax
+        return tuple(entries)
+
+    out = []
+    for cache in caches:
+        specs = {}
+        for name, t in cache._asdict().items():
+            if not hasattr(t, "shape"):
+                specs[name] = ()
+            elif name in ("k", "v", "k_scale", "v_scale"):
+                specs[name] = kv_spec(t)
+            else:
+                specs[name] = generic_spec(t)
+        out.append(type(cache)(**specs))
+    return out

@@ -131,5 +131,4 @@ class Block(nn.Module):
             return self.mixer.init_cache(batch, dtype)
         if self.kind in RECURRENT:
             return self.mixer.init_cache(batch)
-        return attn_lib.init_kv_cache(self.cfg, batch, max_len, window=self.mixer.window, dtype=dtype,
-                                      device=self.norm1.scale.device)
+        return self.mixer.cache_init(batch, max_len, dtype, self.norm1.scale.device)

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import rope as rope_lib
-from repro_torch.sharding.shard import model_copy, model_sum, tp
+from repro_torch.sharding.shard import local, model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
 __all__ = ["Attention", "KVCache", "init_kv_cache", "slot_index", "quant_tok"]
@@ -67,9 +67,12 @@ def quant_tok(x: torch.Tensor):
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, *, window: Optional[int] = None,
-                  dtype=torch.bfloat16, device=None) -> KVCache:
+                  dtype=torch.bfloat16, device=None, kv_heads: Optional[int] = None) -> KVCache:
+    """Zeros for ``batch`` rows of ``max_len`` positions (a window layer's
+    ring of ``min(window, max_len)`` slots) and ``kv_heads`` kv heads
+    (default all of them; a sharded layer's own)."""
     slots = min(window, max_len) if window else max_len
-    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, slots, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     if cfg.kv_cache_dtype == "int8":
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -129,7 +132,33 @@ class Attention(nn.Module):
 
     def _sharded(self) -> bool:
         """Whether this rank holds a shard of the heads (a sharded model)."""
-        return self.wq.shape[1] != self.cfg.num_heads
+        return local(self.wq).shape[1] != self.cfg.num_heads
+
+    def kv_local(self) -> tuple:
+        """(the first kv head, how many) of the kv heads this rank's query
+        heads read: all of them unsharded; the rank's shard where the kv
+        heads are sharded with the heads; else (kv heads replicated over
+        ``model``) the whole kv heads its heads map to, which its cache
+        holds."""
+        kv, g = self.cfg.num_kv_heads, self.cfg.num_heads // self.cfg.num_kv_heads
+        if not self._sharded():
+            return 0, kv
+        mine = local(self.wk).shape[1]
+        if mine != kv:
+            return tp().rank * mine, mine
+        heads = local(self.wq).shape[1]
+        h0 = tp().rank * heads
+        return h0 // g, (h0 + heads - 1) // g + 1 - h0 // g
+
+    def _cache_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """k or v (B, S, KV, hd) cut to the kv heads this rank caches."""
+        k0, n = self.kv_local()
+        return t if t.shape[2] == n else t.narrow(2, k0, n)
+
+    def cache_init(self, batch: int, max_len: int, dtype: torch.dtype, device) -> KVCache:
+        """This layer's empty decode cache (this rank's kv heads)."""
+        return init_kv_cache(self.cfg, batch, max_len, window=self.window, dtype=dtype, device=device,
+                             kv_heads=self.kv_local()[1])
 
     def _expand(self, t: torch.Tensor, g: int) -> torch.Tensor:
         """k or v (B, S, KV, hd) → the keys or values of this rank's heads:
@@ -172,7 +201,7 @@ class Attention(nn.Module):
         else:
             out = self._chunked(q, k, v, g)
         y = self._out(out, x.dtype)
-        return (y, KVCache(k=k, v=v)) if return_cache else y
+        return (y, KVCache(k=self._cache_kv(k), v=self._cache_kv(v))) if return_cache else y
 
     def _chunked(self, q, k, v, g):
         """Exact attention by a loop over q blocks of C = ``attn_chunk``.
@@ -216,13 +245,19 @@ class Attention(nn.Module):
         ``cache`` in place and returns (y, cache)."""
         b = x.shape[0]
         cfg = self.cfg
-        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        # This rank's heads and the kv heads they read (all of them unsharded).
+        h, hd = self.wq.shape[1], cfg.resolved_head_dim
+        k0, kv = self.kv_local()
+        h0 = tp().rank * h if self._sharded() else 0
+        kv_of = [(h0 + j) // (cfg.num_heads // cfg.num_kv_heads) - k0 for j in range(h)]  # cached kv head
         g = h // kv
+        grouped = h % kv == 0 and kv_of == [j // g for j in range(h)]
         if torch.is_tensor(t):
             t_vec = t.to(device=x.device, dtype=torch.long)
         else:
             t_vec = torch.full((b,), int(t), dtype=torch.long, device=x.device)
         q, k_new, v_new = self._qkv(x, t_vec[:, None], mrope_positions)
+        k_new, v_new = self._cache_kv(k_new), self._cache_kv(v_new)
 
         slots = cache.k.shape[1]
         quantized = cache.k.dtype == torch.int8
@@ -236,6 +271,15 @@ class Attention(nn.Module):
             cache.k[rows, at] = k_new[:, 0].to(cache.k.dtype)
             cache.v[rows, at] = v_new[:, 0].to(cache.v.dtype)
 
+        ck, cv, cks, cvs = cache
+        if not grouped:
+            # This rank's heads straddle kv-head groups: they read an
+            # expanded copy, each head its own kv head.
+            at_kv = torch.tensor(kv_of, device=x.device)
+            ck, cv = ck.index_select(2, at_kv), cv.index_select(2, at_kv)
+            if quantized:
+                cks, cvs = cks.index_select(2, at_kv), cvs.index_select(2, at_kv)
+            kv, g = h, 1
         qg = q.reshape(b, kv, g, hd)
         if quantized:
             # int8 × int8 with the products summed exactly (float64 holds the
@@ -243,10 +287,10 @@ class Attention(nn.Module):
             # (b, kv[, slot]).
             q_s = (qg.float().abs().amax(-1) + 1e-9) / 127.0  # (B,KV,G)
             q_q = torch.clamp(torch.round(qg.float() / q_s[..., None]), -127, 127)
-            scores = torch.einsum("bngh,bknh->bngk", q_q.double(), cache.k.double()).float()
-            scores = scores * q_s[..., None] * cache.k_scale.transpose(1, 2)[:, :, None, :]
+            scores = torch.einsum("bngh,bknh->bngk", q_q.double(), ck.double()).float()
+            scores = scores * q_s[..., None] * cks.transpose(1, 2)[:, :, None, :]
         else:
-            scores = torch.einsum("bngh,bknh->bngk", qg, cache.k).float()
+            scores = torch.einsum("bngh,bknh->bngk", qg, ck).float()
         scores = self._softcap(scores * hd**-0.5)
         # A ring holds a live key in every slot once t ≥ slots.
         lim = t_vec.clamp(max=slots - 1) if self.window else t_vec
@@ -255,11 +299,11 @@ class Attention(nn.Module):
         if quantized:
             # The per-slot v scale rides the contracted axis: fold it into
             # the probs before quantising them, then int8 × int8 again.
-            pv = probs * cache.v_scale.transpose(1, 2)[:, :, None, :]
+            pv = probs * cvs.transpose(1, 2)[:, :, None, :]
             pv_s = (pv.abs().amax(-1) + 1e-12) / 127.0
             pv_q = torch.clamp(torch.round(pv / pv_s[..., None]), -127, 127)
-            out = torch.einsum("bngk,bknh->bngh", pv_q.double(), cache.v.double()).float()
+            out = torch.einsum("bngk,bknh->bngh", pv_q.double(), cv.double()).float()
             out = (out * pv_s[..., None]).to(x.dtype)
         else:
-            out = torch.einsum("bngk,bknh->bngh", probs.to(cache.v.dtype), cache.v)
+            out = torch.einsum("bngk,bknh->bngh", probs.to(cv.dtype), cv)
         return self._out(out.reshape(b, 1, h, hd), x.dtype), cache

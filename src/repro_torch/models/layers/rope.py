@@ -8,11 +8,12 @@ and get rotated q/k back.  For M-RoPE, ``positions`` has shape (B, 3, S) —
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import fake
 
 __all__ = ["apply_rope", "apply_mrope", "rope_freqs"]
 
@@ -22,14 +23,14 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return (theta ** (-np.arange(0, half, dtype=np.float64) / half)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@fake.device_cache(maxsize=None)
 def _freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
     # One upload per (head_dim, theta, device): a decode step rotates every
     # layer's q and k, and a host-to-device copy there would stall the host.
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@fake.device_cache(maxsize=None)
 def _streams_on(sections: tuple, device: torch.device) -> torch.Tensor:
     # Which of the 3 position streams drives each frequency band, uploaded
     # once per (sections, device) as the frequencies are.

@@ -34,7 +34,7 @@ from repro_torch.core import fft as fft_lib
 from repro_torch.core import overlap as ov_lib
 from repro_torch.core.conv import fft_conv
 from repro_torch.core.limits import next_pow2
-from repro_torch.sharding.shard import model_copy, model_sum, tp
+from repro_torch.sharding.shard import local, model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
 __all__ = [
@@ -149,6 +149,22 @@ class SpectralMixer(nn.Module):
     def grain(self) -> Tuple[int, int]:
         return stream_grain(self.filter_len, self.decode_chunk)
 
+    def _channels(self) -> int:
+        """This rank's channels: all of them unsharded, else its shard of
+        the ff axis."""
+        return local(self.w_in).shape[1]
+
+    def _filt(self) -> torch.Tensor:
+        """The filter rows of this rank's channels (no gradient path: the
+        decode's)."""
+        ch = self._channels()
+        return self.filt if ch == self.d_model else self.filt.narrow(0, tp().rank * ch, ch)
+
+    def _mix(self, y: torch.Tensor) -> torch.Tensor:
+        """A decode step's output: the channel shards' partial sums met over
+        ``model`` in a sharded model."""
+        return y if self._channels() == self.d_model else model_sum(y)
+
     def _in_gate(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cd = x.dtype
         return x @ self.w_in.to(cd), tF.silu(x @ self.w_gate.to(cd))
@@ -168,12 +184,13 @@ class SpectralMixer(nn.Module):
             # filter's rows of them, and the projections' partial sums.
             u, g = self._in_gate(model_copy(x))
             filt = model_copy(self.filt).narrow(0, tp().rank * channels, channels)
-            return model_sum(self._out(fft_conv(u.to(torch.float32), filt, axis=1), g))
-        u, g = self._in_gate(x)
-        # The conv runs along the sequence axis; fft_conv routes to
-        # overlap-save past the fused regime.
-        y = fft_conv(u.to(torch.float32), self.filt, axis=1)
-        out = self._out(y, g)
+            out = model_sum(self._out(fft_conv(u.to(torch.float32), filt, axis=1), g))
+        else:
+            u, g = self._in_gate(x)
+            # The conv runs along the sequence axis; fft_conv routes to
+            # overlap-save past the fused regime.
+            y = fft_conv(u.to(torch.float32), self.filt, axis=1)
+            out = self._out(y, g)
         if not return_cache:
             return out
         with torch.no_grad():  # decode states carry no graph
@@ -185,7 +202,7 @@ class SpectralMixer(nn.Module):
     # -- decode state after a prefill -------------------------------------
 
     def _ring_state(self, u32: torch.Tensor) -> SpectralCache:
-        b, s, d = u32.shape
+        b, s, d = u32.shape  # d: this rank's channels
         lf = self.filter_len
         keep = min(lf, s)
         buf = u32.new_zeros((b, lf, d))
@@ -213,20 +230,20 @@ class SpectralMixer(nn.Module):
         c, block = self.grain
         if tail.numel() == 0:
             return tail.new_zeros((*tail.shape[:-1], c))
-        Hr, Hi = ov_lib.filter_spectrum(self.filt, block)
+        Hr, Hi = ov_lib.filter_spectrum(self._filt(), block)
         return ov_lib.stream_lookahead(tail, Hr, Hi, window=c, block=block)
 
     def init_cache(self, batch: int) -> SpectralCache:
         """Empty ring state."""
         return SpectralCache(
-            buf=torch.zeros((batch, self.filter_len, self.d_model), device=self.filt.device), t=0
+            buf=torch.zeros((batch, self.filter_len, self._channels()), device=self.filt.device), t=0
         )
 
     def init_stream_cache(self, batch: int) -> SpectralStreamCache:
         """Empty streaming state."""
         c, _ = self.grain
         cap = self.filter_len - 1 + c
-        zeros = lambda w: torch.zeros((batch, self.d_model, w), device=self.filt.device)  # noqa: E731
+        zeros = lambda w: torch.zeros((batch, self._channels(), w), device=self.filt.device)  # noqa: E731
         return SpectralStreamCache(hist=zeros(cap), chunk=zeros(c), future=zeros(c), phase=0)
 
     # -- decode -------------------------------------------------------------
@@ -244,8 +261,8 @@ class SpectralMixer(nn.Module):
         # taps reaching before position 0 see nothing.
         taps = min(cache.t, lf - 1) + 1
         ages = (slot - torch.arange(taps, device=buf.device)) % lf
-        y = torch.einsum("blD,Dl->bD", buf[:, ages, :], self.filt[:, :taps])
-        return self._out(y[:, None, :], g), SpectralCache(buf=buf, t=cache.t + 1)
+        y = torch.einsum("blD,Dl->bD", buf[:, ages, :], self._filt()[:, :taps])
+        return self._mix(self._out(y[:, None, :], g)), SpectralCache(buf=buf, t=cache.t + 1)
 
     @torch.no_grad()
     def stream_decode(
@@ -265,9 +282,9 @@ class SpectralMixer(nn.Module):
         chunk = cache.chunk.clone()
         chunk[..., i] = u[:, 0].to(torch.float32)
         k = min(i + 1, self.filter_len)  # taps past the filter are zero
-        head = torch.flip(self.filt[:, :k], (-1,))
+        head = torch.flip(self._filt()[:, :k], (-1,))
         y = (chunk[..., i + 1 - k: i + 1] * head).sum(-1) + cache.future[..., i]
-        out = self._out(y[:, None, :], g)
+        out = self._mix(self._out(y[:, None, :], g))
         if i < c - 1:
             return out, cache._replace(chunk=chunk, phase=i + 1)
         hist = torch.cat([cache.hist[..., c:], chunk], dim=-1)

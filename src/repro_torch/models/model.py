@@ -29,6 +29,16 @@ reference's batch keys: ``tokens``, ``positions``, ``frame_embeds``,
 ``vision_embeds``, ``mrope_positions`` (and :func:`loss_fn` reads a batch
 dict of those keys); ``decode_step`` takes the reference's ``embeds=`` and
 ``mrope_positions=``.
+
+A sharded model (:func:`repro_torch.sharding.shard.shard_model`) serves as
+it trains: ``prefill`` and ``decode_step`` take this rank's rows of the
+batch (:func:`repro_torch.sharding.shard.data_rows`), compute on the local
+shards through the same ``model_copy`` / ``model_sum`` points as the
+forward (each block's unit gathered per call) and return the full-vocab
+logits of those rows (the vocab slices gathered over ``model``); the
+caches are this rank's: its rows, its kv heads (the kv heads its query
+heads read where the kv heads do not divide ``model``), its spectral
+channels.
 """
 
 from __future__ import annotations
@@ -121,12 +131,13 @@ class DecoderLM(nn.Module):
         """The prompt's last-position logits (B, vocab) and the per-layer
         caches it leaves (KV in natural order, length S; spectral states
         already in decode layout).  The inputs are :meth:`forward`'s."""
-        x = self._embed_inputs(tokens, frame_embeds, vision_embeds)
-        b, s = x.shape[:2]
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        x, caches, _ = self.stack(x, positions, return_cache=True, mrope_positions=self._ids(mrope_positions))
-        x = self.final_norm(x[:, -1:])
-        return self.head(x, self.embed.table)[:, 0], caches
+        with shard.gathered(self):
+            x = self._embed_inputs(tokens, frame_embeds, vision_embeds)
+            b, s = x.shape[:2]
+            positions = torch.arange(s, device=self.device).expand(b, s)
+            x, caches, _ = self.stack(x, positions, return_cache=True, mrope_positions=self._ids(mrope_positions))
+            x = self.final_norm(x[:, -1:])
+            return shard.model_gather(self.head(x, self.embed.table)[:, 0]), caches
 
     @torch.no_grad()
     def decode_step(self, tokens, caches: List, t, *, embeds=None, mrope_positions=None) -> Tuple[torch.Tensor, List]:
@@ -137,17 +148,20 @@ class DecoderLM(nn.Module):
         positions; ``mrope_positions`` (B, 3, 1) the step's M-RoPE ids for a
         vision config (standard RoPE at ``t`` without them).  Returns
         (logits (B, vocab), new caches); KV caches are written in place."""
-        if self.cfg.frontend == "audio" and embeds is not None:
-            x = torch.as_tensor(embeds, device=self.device).to(self.compute_dtype)
-        else:
-            x = self.embed(self._tokens(tokens)[:, None], self.compute_dtype)
-        x, caches = self.stack.decode(x, caches, t, self._ids(mrope_positions))
-        return self.head(self.final_norm(x), self.embed.table)[:, 0], caches
+        with shard.gathered(self):
+            if self.cfg.frontend == "audio" and embeds is not None:
+                x = torch.as_tensor(embeds, device=self.device).to(self.compute_dtype)
+            else:
+                x = self.embed(self._tokens(tokens)[:, None], self.compute_dtype)
+            x, caches = self.stack.decode(x, caches, t, self._ids(mrope_positions))
+            return shard.model_gather(self.head(self.final_norm(x), self.embed.table)[:, 0]), caches
 
     def cache_init(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None) -> List:
         """Empty per-layer decode caches for ``batch`` rows and ``max_len``
-        positions (KV in ``dtype``, default the compute dtype)."""
-        return self.stack.cache_init(batch, max_len, dtype or self.compute_dtype)
+        positions (KV in ``dtype``, default the compute dtype); a sharded
+        model's are this rank's shards of them (``batch`` its rows)."""
+        with shard.context(self):
+            return self.stack.cache_init(batch, max_len, dtype or self.compute_dtype)
 
     @torch.no_grad()
     def prepare_decode_caches(self, caches: List, max_len: int) -> List:

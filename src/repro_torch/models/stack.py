@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import Block
+from repro_torch.sharding import shard
 
 __all__ = ["Stack", "find_unit"]
 
@@ -94,7 +95,8 @@ class Stack(nn.Module):
         """One decode step through every layer; returns (x, new caches)."""
         new = []
         for block, cache in zip(self, caches, strict=True):
-            x, cache = block.decode(x, cache, t, mrope_positions)
+            with shard.unit_scope(block):  # a sharded block gathers as its forward does
+                x, cache = block.decode(x, cache, t, mrope_positions)
             new.append(cache)
         return x, new
 

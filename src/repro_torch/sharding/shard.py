@@ -70,6 +70,12 @@ __all__ = [
     "counts",
     "reset_counts",
     "step_collectives",
+    "decode_collectives",
+    "unit_scope",
+    "context",
+    "model_gather",
+    "data_rows",
+    "SequenceShardRefusal",
     "COUNTS",
     "BYTES",
 ]
@@ -199,6 +205,16 @@ def data_sum(x: torch.Tensor) -> torch.Tensor:
     copy of the loss back-propagates its own rows)."""
     ax = _data()
     return x if ax is None or ax.size == 1 else _Sum.apply(x, ax.group)
+
+
+def model_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Model shards of ``x`` along ``dim`` (a tensor without gradient, this
+    rank's vocab slice of the logits) joined in rank order: an all-gather
+    over ``model``."""
+    ax = tp()
+    if ax is None or ax.size == 1:
+        return x
+    return _gather_dim([x.detach().contiguous()], [dim % x.dim()], ax)[0]
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:
@@ -474,6 +490,56 @@ def gathered(model: nn.Module):
         model._shard_unit.exit()
 
 
+@contextlib.contextmanager
+def unit_scope(module: nn.Module):
+    """``module``'s unit (a block of a sharded model) gathered for the
+    duration, as its forward gathers it: how a decode step, which calls
+    ``Block.decode`` and not the module, runs on a sharded block.  A no-op
+    for a module that is no unit."""
+    unit = getattr(module, "_shard_unit", None)
+    if unit is None:
+        yield
+        return
+    unit.enter()
+    try:
+        yield
+    finally:
+        unit.exit()
+
+
+def context(model: nn.Module):
+    """The model's mesh context (no gather: the parameters stay the
+    ``DTensor`` shards, which :func:`local` reads), or a null context for an
+    unsharded model."""
+    return mesh_context(*model._sharding) if is_sharded(model) else contextlib.nullcontext()
+
+
+class SequenceShardRefusal(NotImplementedError):
+    """A batch that does not split over ``data``: serving it needs the
+    sequence-sharded cache, which is not ported (:data:`ROADMAP`)."""
+
+    ROADMAP = "ROADMAP.md A6"
+
+
+def data_rows(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global batch ``x`` (dim 0 split evenly over
+    ``data``, as the train step splits a microbatch); ``x`` itself for an
+    unsharded model or a mesh of one data rank."""
+    if not is_sharded(model):
+        return x
+    mesh, par = model._sharding
+    dim = mesh.mesh_dim_names.index(par.data_axis)
+    n = mesh.size(dim)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise SequenceShardRefusal(
+            f"a batch of {x.shape[0]} rows over {n} data shards: decode with the batch replicated "
+            f"over data needs the sequence-sharded cache, {SequenceShardRefusal.ROADMAP}")
+    per = x.shape[0] // n
+    return x[mesh.get_local_rank(dim) * per:(mesh.get_local_rank(dim) + 1) * per]
+
+
 def is_sharded(model: nn.Module) -> bool:
     return getattr(model, "_sharding", None) is not None
 
@@ -581,4 +647,50 @@ def step_collectives(model: nn.Module, seq: int, microbatches: int = 1, compress
     out = {k: saved[k] + microbatches * v for k, v in per_micro.items()}
     if d * m > 1:
         out["all_reduce"] += 1 + compression
+    return {k: v for k, v in out.items() if v}
+
+
+def decode_collectives(model: nn.Module) -> dict:
+    """The collectives one decode step of a sharded ``model`` launches, by
+    kind, as the units and the layers schedule them; a prefill launches the
+    same (each is one forward pass without a backward).  Each unit's gather
+    per dtype (over ``data`` for its FSDP shards, over ``model`` for the
+    weights its layer takes whole); each layer on model shards its
+    ``model_sum``; the MoE's two data sums (the dropped count and the aux
+    statistics); the embedding's ``model_sum`` and the logits' gather over
+    ``model`` when the vocab is sharded."""
+    mesh, par = model._sharding
+    names = mesh.mesh_dim_names
+    d, m = mesh.size(names.index(par.data_axis)), mesh.size(names.index(par.model_axis))
+    cfg = model.cfg
+    out = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+
+    def unit(module):
+        slots = module._shard_unit.slots
+        dtypes = lambda pick: len({s.module._parameters[s.attr].dtype for s in slots if pick(s)})  # noqa: E731
+        if d > 1:
+            out["all_gather"] += dtypes(lambda s: s.data_dim is not None)
+        if m > 1:
+            out["all_gather"] += dtypes(lambda s: s.gather_model and s.model_dim is not None)
+
+    for block in model.stack:
+        unit(block)
+        for layer in block.modules():
+            kind = type(layer).__name__
+            if m > 1 and (
+                (kind == "Attention" and local(layer.wq).shape[1] != cfg.num_heads)
+                or (kind == "MLP" and local(layer.wo).shape[0] != layer.d_ff)
+                or (kind == "SpectralMixer" and local(layer.w_in).shape[1] != layer.d_model)
+                or (kind == "MoE" and local(layer.wi_gate).shape[0] != cfg.num_experts)
+            ):
+                out["all_reduce"] += 1
+            if kind == "MoE" and d > 1:
+                out["all_reduce"] += 2
+    unit(model)
+    if m > 1 and local(model.embed.table).shape[0] != cfg.vocab_size:
+        out["all_reduce"] += 1
+    head_sharded = (local(model.embed.table).shape[0] if cfg.tie_embeddings
+                    else local(model.head.w).shape[1]) != cfg.vocab_size
+    if m > 1 and head_sharded:
+        out["all_gather"] += 1
     return {k: v for k, v in out.items() if v}

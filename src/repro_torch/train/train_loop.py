@@ -9,7 +9,9 @@ The model in ``state`` holds the parameters and is updated in place; the
 returned state carries the new step counters.  With ``microbatches > 1``
 the batch is split along dim 0 and the gradients of the microbatches are
 averaged; the metrics are the last microbatch's, as the reference's
-``lax.scan`` carries them.  Gradients come from ``torch.autograd.grad`` of
+``lax.scan`` carries them (summed into zeros, one microbatch after
+another: ``train_step.begin`` / ``accumulate`` / ``finish``, which the dry
+run traces apart).  Gradients come from ``torch.autograd.grad`` of
 :func:`repro_torch.models.model.loss_fn`, so on the card they run through
 the FFT kernels' backward (``core/fft.py``'s autograd leaves).  Nothing is
 read back to the host: the metrics are 0-d device tensors (``lr`` a float).
@@ -97,24 +99,33 @@ def make_train_step(cfg, train_cfg):
         parts = [{k: v[i * per:(i + 1) * per] for k, v in batch.items()} for i in range(nmicro)]
         return [host_batch_slice(p, index, shards) for p in parts] if shards > 1 else parts
 
-    def accumulated_grads(model, parts):
-        acc, metrics = None, None
-        for part in parts:
-            grads, metrics = single_grads(model, part)
-            if acc is None:
-                acc = {k: g.float().clone() for k, g in grads.items()}
-            else:
-                for k, g in grads.items():
-                    acc[k].add_(g.float())
-        return {k: a / nmicro for k, a in acc.items()}, metrics
+    def begin(model) -> dict:
+        """The float32 gradient sums the microbatches add into."""
+        return {n: torch.zeros_like(shard.local(p), dtype=torch.float32) for n, p in model.named_parameters()}
+
+    def accumulate(model, part: dict, acc: dict) -> dict:
+        """One microbatch's gradients added into ``acc``; its metrics."""
+        grads, metrics = single_grads(model, part)
+        for k, g in grads.items():
+            acc[k].add_(g.float())
+        return metrics
+
+    def finish(state: TrainState, acc: dict, metrics: dict) -> tuple:
+        """The step from the summed gradients of ``nmicro`` microbatches."""
+        return update(state, {k: a / nmicro for k, a in acc.items()}, metrics)
 
     def train_step(state: TrainState, batch: dict) -> tuple:
         model = state.model
         parts = micro(model, _to(batch, model.device))
-        if nmicro > 1:
-            grads, metrics = accumulated_grads(model, parts)
-        else:
-            grads, metrics = single_grads(model, parts[0])
+        if nmicro == 1:
+            return update(state, *single_grads(model, parts[0]))
+        acc = begin(model)
+        for part in parts:
+            metrics = accumulate(model, part, acc)
+        return finish(state, acc, metrics)
+
+    def update(state: TrainState, grads: dict, metrics: dict) -> tuple:
+        model = state.model
         err_state = state.err_state
         if train_cfg.grad_compression:
             grads, err_state = comp_lib.compress_grads(grads, err_state, model)
@@ -124,4 +135,7 @@ def make_train_step(cfg, train_cfg):
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(step=state.step + 1, model=model, opt_state=new_opt, err_state=err_state), metrics
 
+    # The pieces, for the dry run's trace of one microbatch scaled by
+    # ``microbatches`` (repro_torch.launch.dryrun).
+    train_step.micro, train_step.begin, train_step.accumulate, train_step.finish = micro, begin, accumulate, finish
     return train_step

@@ -65,6 +65,13 @@ def test_fft4step_kernel(dev, b, n, natural):
     )
 
 
+def test_fft4step_smem_bytes_equal_the_library(dev):
+    """The slab decision's Python formula is the library's, length for length."""
+    fn = build.function("repro_fft4step_smem_bytes", (build.I64,), build.I64)
+    for n in [1 << k for k in range(1, 25)] + [3, 1000, 4097, 12288]:
+        assert fft4step.smem_bytes(n) == fn(n), n
+
+
 @pytest.mark.parametrize("b,n,natural,inverse", [
     (2, 16384, True, False), (3, 16384, False, True), (4, 4096, False, False), (1, 8192, True, True),
 ])

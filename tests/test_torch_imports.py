@@ -34,6 +34,9 @@ import repro_torch.configs.zamba2_2p7b, repro_torch.configs.xlstm_125m
 import repro_torch.configs.musicgen_large, repro_torch.configs.qwen2_vl_72b
 import repro_torch.sharding.logical, repro_torch.sharding.partition, repro_torch.sharding.shard
 import repro_torch.launch.mesh, repro_torch.launch.shardings
+import repro_torch.configs.fftbench, repro_torch.configs.specs, repro_torch.core.fake
+import repro_torch.analysis.trace, repro_torch.analysis.report, repro_torch.analysis.fill_experiments
+import repro_torch.launch.dryrun
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")

@@ -94,13 +94,7 @@ def test_config_and_reduction_copy_the_reference(spectral):
 
 
 PORTED = ["arctic-480b", "deepseek-moe-16b", "gemma3-12b", "h2o-danube-1.8b", "yi-6b", "phi4-mini-3.8b",
-          "zamba2-2.7b", "xlstm-125m", "musicgen-large", "qwen2-vl-72b"]
-
-
-@pytest.mark.parametrize("arch", sorted(set(ref_base.list_archs()) - set(PORTED)))
-def test_unported_archs_name_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        base.get_config(arch)
+          "zamba2-2.7b", "xlstm-125m", "musicgen-large", "qwen2-vl-72b", "fftbench"]
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -113,6 +107,13 @@ def test_registered_configs_copy_the_reference(arch):
     ``make_reduced`` keeps two of their units)."""
     ref, port = ref_base.get_config(arch), base.get_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    if arch == "fftbench":  # the paper's workload (no layers): its FFT shapes, field for field
+        from repro.configs import fftbench as ref_fb
+        from repro_torch.configs import fftbench as fb
+
+        assert [dataclasses.asdict(s) for s in fb.FFT_SHAPES] == [dataclasses.asdict(s) for s in ref_fb.FFT_SHAPES]
+        assert fb.SHAPES == ref_fb.SHAPES == [] and port.family == "fft"
+        return
     assert port.pattern() == ref.pattern()
     if arch == "deepseek-moe-16b":
         flagged = dataclasses.replace(port, use_spectral_mixer=True)
@@ -126,7 +127,10 @@ def test_registered_configs_copy_the_reference(arch):
 
 
 def test_registry():
-    assert base.list_archs() == PORTED
+    assert sorted(base.list_archs()) == sorted(PORTED) == sorted(ref_base.list_archs())
+    assert base.list_archs() == ref_base.list_archs()  # the reference's order
+    assert [s.name for s in base.shapes_for("h2o-danube-1.8b")] == [s.name for s in ref_base.shapes_for("h2o-danube-1.8b")]
+    assert base.shapes_for("fftbench") == ref_base.shapes_for("fftbench") == []
     with pytest.raises(KeyError, match="unknown arch"):
         base.get_config("llama-9000")
     cfg = dataclasses.replace(base.get_config("h2o-danube-1.8b"), name="mine")
