@@ -232,20 +232,41 @@ package), in phases, and fails on the first check that does not hold:
    on the rank, every step's collectives equal to
    ``shard.decode_collectives`` and to the trace of the same cell on a
    fake group of 4; (e) h2o-danube-1.8b train_4k and decode_32k at 16×16,
-   arctic-480b train_4k at 2×16×16, deepseek-moe-16b prefill_32k at 16×16
-   and fftbench pod_16m at 16×16 through ``run_cell``: every record
+   arctic-480b train_4k at 2×16×16, deepseek-moe-16b prefill_32k at 16×16,
+   fftbench pod_16m at 16×16, gemma3-12b long_500k at 16×16 and
+   zamba2-2.7b long_500k at 2×16×16 through ``run_cell``: every record
    printed, each ``ok``.  Lines: ``dryrun`` per case (launches, ms,
    peaks, dot flops, the bound and its ratio to the measured time, the
    card's name and power limit), ``dryrun_profiled``, ``dryrun_cell``
    per cell, then each distinct kernel call this process made against
-   its plain version ("kernel_check ... dryrun" lines).
+   its plain version ("kernel_check ... dryrun" lines);
+17. the reference's decode sharding on four spawned gloo ranks on the
+   card (a CPU-only subprocess traces (a) and (c) on a fake group of 4
+   meanwhile; the one-device references run here first): (a) gemma3-12b
+   at full width, 6 layers (one 5:1 local/global period), float32, 2×2
+   FSDP decoding weight-stationary at a batch of 1 over caches of 524288
+   positions filled from seeded generators (each rank its shard of the
+   same contents), 8 greedy steps at t = 524280 … 524287: the logits
+   within 1e-4·max|ref| of one device, each step's collectives equal to
+   ``shard.decode_collectives`` and to the trace, no all-gather over
+   ``data``; (b) gemma3's global attention layer (16 heads, 8 kv of 256)
+   in float32, in bf16, and in bf16 over an int8 cache, the cache's 524288
+   slots over the four ranks (131072 each, a 4×1 mesh): the output within
+   1e-4·max|ref| of one device over the whole cache (bf16: 2^-7, one ulp
+   of its bf16 output on each side), the written slot on exactly one
+   rank; (c) h2o-danube-1.8b + spectral at 4 layers, batch 1 (replicated
+   over ``data``), a 512 prompt and 260 steps (one stream flush): logits
+   within 1e-4·max|ref|, the decode's launches the trace's flush step's.
+   Lines: ``long_reference``, ``long`` per rank (errors, collectives, ms a
+   step and the peak a rank on gloo's host wire, the card's name and
+   power limit), then "kernel_check ... long" lines.
 
-Phases 2–8 and 10–16 run with ``REPRO_FFT_TUNE=off``: their expectations
+Phases 2–8 and 10–17 run with ``REPRO_FFT_TUNE=off``: their expectations
 (launches, kernels, forms, the overlap-save block) are the heuristic
 plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 each set the launch counts to 0
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 each set the launch counts to 0
 before they start and read them when they end; every kernel of a path must
 have launched in it (phase 12's path has none, and must launch none).  Phases
 3–7 and 9 also run every one of their calls over a batch of 0: the output
@@ -253,8 +274,8 @@ must have np.fft's shape, and the call launches nothing (0 launches, not
 ``len(plan.passes)``).  The script then prints the per-kernel JSON line
 (each kernel's launches per path, ``hybrid_launches`` phase 12's,
 ``frontend_launches`` phase 13's, ``distributed_launches`` phase 14's and
-``sharded_launches`` phase 15's and ``dryrun_launches`` phase 16's,
-their four ranks' included), the
+``sharded_launches`` phase 15's, ``dryrun_launches`` phase 16's and
+``long_launches`` phase 17's, their four ranks' included), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -388,6 +409,7 @@ PATH_KERNELS = {
     "distributed": ("fft4step", "cols_pass", "rows_natural"),
     "sharded": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "dryrun": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "rfft_recomb", "irfft_recomb"),
+    "long": ("dft_matmul", "rfft_recomb", "irfft_recomb"),
 }
 
 #: The kernels phase 14's four ranks must launch between them: the column
@@ -3980,7 +4002,8 @@ DRY_RANK_CASES = (("h2o-danube-1.8b + spectral", "serve", 4, 4, 512),
 #: (e) production cells through ``run_cell``: (arch, shape, 2x16x16?).
 DRY_CELLS = (("h2o-danube-1.8b", "train_4k", False), ("h2o-danube-1.8b", "decode_32k", False),
              ("arctic-480b", "train_4k", True), ("deepseek-moe-16b", "prefill_32k", False),
-             ("fftbench", "pod_16m", False))
+             ("fftbench", "pod_16m", False), ("gemma3-12b", "long_500k", False),
+             ("zamba2-2.7b", "long_500k", True))
 #: The ops whose flops ``torch.profiler`` (``with_flops``) and the trace's
 #: ``dot_flops`` both count.
 DOT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -4398,8 +4421,8 @@ def dry_sharded_ranks(background: Background, smi: str) -> dict:
 
 
 def dry_cells(cells: Background) -> None:
-    """(e): every production cell's record line; each ``ok`` (none of
-    them is a ``long_500k`` cell, the only ones that may refuse)."""
+    """(e): every production cell's record line; each ``ok``, the two
+    ``long_500k`` cells (one sequence, replicated over ``data``) too."""
     for arch, shape, multi in DRY_CELLS:
         rec = dict(cells.get(f"{arch} {shape} {multi}"))
         rec.pop("traceback", None)
@@ -4453,6 +4476,346 @@ def dryrun_path(gen) -> dict:
     check(took <= DRY_BUDGET_S, f"phase 16 took {took:.1f} s, past its {DRY_BUDGET_S} s")
     own = {k: v - ranks_launches.get(k, 0) for k, v in launches.items()}
     path_kernel_rows("dryrun", seen, own, gen, timed=False)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the reference's decode sharding (weight-stationary FSDP decode,
+# the sequence-sharded KV cache)
+# ---------------------------------------------------------------------------
+
+LONG_LEN = 524288  # long_500k's positions
+LONG_STEPS = 8  # (a) greedy steps at t = LONG_LEN − 8 … LONG_LEN − 1
+LONG_LAYERS = 6  # (a) one 5:1 local/global period of gemma3-12b
+LONG_TOL = 1e-4  # (a)–(c) vs one device, relative to max|ref|
+#: (b)'s layer: compute dtype, cache dtype, KV kind, tolerance relative to
+#: max|ref|.  A bf16 step rounds its output to bf16, whose ulp is 2^-8 of
+#: it: any other order of the 524288-slot sums moves an element by one ulp
+#: on either side (2^-7); float32 and int8 (exact products) hold 1e-4.
+LONG_ATTN = {"float32": (torch.float32, torch.float32, "bf16", LONG_TOL),
+             "bf16": (torch.bfloat16, torch.bfloat16, "bf16", 2.0**-7),
+             "int8": (torch.bfloat16, torch.bfloat16, "int8", LONG_TOL)}
+LONG_FILL_CHUNK = 65536  # slots of one seeded draw of a filled cache
+LONG_FLUSH = (512, 260)  # (c) prompt, decode steps (one stream flush at C = 256)
+LONG_TIMEOUT = 300  # seconds, for the ranks and the traces
+LONG_BUDGET_S = 120  # seconds: phase 17 as a whole
+
+#: The CPU-only subprocess of phase 17: the traces of (a) and (c) on a fake
+#: group of 4, one "dryrun_record" line each.
+_LONG_TRACES = r"""
+import json, sys, warnings
+warnings.filterwarnings("ignore")
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+for key, rec in chip_smoke.long_traces():
+    print("dryrun_record " + json.dumps([key, rec]), flush=True)
+"""
+
+
+def long_config():
+    """gemma3-12b at full width (d_model 3840, 16 heads, 8 kv of 256,
+    vocab 262144), one 5:1 local/global period, float32."""
+    return dataclasses.replace(get_config("gemma3-12b"), num_layers=LONG_LAYERS, compute_dtype="float32")
+
+
+def long_traces():
+    """(a)'s step and (c)'s cell traced at 2×2 on a fake group of 4 (run in
+    :class:`Background`)."""
+    from repro_torch.configs.base import ShapeConfig
+
+    yield "a", traced(long_config(), ShapeConfig("phase 17 (a)", LONG_LEN, 1, "decode"), (2, 2), fsdp=True)
+    yield "c", traced(dry_rank_config("serve", 4), ShapeConfig("phase 17 (c)", sum(LONG_FLUSH), 1, "decode"),
+                      (2, 2), fsdp=False)
+
+
+def long_fill(caches, slots_of, seed: int, kv_total: int, kv_range=None) -> None:
+    """Fill each KV cache in ``caches`` (a rank's shard, or the whole) with
+    the seeded contents of the global cache: field f of layer l, slots c·N …
+    (c + 1)·N − 1 (N = LONG_FILL_CHUNK) drawn over the row and all
+    ``kv_total`` kv heads from a generator seeded by (seed, l, f, c) —
+    normal values, or int8 ones and their scales — then cut to the shard's
+    slots (a SeqKVCache's ``start`` on) and kv heads (``kv_range(l)``:
+    (first, count); all of them by default).  ``slots_of(l)``: the layer's
+    global slot count."""
+    from repro_torch.models.layers.attention import SeqKVCache
+
+    for layer, cache in enumerate(caches):
+        total = slots_of(layer)
+        s0, n = (cache.start if isinstance(cache, SeqKVCache) else 0), cache.k.shape[1]
+        k0, nk = kv_range(layer) if kv_range else (0, kv_total)
+        for f, buf in enumerate(t for t in cache[:4] if t is not None):
+            for c0 in range(0, total, LONG_FILL_CHUNK):
+                lo, hi = max(c0, s0), min(c0 + LONG_FILL_CHUNK, s0 + n, total)
+                if lo >= hi:
+                    continue
+                g = torch.Generator(device="cuda").manual_seed(((seed * 64 + layer) * 8 + f) * 4096 + c0 // LONG_FILL_CHUNK)
+                shape = (buf.shape[0], min(LONG_FILL_CHUNK, total - c0), kv_total) + tuple(buf.shape[3:])
+                if buf.dtype == torch.int8:
+                    draw = torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+                elif buf.dim() == 3:  # the int8 scales
+                    draw = 0.004 + 0.026 * torch.rand(shape, generator=g, device="cuda")
+                else:
+                    draw = torch.randn(shape, generator=g, device="cuda").to(buf.dtype)
+                buf[:, lo - s0:hi - s0] = draw[:, lo - c0:hi - c0].narrow(2, k0, nk)
+
+
+def long_slots(cfg):
+    """Layer → its cache's global slot count (a window layer's ring)."""
+    pattern = cfg.pattern()
+    return lambda layer: min(cfg.sliding_window, LONG_LEN) if pattern[layer] == "attn_local" else LONG_LEN
+
+
+def long_attention(kind: str):
+    """(b)'s layer: gemma3-12b's global attention (16 heads, 8 kv of 256)
+    from a seed, computing in ``LONG_ATTN[kind]``'s dtype over its cache,
+    its input token, and the cache's dtype."""
+    from repro_torch.models.layers.attention import Attention
+
+    compute, cache_dtype, kv_kind, _ = LONG_ATTN[kind]
+    cfg = dataclasses.replace(long_config(), compute_dtype=str(compute).replace("torch.", ""), kv_cache_dtype=kv_kind)
+    attn = Attention(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(20))
+    x = torch.randn(1, 1, cfg.d_model, device="cuda", generator=torch.Generator(device="cuda").manual_seed(18))
+    return attn, x.to(compute), cache_dtype
+
+
+def long_one_device(smi: str) -> dict:
+    """The one-device references of (a)–(c) on the card: (a) 8 greedy steps
+    of the 6-layer gemma3-12b (float32) over filled 524288-position caches;
+    (b) one step of (b)'s layer over a filled 524288-slot cache, bf16 and
+    int8; (c) h2o + spectral at batch 1 (float32), a 512 prompt and 260
+    teacher-forced steps."""
+    cfg = long_config()
+    out = {}
+    with torch.no_grad():
+        model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        caches = model.cache_init(1, LONG_LEN)
+        long_fill(caches, long_slots(cfg), 0, cfg.num_kv_heads)
+        torch.cuda.reset_peak_memory_stats()  # the steps' peak, as the ranks measure theirs
+        tok = torch.randint(0, cfg.vocab_size, (1,), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(17))
+        rows, fed, ms = [], [], []
+        for i in range(LONG_STEPS):
+            fed.append(tok.clone())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(tok, caches, LONG_LEN - LONG_STEPS + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(logits.float().cpu())
+            tok = logits.argmax(-1)
+        out["a"] = {"logits": torch.stack(rows), "tokens": torch.stack(fed).cpu(), "ms": statistics.median(ms[1:]),
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+        del model, caches
+        torch.cuda.empty_cache()
+        out["b"] = {}
+        for kind in LONG_ATTN:
+            attn, x, cache_dtype = long_attention(kind)
+            cache = attn.cache_init(1, LONG_LEN, cache_dtype, "cuda")
+            long_fill([cache], lambda _: LONG_LEN, 1, attn.cfg.num_kv_heads)
+            y, cache = attn.decode(x, cache, LONG_LEN - 1)
+            out["b"][kind] = {"y": y.float().cpu(), "slot": [t[:, LONG_LEN - 1].cpu() for t in cache[:4] if t is not None]}
+            del attn, cache
+            torch.cuda.empty_cache()
+        ccfg = dry_rank_config("serve", 4)
+        prompt, steps = LONG_FLUSH
+        ids = torch.randint(0, ccfg.vocab_size, (1, prompt + steps), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(19))
+        model = DecoderLM(ccfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        ref, _, _, ref_ms = serve_rows(model, ids, prompt, steps, False)
+        out["c"] = {"logits": ref, "ids": ids.cpu(), "ms": statistics.median(ref_ms[1:])}
+        del model
+        torch.cuda.empty_cache()
+    print("long_reference " + json.dumps({"a_step_ms": out["a"]["ms"], "a_peak_bytes": out["a"]["peak_bytes"],
+                                          "c_step_ms": out["c"]["ms"], "tokens": out["a"]["tokens"].flatten().tolist(),
+                                          "card": smi}), flush=True)
+    return out
+
+
+def long_rank_cases(rank: int, world: int, port: int, smi: str, ref_path: str) -> dict:
+    """(a)–(c) on one of four gloo ranks on the card, against the one-device
+    references at ``ref_path``."""
+    from repro_torch.launch.mesh import make_mesh, parallel_config_for
+    from repro_torch.models.layers.attention import SeqKVCache
+    from repro_torch.sharding.logical import mesh_context
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    out = {}
+    try:
+        gloo_cuda_probe("phase 17", rank, world, ("all_gather_into_tensor", "all_reduce"))
+        mesh = make_mesh((2, 2), ("data", "model"))
+        cfg = long_config()
+        with torch.no_grad():
+            # (a) weight-stationary FSDP decode at full width over 524288 slots.
+            par = dataclasses.replace(parallel_config_for(mesh, fsdp=True), decode_weight_stationary=True)
+            model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+            shard.shard_model(model, mesh, par)
+            torch.cuda.empty_cache()
+            caches = model.cache_init(1, LONG_LEN)
+            with shard.context(model):
+                kv_of = {layer: block.mixer.kv_local() for layer, block in enumerate(model.stack)}
+            long_fill(caches, long_slots(cfg), 0, cfg.num_kv_heads, kv_of.__getitem__)
+            torch.cuda.reset_peak_memory_stats()  # the steps' peak: the shards, the caches, the step
+            want = ref["a"]["logits"]
+            rows, colls, by_axis, ms, schedule = [], [], [], [], []
+            for i in range(LONG_STEPS):
+                tok = ref["a"]["tokens"][i].cuda()
+                shard.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(tok, caches, LONG_LEN - LONG_STEPS + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                c = shard.counts()
+                colls.append(c["counts"])
+                by_axis.append(c["by_axis"])
+                schedule.append(shard.decode_collectives(model, caches, 1))
+                rows.append(logits.float().cpu())
+            got = torch.stack(rows)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            check(err <= LONG_TOL, f"phase 17 (a) rank {rank}: logits off by {err:.3e}")
+            check(torch.equal(got[:-1].argmax(-1), ref["a"]["tokens"][1:].cpu()), f"phase 17 (a) rank {rank}: greedy tokens differ")
+            check(all(c == s for c, s in zip(colls, schedule)), f"phase 17 (a) rank {rank}: collectives {colls[-1]}, the schedule's {schedule[-1]}")
+            gathered = sorted({k for b in by_axis for k in b if k.startswith("all_gather:data")})
+            check(not gathered, f"phase 17 (a) rank {rank}: gathers over data {gathered}")
+            out["a"] = {"rel_err": err, "collectives": colls[-1], "by_axis": by_axis[-1],
+                        "step_ms": statistics.median(ms[1:]), "peak_bytes": torch.cuda.max_memory_allocated()}
+            del model, caches
+            torch.cuda.empty_cache()
+
+            # (b) the sequence-sharded attention at gemma3's global-layer
+            # shapes: the slots over the four ranks (a 4×1 mesh: the layer
+            # whole on each rank, the reductions over data).
+            mesh41 = make_mesh((4, 1), ("data", "model"))
+            n = LONG_LEN // world
+            out["b"] = {}
+            for kind, (_, _, _, tol) in LONG_ATTN.items():
+                attn, x, cache_dtype = long_attention(kind)
+                cache = SeqKVCache(*attn.cache_init(1, n, cache_dtype, "cuda"), start=rank * n,
+                                   axes=("data", "model"))
+                long_fill([cache], lambda _: LONG_LEN, 1, attn.cfg.num_kv_heads)
+                before = [t.clone() for t in cache[:4] if t is not None]
+                shard.reset_counts()
+                with mesh_context(mesh41, parallel_config_for(mesh41)):
+                    y, cache = attn.decode(x, cache, LONG_LEN - 1)
+                colls_b = shard.counts()["counts"]
+                want_y = ref["b"][kind]["y"]
+                err = ((y.float().cpu() - want_y).abs().max() / want_y.abs().max()).item()
+                check(err <= tol, f"phase 17 (b) {kind} rank {rank}: output off by {err:.3e} (≤ {tol:.1e})")
+                now = [t for t in cache[:4] if t is not None]
+                changed = int(sum(int((a != b).reshape(a.shape[0], a.shape[1], -1).any(-1).sum())
+                                  for a, b in zip(now, before)))
+                owner = (LONG_LEN - 1) // n == rank
+                if owner:
+                    for t, w in zip(now, ref["b"][kind]["slot"]):
+                        check(torch.equal(t[:, n - 1].cpu(), w), f"phase 17 (b) {kind} rank {rank}: the written slot differs")
+                out["b"][kind] = {"rel_err": err, "changed": changed, "owner": owner, "collectives": colls_b}
+                del attn, cache, before, now
+                torch.cuda.empty_cache()
+
+            # (c) h2o + spectral at batch 1 (replicated over data), one flush.
+            ccfg = dry_rank_config("serve", 4)
+            prompt, steps = LONG_FLUSH
+            ids = ref["c"]["ids"].cuda()
+            model = DecoderLM(ccfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+            shard.shard_model(model, mesh, parallel_config_for(mesh))
+            logits, caches = model.prefill(shard.data_rows(model, ids)[:, :prompt])
+            caches = model.prepare_decode_caches(caches, prompt + steps)
+            rows, ms, colls = [logits.float().cpu()], [], []
+            launched = kernels.counts()
+            for i in range(steps):
+                shard.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(ids[:, prompt + i], caches, prompt + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                colls.append(shard.counts()["counts"])
+                rows.append(logits.float().cpu())
+            after = kernels.counts()
+            launched = {k: v - launched.get(k, 0) for k, v in after.items() if v != launched.get(k, 0)}
+            got, want = torch.stack(rows), ref["c"]["logits"]
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            check(err <= LONG_TOL, f"phase 17 (c) rank {rank}: logits off by {err:.3e}")
+            schedule = shard.decode_collectives(model, caches, 1)
+            check(all(c == schedule for c in colls), f"phase 17 (c) rank {rank}: collectives {colls[-1]}, the schedule's {schedule}")
+            out["c"] = {"rel_err": err, "collectives": schedule, "decode_launches": launched,
+                        "step_ms": statistics.median(ms[1:])}
+            del model, caches
+            torch.cuda.empty_cache()
+        return {"records": out, "launches": kernels.counts()}
+    finally:
+        dist.destroy_process_group()
+
+
+def long_phase(gen) -> dict:
+    """Phase 17: the traces of (a) and (c) start in a CPU-only subprocess,
+    the one-device references run here, then (a)–(c) on four gloo ranks on
+    this card; returns the ranks' kernel launches."""
+    smi = card_line()
+    traces = Background(_LONG_TRACES)
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "long_ref.pt")
+    try:
+        t0 = time.perf_counter()
+        torch.save(long_one_device(smi), ref_path)
+        print(f"phase 17 one-device references: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_ranks("phase 17", long_rank_cases, (smi, ref_path), 4, LONG_TIMEOUT)
+        finally:
+            os.remove(ref_path)
+        print(f"phase 17 (a)-(c) four ranks: {time.perf_counter() - t0:.1f} s (gloo: the host's wire, not NVLink)",
+              flush=True)
+        rec_a, rec_c = traces.get("a"), traces.get("c")
+    finally:
+        traces.close()
+    traced_a = {k: int(v) for k, v in rec_a["per_chip"]["collective_count_by_type"].items()}
+    flush = {k: int(v) for k, v in rec_c["flush_step"]["launches"].items()}
+    launches = {}
+    for r in sorted(ranks):
+        rec = ranks[r]["records"]
+        check(rec["a"]["collectives"] == traced_a,
+              f"phase 17 (a) rank {r}: collectives {rec['a']['collectives']}, traced {traced_a}")
+        traced_axes = rec_a["per_chip"]["collectives_by_axis"]
+        check(rec["a"]["by_axis"] == traced_axes, f"phase 17 (a) rank {r}: by axis {rec['a']['by_axis']}, traced {traced_axes}")
+        check(rec["c"]["decode_launches"] == flush and rec_c["launches"] == {},
+              f"phase 17 (c) rank {r}: decode launches {rec['c']['decode_launches']}, the trace's flush {flush}")
+        print("long " + json.dumps({"rank": r, "backend": "gloo", "card": smi, "traced_a": traced_a,
+                                    "traced_a_peak_bytes": rec_a["per_chip"]["peak_memory_bytes"], **rec}),
+              flush=True)
+        for key, count in ranks[r]["launches"].items():
+            launches[key] = launches.get(key, 0) + count
+    for kind in LONG_ATTN:
+        owners = [r for r in ranks if ranks[r]["records"]["b"][kind]["owner"]]
+        changed = [r for r in ranks if ranks[r]["records"]["b"][kind]["changed"]]
+        check(owners == changed and len(changed) == 1,
+              f"phase 17 (b) {kind}: the written slot landed on ranks {changed}, owner {owners}")
+    return launches
+
+
+def long_path(gen) -> dict:
+    """Phase 17 as one path: the counts at 0, :func:`long_phase`, every
+    kernel of the path launched ((c)'s flush) and no plain version; then
+    each distinct kernel call this process made against its plain
+    version."""
+    t0 = time.perf_counter()
+    ranks_launches = {}
+
+    def phase(g):
+        ranks_launches.update(long_phase(g))
+        return ranks_launches
+
+    with tune_env("off"), recorded_calls() as seen:
+        launches = path_launches("long", phase, gen)
+    took = time.perf_counter() - t0
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s, {len(seen)} distinct kernel calls here", flush=True)
+    check(took <= LONG_BUDGET_S, f"phase 17 took {took:.1f} s, past its {LONG_BUDGET_S} s")
+    own = {k: v - ranks_launches.get(k, 0) for k, v in launches.items()}
+    path_kernel_rows("long", seen, own, gen, timed=False)
     torch.cuda.empty_cache()
     return launches
 
@@ -4527,9 +4890,10 @@ def main() -> int:
         distributed = distributed_path(gen)
         sharded = sharded_path(gen)
         dryrun = dryrun_path(gen)
+        long = long_path(gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
                     + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name]
-                    + distributed[name] + sharded[name] + dryrun[name] for name in SOURCES}
+                    + distributed[name] + sharded[name] + dryrun[name] + long[name] for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -4542,7 +4906,7 @@ def main() -> int:
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
             "hybrid_launches": hybrid[name], "frontend_launches": frontend[name],
             "distributed_launches": distributed[name], "sharded_launches": sharded[name],
-            "dryrun_launches": dryrun[name],
+            "dryrun_launches": dryrun[name], "long_launches": long[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

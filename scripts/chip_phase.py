@@ -16,7 +16,10 @@ the card: traces of phase 10 (c)'s step, phase 8's prefill, decode step and
 flush step and phase 14 (a)'s transforms against the real runs, sharded serving at
 world 1 and on four gloo ranks, the production cells through
 ``run_cell``; the ``dryrun`` and ``dryrun_cell`` lines, then
-"kernel_check ... dryrun" lines).
+"kernel_check ... dryrun" lines) or phase 17 (the reference's decode
+sharding on four spawned gloo ranks: gemma3-12b weight-stationary over
+524288-position caches, the sequence-sharded attention, h2o + spectral at
+a batch of 1; the ``long`` lines, then "kernel_check ... long" lines).
 
     python3 scripts/chip_phase.py 11
     python3 scripts/chip_phase.py 12
@@ -24,6 +27,7 @@ world 1 and on four gloo ranks, the production cells through
     python3 scripts/chip_phase.py 14
     python3 scripts/chip_phase.py 15
     python3 scripts/chip_phase.py 16
+    python3 scripts/chip_phase.py 17
 
 A quicker loop than the whole smoke run while a serving path changes; the
 smoke run stays the proof.  Exits 1 on the first failed check.
@@ -42,7 +46,7 @@ import chip_smoke as cs  # noqa: E402
 
 #: Phase → (its path's name in ``chip_smoke.PATH_KERNELS``, the phase).
 PHASES = {11: ("moe", cs.moe_phase), 12: ("hybrid", cs.recurrent_phase), 13: ("frontend", cs.frontend_phase),
-          14: ("distributed", None), 15: ("sharded", None), 16: ("dryrun", None)}
+          14: ("distributed", None), 15: ("sharded", None), 16: ("dryrun", None), 17: ("long", None)}
 
 
 def main(argv) -> int:
@@ -66,8 +70,8 @@ def main(argv) -> int:
     path, run = PHASES[phase]
     t0 = time.perf_counter()
     try:
-        if run is None:  # phases 14–16 drive their own paths, ranks and all
-            {14: cs.distributed_path, 15: cs.sharded_path, 16: cs.dryrun_path}[phase](gen)
+        if run is None:  # phases 14–17 drive their own paths, ranks and all
+            {14: cs.distributed_path, 15: cs.sharded_path, 16: cs.dryrun_path, 17: cs.long_path}[phase](gen)
             print(f"phase {phase} alone: {time.perf_counter() - t0:.1f} s", flush=True)
             return 0
         with cs.tune_env("off"), cs.recorded_calls() as seen, torch.no_grad():

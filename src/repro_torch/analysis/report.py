@@ -42,9 +42,7 @@ def fmt_ms(s):
 
 
 def status(r) -> str:
-    """A record that did not trace: its named refusal, or its failure."""
-    if r.get("refusal"):
-        return f"REFUSED ({r['refusal']})"
+    """A record that did not trace: its failure."""
     return f"FAILED: {r.get('error', '')[:40]}"
 
 
@@ -95,7 +93,6 @@ def summary(mesh: str, art: str = ART) -> dict:
     return {
         "cells": len(recs),
         "traced": len(ok),
-        "refused": sum(1 for r in recs if r.get("refusal")),
         "fits": sum(1 for r in ok if r["fits_hbm"]),
         "bounds": {
             b: sum(1 for r in ok if r["roofline"]["bound"] == b)

@@ -23,13 +23,14 @@ runs as the 2-D mesh (32, 16) over ('data', 'model'): every rule that names
 ``data`` names ``pod`` with it (the batch, FSDP's embed dim), so folding the
 pod axis into ``data`` shards every parameter and batch as the reference's
 rules do.  The reference's ``DECODE_CACHE_MODE`` does not apply: the port
-has one cache form, written in place.  Nor does its weight-stationary
-FSDP decode: a sharded decode gathers each FSDP unit over ``data`` every
-step (``ROADMAP.md`` A6), and a decode whose batch does not divide ``data``
-(``long_500k``, one sequence) raises
-:class:`~repro_torch.sharding.shard.SequenceShardRefusal` (the
-sequence-sharded cache it would need is not ported), which the cell
-records as its ``refusal``; any other error is a failure.
+has one cache form, written in place.  A decode cell runs as the
+reference's ``_lower_decode``: weight-stationary where the model is FSDP
+(``par_act``: the weights keep their training shards, the batch is
+replicated over ``data``), against the caches ``cache_shardings`` gives
+(``long_500k``'s one sequence: its slots split where the kv heads do not
+divide ``model``).  A decode record's ``per_chip`` adds
+``collectives_by_axis`` (kind:axis → count, from
+:data:`repro_torch.sharding.shard.BY_AXIS`).  Any error is a failure.
 
 Artifacts land in ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference's record keys (``trace_s`` for its ``compile_s``; its
@@ -179,26 +180,33 @@ def _trace_prefill(cfg, shape, mesh, par):
 
 
 def _trace_decode(cfg, shape, mesh, par):
-    """One decode step of this rank's rows against caches of ``seq_len``
-    positions, writing the last slot; with spectral layers also the step
-    that flushes their streams, once every C tokens (their caches at phase
-    C − 1).  Returns (the step's cost, the flush step's or None, C)."""
+    """One decode step against this rank's shards of caches of ``seq_len``
+    positions, writing the last slot, as the reference lowers it
+    (``par_act``: weight-stationary for an FSDP model); with spectral layers
+    also the step that flushes their streams, once every C tokens (their
+    caches at phase C − 1).  Returns (the step's cost, the flush step's or
+    None, C, the step's collectives by kind and axis)."""
     from repro_torch.models.layers.spectral import SpectralStreamCache
     from repro_torch.sharding import shard
 
-    model = _fake_model(cfg, mesh, par)
-    # The previous tokens (decode_state_specs' (B,) ids) and this rank's
-    # caches (its rows, its shards; KV in the compute dtype or int8).
-    tokens = shard.data_rows(model, torch.empty(shape.global_batch, dtype=torch.long, device=fake.card()))
-    caches = model.cache_init(tokens.shape[0], shape.seq_len)
+    par_act = dataclasses.replace(par, decode_weight_stationary=par.fsdp)
+    model = _fake_model(cfg, mesh, par_act)
+    # The previous tokens (decode_state_specs' (B,) ids: this rank's rows,
+    # or all of them where replicated) and this rank's shards of the
+    # global batch's caches (KV in the compute dtype or int8).
+    tokens = shard.data_rows(model, torch.empty(shape.global_batch, dtype=torch.long, device=fake.card()),
+                             decode=True)
+    caches = model.cache_init(shape.global_batch, shape.seq_len)
     t = shape.seq_len - 1
+    shard.reset_counts()
     step = trace(model.decode_step, tokens, caches, t, _live=(model,))[1]
+    by_axis = dict(shard.BY_AXIS)
     streams = [c.chunk.shape[-1] for c in caches if isinstance(c, SpectralStreamCache)]
     if not streams:
-        return step, None, 0
+        return step, None, 0, by_axis
     c = streams[0]
     flushing = [x._replace(phase=c - 1) if isinstance(x, SpectralStreamCache) else x for x in caches]
-    return step, trace(model.decode_step, tokens, flushing, t, _live=(model,))[1], c
+    return step, trace(model.decode_step, tokens, flushing, t, _live=(model,))[1], c, by_axis
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +350,7 @@ def trace_cell(cfg, shape, mesh_shape: tuple, train_cfg=None, fsdp=None) -> dict
                         cost = _trace_prefill(cfg, shape, mesh, par)
                         tokens = shape.global_batch * shape.seq_len
                     else:
-                        cost, flush, chunk = _trace_decode(cfg, shape, mesh, par)
+                        cost, flush, chunk, by_axis = _trace_decode(cfg, shape, mesh, par)
                         tokens = shape.global_batch  # one new token per sequence
                         if "spectral" in cfg.pattern():
                             from repro_torch.models.layers import spectral as spec_lib
@@ -350,6 +358,8 @@ def trace_cell(cfg, shape, mesh_shape: tuple, train_cfg=None, fsdp=None) -> dict
                             record["spectral_stream"] = spec_lib.stream_plan_info(cfg, batch=shape.global_batch)
                     n_active = active_params(cfg)
         record.update(_summary(cfg, shape, cost, world, tokens, n_active, time.time() - t0))
+        if shape.kind == "decode":
+            record["per_chip"]["collectives_by_axis"] = by_axis
         if flush is not None:
             # The flush step, and the mean step over the C-step cycle
             # (C − 1 steps as traced, one flush).
@@ -361,10 +371,6 @@ def trace_cell(cfg, shape, mesh_shape: tuple, train_cfg=None, fsdp=None) -> dict
             record["decode_cycle"]["chunk"] = chunk
             record["fits_hbm"] = record["fits_hbm"] and record["flush_step"]["fits_hbm"]
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
-        from repro_torch.sharding.shard import SequenceShardRefusal
-
-        if isinstance(e, SequenceShardRefusal):
-            record["refusal"] = e.ROADMAP
         record["error"] = f"{type(e).__name__}: {e}"
         record["traceback"] = traceback.format_exc()[-2000:]
     return record
@@ -463,7 +469,7 @@ def main(argv=None):
         assert args.arch and args.shape, "--arch and --shape or --all"
         cells = [(args.arch, args.shape)]
 
-    failures = refused = 0
+    failures = 0
     for arch, shape_name in cells:
         for mp in meshes:
             rec = run_cell(arch, shape_name, mp, force=args.force)
@@ -478,13 +484,10 @@ def main(argv=None):
                     f"fits={rec['fits_hbm']}",
                     flush=True,
                 )
-            elif rec.get("refusal"):
-                refused += 1
-                print(f"REFUSED {arch:15s} {shape_name:12s} mp={mp}: {rec['error']}", flush=True)
             else:
                 failures += 1
                 print(f"FAIL {arch:18s} {shape_name:12s} mp={mp}: {rec['error']}", flush=True)
-    print(f"done; failures={failures} refused={refused}")
+    print(f"done; failures={failures}")
     return failures
 
 

@@ -16,9 +16,12 @@ parameter is allocated.  :func:`abstract_params` and
 device, what the dry run (:mod:`repro_torch.launch.dryrun`) traces after
 making them fake.  :func:`cache_shardings` gives each layer's decode cache
 the reference's spec (its rules at ``src/repro/launch/shardings.py:149``,
-less the leading repeats axis of the reference's stacked caches); where
-the kv heads do not divide ``model`` the port's sharded attention caches
-whole kv heads instead, as its compute reads them (``ROADMAP.md`` A6).
+less the leading repeats axis of the reference's stacked caches), and
+:func:`local_caches` cuts a rank's shard of each layer's cache by those
+specs as the port's layers hold it: rows and slots as the spec splits
+them, kv heads over ``model`` where the spec puts them there and else the
+kv heads the rank's query heads read (where the spec puts ``head_dim``
+over ``model``, ``ROADMAP.md`` C), the int8 scales' slots as their k's.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from repro_torch.sharding import partition
 from repro_torch.sharding.partition import spec_for_shape
 
 __all__ = ["abstract_params", "abstract_train_state", "param_count", "param_specs", "train_state_shardings",
-           "batch_shardings", "cache_shardings"]
+           "batch_shardings", "cache_shardings", "meta_caches", "local_caches", "local_range"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -186,4 +189,74 @@ def cache_shardings(cfg: ModelConfig, mesh, par: ParallelConfig, caches) -> list
             else:
                 specs[name] = generic_spec(t)
         out.append(type(cache)(**specs))
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _meta_model(cfg: ModelConfig):
+    from repro_torch.models.model import DecoderLM
+
+    return DecoderLM(cfg, device="meta")
+
+
+def meta_caches(cfg: ModelConfig, batch: int, max_len: int, dtype) -> list:
+    """Every layer's decode cache for the global batch of ``batch`` rows and
+    ``max_len`` positions, on the meta device (the shapes alone)."""
+    return _meta_model(cfg).cache_init(batch, max_len, dtype)
+
+
+def local_range(entry, n: int, mesh) -> tuple:
+    """(first index, count) of this rank's part of a dim of ``n`` that a
+    spec entry (None, a mesh axis, or a tuple of them in order) splits."""
+    if entry is None:
+        return 0, n
+    idx, size = 0, 1
+    for axis in (entry,) if isinstance(entry, str) else entry:
+        d = mesh.mesh_dim_names.index(axis)
+        idx, size = idx * mesh.size(d) + mesh.get_local_rank(d), size * mesh.size(d)
+    return idx * (n // size), n // size
+
+
+def local_caches(model, caches) -> list:
+    """This rank's shard of each layer's decode cache of the sharded
+    ``model``, cut from ``caches`` (the global batch's: every row, slot, kv
+    head and channel; meta tensors give the shapes alone) by
+    :func:`cache_shardings`' specs as the port's layers hold them.  KV:
+    rows and slots as the spec splits them (split slots come back a
+    :class:`~repro_torch.models.layers.attention.SeqKVCache` holding every
+    kv head), else the kv heads of ``Attention.kv_local``; the int8 scales'
+    rows, slots and kv heads as their k's.  A spectral state: its rows and
+    the channels of the rank's ``model`` shard; a recurrent state: its rows
+    (the recurrent layers compute whole over ``model``)."""
+    from repro_torch.models.layers import attention as attn_lib
+    from repro_torch.models.layers.spectral import SpectralCache, SpectralStreamCache
+    from repro_torch.sharding import shard
+
+    mesh, par = model._sharding
+    specs = cache_shardings(model.cfg, mesh, par, caches)
+    out = []
+    with shard.context(model):
+        for block, cache, spec in zip(model.stack, caches, specs, strict=True):
+            fields = cache._asdict()
+            first = next(k for k, t in fields.items() if hasattr(t, "shape"))
+            r0, rows = local_range(getattr(spec, first)[0], fields[first].shape[0], mesh)
+            cut = {k: t.narrow(0, r0, rows) if hasattr(t, "shape") else t for k, t in fields.items()}
+            if isinstance(cache, attn_lib.KVCache):
+                s_entry = spec.k[1]
+                s0, n = local_range(s_entry, cache.k.shape[1], mesh)
+                k0, kv = (0, cache.k.shape[2]) if s_entry else block.mixer.kv_local()
+                for k, t in cut.items():
+                    if t is not None:
+                        cut[k] = t.narrow(1, s0, n).narrow(2, k0, kv)
+                if s_entry:
+                    axes = (s_entry,) if isinstance(s_entry, str) else tuple(s_entry)
+                    cache = attn_lib.SeqKVCache(**cut, start=s0, axes=axes)
+                    out.append(cache)
+                    continue
+            elif isinstance(cache, (SpectralCache, SpectralStreamCache)):
+                ch, dim = block.mixer._channels(), 2 if isinstance(cache, SpectralCache) else 1
+                if ch != block.mixer.d_model:
+                    cut = {k: t.narrow(dim, shard.tp().rank * ch, ch) if hasattr(t, "shape") else t
+                           for k, t in cut.items()}
+            out.append(type(cache)(**cut))
     return out

@@ -27,6 +27,20 @@ q and k rotate by M-RoPE where ``cfg.rope_kind == "mrope"`` and (B, 3, S)
 ``mrope_positions`` are given, else by standard RoPE on ``positions`` (the
 reference's rule: a vision config served as text rotates as any other).
 The causal mask and the decode cache slot never read the M-RoPE ids.
+
+A sharded decode step reads the cache in the layout the reference's
+``cache_shardings`` gives it (``launch/shardings.py``): this rank's rows
+where the batch splits over ``data``, its kv heads, and, where the kv
+heads do not divide ``model`` and the batch is replicated, its range of
+slots (a :class:`SeqKVCache`).  Then the query of every head is gathered
+over ``model`` (the cache holds every kv head of its slots), the new key
+and value land only on the rank that owns the slot, the mask reads the
+global slot index, and the softmax's max, its sum and the value products
+are reduced over the slots' mesh axes.  Under a weight-stationary decode
+(:func:`repro_torch.sharding.shard.ws`) q, k and v are the partial
+products of this rank's ``embed`` slice summed over ``data``, and a cache
+whose rows split over ``data`` is attended by its rows, the outputs
+gathered over ``data`` before ``wo``.
 """
 
 from __future__ import annotations
@@ -37,10 +51,11 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import rope as rope_lib
+from repro_torch.sharding import shard
 from repro_torch.sharding.shard import local, model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
-__all__ = ["Attention", "KVCache", "init_kv_cache", "slot_index", "quant_tok"]
+__all__ = ["Attention", "KVCache", "SeqKVCache", "init_kv_cache", "slot_index", "quant_tok"]
 
 NEG_INF = -1e30
 
@@ -56,6 +71,20 @@ class KVCache(NamedTuple):
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+
+class SeqKVCache(NamedTuple):
+    """A rank's shard of a decode KV cache whose slots are split over the
+    mesh axes ``axes`` (in that order, as the reference's spec names them):
+    k/v (B, n, KV, hd) hold global slots ``start`` … ``start + n − 1`` of
+    every kv head, and the int8 scales (B, n, KV) the same slots."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    start: int = 0
+    axes: tuple = ()
 
 
 def quant_tok(x: torch.Tensor):
@@ -116,11 +145,14 @@ class Attention(nn.Module):
         """Project and rotate.  x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd);
         positions (B, S), mrope_positions (B, 3, S) or None."""
         cd = x.dtype
-        xq = model_copy(x) if self._sharded() else x
-        xkv = xq if self.wk.shape[1] != self.cfg.num_kv_heads else x
-        q = (xq @ self.wq.to(cd).flatten(1)).unflatten(-1, self.wq.shape[1:])
-        k = (xkv @ self.wk.to(cd).flatten(1)).unflatten(-1, self.wk.shape[1:])
-        v = (xkv @ self.wv.to(cd).flatten(1)).unflatten(-1, self.wv.shape[1:])
+        if shard.ws():
+            q, k, v = shard.ws_in(x, self.wq, self.wk, self.wv)
+        else:
+            xq = model_copy(x) if self._sharded() else x
+            xkv = xq if self.wk.shape[1] != self.cfg.num_kv_heads else x
+            q = xq @ self.wq.to(cd).flatten(1)
+            k, v = (xkv @ w.to(cd).flatten(1) for w in (self.wk, self.wv))
+        q, k, v = (t.unflatten(-1, w.shape[1:]) for t, w in ((q, self.wq), (k, self.wk), (v, self.wv)))
         cfg = self.cfg
         if cfg.rope_kind == "mrope" and mrope_positions is not None:
             q = rope_lib.apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
@@ -242,36 +274,58 @@ class Attention(nn.Module):
         by ``mrope_positions`` (B, 3, 1) where the config takes M-RoPE and
         they are given (a vision prompt's text continues at M-RoPE ids apart
         from its slot), else by ``t``.  Writes the new key and value into
-        ``cache`` in place and returns (y, cache)."""
+        ``cache`` (a :class:`KVCache`, or this rank's slots of a
+        :class:`SeqKVCache`) in place and returns (y, cache)."""
         b = x.shape[0]
         cfg = self.cfg
-        # This rank's heads and the kv heads they read (all of them unsharded).
-        h, hd = self.wq.shape[1], cfg.resolved_head_dim
-        k0, kv = self.kv_local()
-        h0 = tp().rank * h if self._sharded() else 0
-        kv_of = [(h0 + j) // (cfg.num_heads // cfg.num_kv_heads) - k0 for j in range(h)]  # cached kv head
-        g = h // kv
-        grouped = h % kv == 0 and kv_of == [j // g for j in range(h)]
         if torch.is_tensor(t):
             t_vec = t.to(device=x.device, dtype=torch.long)
         else:
             t_vec = torch.full((b,), int(t), dtype=torch.long, device=x.device)
         q, k_new, v_new = self._qkv(x, t_vec[:, None], mrope_positions)
-        k_new, v_new = self._cache_kv(k_new), self._cache_kv(v_new)
+        rows = cache.k.shape[0]
+        if rows != b:
+            # A weight-stationary step over a cache whose rows are split
+            # over data: this rank attends its own rows.
+            r0 = shard.data_rank() * rows
+            q, k_new, v_new, t_vec = (z.narrow(0, r0, rows) for z in (q, k_new, v_new, t_vec))
+        seq = isinstance(cache, SeqKVCache)
+        hd = cfg.resolved_head_dim
+        h_own = self.wq.shape[1]
+        h0 = tp().rank * h_own if self._sharded() else 0
+        if seq:
+            # Every kv head of this rank's slots: the query of every head.
+            axes, start = cache.axes, cache.start
+            if self._sharded():
+                q = shard.model_gather(q, dim=2)
+            h, k0, kv, h_first = cfg.num_heads, 0, cfg.num_kv_heads, 0
+        else:
+            axes, start = (), 0
+            k_new, v_new = self._cache_kv(k_new), self._cache_kv(v_new)
+            (k0, kv), h, h_first = self.kv_local(), h_own, h0
+        kv_of = [(h_first + j) // (cfg.num_heads // cfg.num_kv_heads) - k0 for j in range(h)]  # cached kv head
+        g = h // kv
+        grouped = h % kv == 0 and kv_of == [j // g for j in range(h)]
 
-        slots = cache.k.shape[1]
+        n_slots = cache.k.shape[1]
+        total = n_slots * shard.axes_size(axes)
         quantized = cache.k.dtype == torch.int8
-        rows = torch.arange(b, device=x.device)
-        at = slot_index(t_vec, slots, self.window)
+        at = slot_index(t_vec, total, self.window)
+        loc = (at - start).clamp(0, n_slots - 1)
+        own = (at >= start) & (at < start + n_slots) if seq else None
+        ridx = torch.arange(rows, device=x.device)
         if quantized:
             (kq, ks), (vq, vs) = quant_tok(k_new), quant_tok(v_new)
-            for buf, new in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks), (cache.v_scale, vs)):
-                buf[rows, at] = new[:, 0]
+            news = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks), (cache.v_scale, vs))
         else:
-            cache.k[rows, at] = k_new[:, 0].to(cache.k.dtype)
-            cache.v[rows, at] = v_new[:, 0].to(cache.v.dtype)
+            news = ((cache.k, k_new), (cache.v, v_new))
+        for buf, new in news:
+            new = new[:, 0].to(buf.dtype)
+            if own is not None:  # only the rank that owns the slot writes it
+                new = torch.where(own.view((rows,) + (1,) * (new.dim() - 1)), new, buf[ridx, loc])
+            buf[ridx, loc] = new
 
-        ck, cv, cks, cvs = cache
+        ck, cv, cks, cvs = cache[:4]
         if not grouped:
             # This rank's heads straddle kv-head groups: they read an
             # expanded copy, each head its own kv head.
@@ -280,7 +334,7 @@ class Attention(nn.Module):
             if quantized:
                 cks, cvs = cks.index_select(2, at_kv), cvs.index_select(2, at_kv)
             kv, g = h, 1
-        qg = q.reshape(b, kv, g, hd)
+        qg = q.reshape(rows, kv, g, hd)
         if quantized:
             # int8 × int8 with the products summed exactly (float64 holds the
             # reference's int32 sums: |Σ| < 2^53); scales folded back per
@@ -293,17 +347,38 @@ class Attention(nn.Module):
             scores = torch.einsum("bngh,bknh->bngk", qg, ck).float()
         scores = self._softcap(scores * hd**-0.5)
         # A ring holds a live key in every slot once t ≥ slots.
-        lim = t_vec.clamp(max=slots - 1) if self.window else t_vec
-        valid = torch.arange(slots, device=x.device)[None, :] <= lim[:, None]  # (B, slots)
-        probs = torch.softmax(scores.masked_fill(~valid[:, None, None, :], NEG_INF), dim=-1)
+        lim = t_vec.clamp(max=total - 1) if self.window else t_vec
+        valid = (start + torch.arange(n_slots, device=x.device))[None, :] <= lim[:, None]  # (B, slots)
+        scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
         if quantized:
             # The per-slot v scale rides the contracted axis: fold it into
-            # the probs before quantising them, then int8 × int8 again.
-            pv = probs * cvs.transpose(1, 2)[:, :, None, :]
-            pv_s = (pv.abs().amax(-1) + 1e-12) / 127.0
-            pv_q = torch.clamp(torch.round(pv / pv_s[..., None]), -127, 127)
-            out = torch.einsum("bngk,bknh->bngh", pv_q.double(), cv.double()).float()
-            out = (out * pv_s[..., None]).to(x.dtype)
+            # the exponentials and quantise them against their max over
+            # every slot (the quotients of the normalised probs, so every
+            # shard of the slots rounds alike), then int8 × int8 again.
+            (top,) = shard.seq_reduce(axes, scores.amax(-1, keepdim=True), op="max")
+            e = torch.exp(scores - top)
+            pv = e * cvs.transpose(1, 2)[:, :, None, :]
+            (pv_top,) = shard.seq_reduce(axes, pv.abs().amax(-1, keepdim=True), op="max")
+            pv_s = (pv_top + 1e-12) / 127.0
+            pv_q = torch.clamp(torch.round(pv / pv_s), -127, 127)
+            out = torch.einsum("bngk,bknh->bngh", pv_q.double(), cv.double())
+            out, den = shard.seq_reduce(axes, out, e.sum(-1, keepdim=True).double())
+            out = (out * (pv_s.double() / den)).to(x.dtype)
+        elif axes:
+            # Each shard's share of the softmax and of the value products,
+            # in float32, summed over the slots' axes.
+            (top,) = shard.seq_reduce(axes, scores.amax(-1, keepdim=True), op="max")
+            e = torch.exp(scores - top)
+            (den,) = shard.seq_reduce(axes, e.sum(-1, keepdim=True))
+            part = torch.einsum("bngk,bknh->bngh", (e / den).to(cv.dtype).float(), cv.float())
+            (out,) = shard.seq_reduce(axes, part)
+            out = out.to(x.dtype)
         else:
+            probs = torch.softmax(scores, dim=-1)
             out = torch.einsum("bngk,bknh->bngh", probs.to(cv.dtype), cv)
-        return self._out(out.reshape(b, 1, h, hd), x.dtype), cache
+        out = out.reshape(rows, 1, h, hd)
+        if seq and h != h_own:
+            out = out.narrow(2, h0, h_own)  # this rank's heads for wo
+        if rows != b:
+            out = shard.data_gather(out, 0)
+        return self._out(out, x.dtype), cache

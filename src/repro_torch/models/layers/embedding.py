@@ -7,6 +7,9 @@ sharded model with the vocab over ``model`` the lookup reads this rank's
 rows (the others' tokens masked) and the ranks' rows meet in
 ``model_sum``; the head's input enters through ``model_copy`` and its
 logits are this rank's vocab slice (the loss reduces over ``model``).
+Under a weight-stationary decode the table's (vocab/model, D/data) shard
+looks up this rank's ``embed`` slice, and the head's (D/data, vocab/model)
+shard gives partial logits summed over ``data``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.sharding.shard import model_copy, model_sum, tp
+from repro_torch.sharding.shard import data_sum, model_copy, model_sum, tp
 from repro_torch.utils.params import normal
 
 __all__ = ["Embedding", "Head"]
@@ -51,7 +54,7 @@ class Head(nn.Module):
 
     def __init__(self, cfg, *, dtype=torch.float32, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.tied, self.vocab = cfg.tie_embeddings, cfg.vocab_size
+        self.tied, self.vocab, self.d_model = cfg.tie_embeddings, cfg.vocab_size, cfg.d_model
         self.softcap = cfg.final_logit_softcap
         if not self.tied:
             self.w = normal((cfg.d_model, cfg.vocab_size), dtype=dtype, device=device, generator=generator)
@@ -61,6 +64,8 @@ class Head(nn.Module):
         if w.shape[1] != self.vocab:  # this rank's vocab slice
             x = model_copy(x)
         logits = x.float() @ w
+        if w.shape[0] != self.d_model:  # this rank's embed slice: partial logits
+            logits = data_sum(logits)
         if self.softcap:
             logits = torch.tanh(logits / self.softcap) * self.softcap
         return logits

@@ -5,7 +5,11 @@ Port of ``repro/models/layers/mlp.py``.  ``gelu`` is the tanh approximation
 at each use, as the reference writes ``params[...].astype(cd)``.  In a
 sharded model with ``ff`` over ``model`` each rank computes its ff shard:
 the input enters through ``model_copy`` and the partial outputs meet in
-``model_sum`` (the reference's ``ann`` of h and y).
+``model_sum`` (the reference's ``ann`` of h and y).  Under a
+weight-stationary decode the input is this rank's ``embed`` slice and the
+``wi_*`` shards' partial products meet over ``data``
+(:func:`~repro_torch.sharding.shard.ws_in`); ``wo``'s (ff, D/data) shard
+gives the output's slice.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 import torch.nn.functional as tF
 from torch import nn
 
-from repro_torch.sharding.shard import model_copy, model_sum
+from repro_torch.sharding.shard import model_copy, model_sum, ws, ws_in
 from repro_torch.utils.params import normal
 
 __all__ = ["MLP", "ACTIVATIONS"]
@@ -45,9 +49,12 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = x.dtype
         sharded = self.wo.shape[0] != self.d_ff
-        if sharded:
-            x = model_copy(x)
-        g = x @ self.wi_gate.to(cd)
-        u = x @ self.wi_up.to(cd)
+        if ws():
+            g, u = ws_in(x, self.wi_gate, self.wi_up)
+        else:
+            if sharded:
+                x = model_copy(x)
+            g = x @ self.wi_gate.to(cd)
+            u = x @ self.wi_up.to(cd)
         y = (ACTIVATIONS[self.act](g) * u) @ self.wo.to(cd)
         return model_sum(y) if sharded else y

@@ -25,7 +25,10 @@ own experts into its (E/m, B·C, D) slice of the buffer, runs them, and the
 ranks' combines meet in ``model_sum`` — no all-to-all.  The input and the
 routing weights enter the expert shards through ``model_copy``.  The
 load-balance statistics and the dropped count are summed over ``data``
-first, so the aux term is the global batch's, as the reference's.
+first, so the aux term is the global batch's, as the reference's.  Under a
+weight-stationary decode the router and the experts' ``wi_*`` contract
+this rank's ``embed`` slice and sum over ``data``, ``wo`` gives the
+slice, and the batch, replicated over ``data``, needs no data sums.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from torch import nn
 
 from repro_torch.models.layers.mlp import ACTIVATIONS, MLP
 from repro_torch.sharding.logical import data_shard_count
-from repro_torch.sharding.shard import data_sum, model_copy, model_sum, tp
+from repro_torch.sharding.shard import data_sum, data_sum_all, model_copy, model_sum, tp, ws, ws_in
 from repro_torch.utils.params import normal
 
 __all__ = ["MoE", "Routing"]
@@ -97,7 +100,7 @@ class MoE(nn.Module):
         (token, choice) order."""
         b, s, _ = x.shape
         e, k = self.cfg.num_experts, self.cfg.top_k
-        probs = torch.softmax(x.float() @ self.router, dim=-1)
+        probs = torch.softmax(ws_in(x.float(), self.router)[0], dim=-1)
         top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         top, idx = top[..., :k], idx[..., :k]
         flat_e = idx.reshape(b, s * k)
@@ -141,7 +144,10 @@ class MoE(nn.Module):
         """The expert FFN over the buffer (E, C, D), each weight cast to the
         buffer's dtype at its use."""
         cd = h.dtype
-        act = ACTIVATIONS[self.cfg.act](torch.bmm(h, self.wi_gate.to(cd))) * torch.bmm(h, self.wi_up.to(cd))
+        gate, up = torch.bmm(h, self.wi_gate.to(cd)), torch.bmm(h, self.wi_up.to(cd))
+        if ws():
+            gate, up = data_sum_all(gate, up)
+        act = ACTIVATIONS[self.cfg.act](gate) * up
         return torch.bmm(act, self.wo.to(cd))
 
     def combine(self, y_e: torch.Tensor, rows: torch.Tensor, mine: torch.Tensor,
@@ -160,7 +166,8 @@ class MoE(nn.Module):
         cfg = self.cfg
         r = self.route(x)
         sharded = self.wi_gate.shape[0] != cfg.num_experts
-        self.dropped = data_sum((~r.keep).sum())
+        replicated = ws()  # a weight-stationary decode's batch: every row on every data rank
+        self.dropped = (~r.keep).sum() if replicated else data_sum((~r.keep).sum())
         if sharded:
             xe, we = model_copy(x), model_copy(r.weights)
         else:
@@ -177,7 +184,7 @@ class MoE(nn.Module):
         b, s, _ = x.shape
         me = r.probs.mean((0, 1))  # mean router probability per expert
         ce = r.onehot.sum((0, 2)).float() / (b * s)  # assignments per token, dropped ones too
-        shards = data_shard_count()
+        shards = 1 if replicated else data_shard_count()
         if shards > 1:  # the global batch's means (equal rows per shard)
             me, ce = data_sum(torch.stack([me, ce])) / shards
         return y, (me * ce).sum() * cfg.num_experts * cfg.router_aux_loss

@@ -2,13 +2,17 @@
 
 Port of ``repro/models/layers/norms.py``: ``rms_norm`` and ``layer_norm``,
 and the ``RMSNorm`` module the blocks use (parameter ``scale``, float32 as
-the reference initialises it whatever the model's parameter dtype).
+the reference initialises it whatever the model's parameter dtype).  On
+this rank's ``embed`` slice of a weight-stationary decode's stream the
+sum of squares is summed over ``data`` and the scale's slice applies.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.sharding.shard import data_sum, stream_slice
 
 __all__ = ["RMSNorm", "rms_norm", "layer_norm"]
 
@@ -36,5 +40,10 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(d, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.scale, self.eps)
+        d = self.scale.shape[0]
+        if x.shape[-1] == d:
+            return rms_norm(x, self.scale, self.eps)
+        var = data_sum(x.float().square().sum(-1, keepdim=True)) / d
+        inv = torch.rsqrt(var + self.eps).to(x.dtype)
+        return x * inv * stream_slice(self.scale).to(x.dtype)
 

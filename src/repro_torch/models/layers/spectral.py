@@ -34,7 +34,7 @@ from repro_torch.core import fft as fft_lib
 from repro_torch.core import overlap as ov_lib
 from repro_torch.core.conv import fft_conv
 from repro_torch.core.limits import next_pow2
-from repro_torch.sharding.shard import local, model_copy, model_sum, tp
+from repro_torch.sharding.shard import data_gather, local, model_copy, model_sum, own_rows, tp, ws_in
 from repro_torch.utils.params import normal
 
 __all__ = [
@@ -166,12 +166,20 @@ class SpectralMixer(nn.Module):
         return y if self._channels() == self.d_model else model_sum(y)
 
     def _in_gate(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        cd = x.dtype
-        return x @ self.w_in.to(cd), tF.silu(x @ self.w_gate.to(cd))
+        # Under a weight-stationary decode: this rank's embed slice, the
+        # partial products summed over data.
+        u, g = ws_in(x, self.w_in, self.w_gate)
+        return u, tF.silu(g)
 
     def _out(self, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """The gated output projection; a weight-stationary decode's data
+        shard of the rows (``y``'s, of the step's ``g``) gathered to the
+        step's batch before ``w_out``."""
         cd = g.dtype
-        return (y.to(cd) * g) @ self.w_out.to(cd)
+        h = y.to(cd) * own_rows(g, y.shape[0])
+        if h.shape[0] != g.shape[0]:
+            h = data_gather(h)
+        return h @ self.w_out.to(cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
         """x: (B, S, D) → (B, S, D), differentiable in ``x``, ``filt`` and
@@ -254,6 +262,7 @@ class SpectralMixer(nn.Module):
         filter with the last Lf inputs."""
         lf = self.filter_len
         u, g = self._in_gate(x)
+        u = own_rows(u, cache.buf.shape[0])
         slot = cache.t % lf
         buf = cache.buf.clone()
         buf[:, slot, :] = u[:, 0].to(torch.float32)
@@ -279,6 +288,7 @@ class SpectralMixer(nn.Module):
         c, _ = self.grain
         i = cache.phase
         u, g = self._in_gate(x)
+        u = own_rows(u, cache.chunk.shape[0])
         chunk = cache.chunk.clone()
         chunk[..., i] = u[:, 0].to(torch.float32)
         k = min(i + 1, self.filter_len)  # taps past the filter are zero

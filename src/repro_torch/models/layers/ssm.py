@@ -38,6 +38,7 @@ import torch.nn.functional as tF
 from torch import nn
 
 from repro_torch.models.layers.norms import RMSNorm
+from repro_torch.sharding.shard import data_gather, own_rows, ws_in
 from repro_torch.utils.params import normal
 
 __all__ = ["Mamba2", "SSMCache", "chunks", "causal_decay", "carry_chunks", "ssd_chunked"]
@@ -146,7 +147,7 @@ class Mamba2(nn.Module):
 
     def _in_proj(self, x: torch.Tensor):
         d_inner, _, _, n = _dims(self.cfg)
-        zxbcdt = x @ self.w_in.to(x.dtype)
+        (zxbcdt,) = ws_in(x, self.w_in)  # a weight-stationary decode: summed over data
         conv_dim = d_inner + 2 * n
         return zxbcdt[..., :d_inner], zxbcdt[..., d_inner:d_inner + conv_dim], zxbcdt[..., d_inner + conv_dim:]
 
@@ -176,9 +177,13 @@ class Mamba2(nn.Module):
         d_inner, _, _, n = _dims(self.cfg)
         return xbc[..., :d_inner], xbc[..., d_inner:d_inner + n], xbc[..., d_inner + n:]
 
-    def _out(self, y: torch.Tensor, z: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-        """y (B, S, d_inner) float32 after the skip → the block's output."""
+    def _out(self, y: torch.Tensor, z: torch.Tensor, cd: torch.dtype, batch: Optional[int] = None) -> torch.Tensor:
+        """y (B, S, d_inner) float32 after the skip → the block's output; a
+        weight-stationary decode's data shard of the rows gathered to the
+        step's ``batch`` before ``w_out``."""
         y = self.norm(y.to(cd) * tF.silu(z))
+        if batch is not None and y.shape[0] != batch:
+            y = data_gather(y)
         return y @ self.w_out.to(cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
@@ -205,10 +210,12 @@ class Mamba2(nn.Module):
                         conv=torch.zeros(batch, self.cfg.conv_width - 1, d_inner + 2 * n, dtype=dtype, device=dev))
 
     def decode(self, x: torch.Tensor, cache: SSMCache) -> Tuple[torch.Tensor, SSMCache]:
-        """One token: x (B, 1, D) → (y (B, 1, D), new cache), O(H·P·N)."""
-        bsz = x.shape[0]
+        """One token: x (B, 1, D) → (y (B, 1, D), new cache), O(H·P·N).
+        A weight-stationary step over a state of its data shard's rows
+        updates those rows."""
+        batch, bsz = x.shape[0], cache.state.shape[0]
         d_inner, h, p, _ = _dims(self.cfg)
-        z, xbc, dt_raw = self._in_proj(x)
+        z, xbc, dt_raw = (own_rows(t, bsz) for t in self._in_proj(x))
         xbc, conv_carry = self._conv_apply(xbc, carry=cache.conv)
         xs, b_in, c_in = self._split(xbc[:, 0])
         xh = xs.reshape(bsz, h, p).float()
@@ -218,4 +225,4 @@ class Mamba2(nn.Module):
         state = cache.state * decay[:, :, None, None] + upd
         y = torch.einsum("bn,bhpn->bhp", c_in.float(), state)
         y = y + self.d_skip[:, None] * xh
-        return self._out(y.reshape(bsz, 1, d_inner), z, x.dtype), SSMCache(state=state, conv=conv_carry)
+        return self._out(y.reshape(bsz, 1, d_inner), z, x.dtype, batch), SSMCache(state=state, conv=conv_carry)

@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.layers.ssm import carry_chunks, causal_decay, chunks
+from repro_torch.sharding.shard import data_gather, own_rows, stream_full, stream_slice, ws_in
 from repro_torch.utils.params import normal
 
 __all__ = ["MLSTM", "SLSTM", "MLSTMCache", "SLSTMCache", "stab_scan"]
@@ -117,7 +118,7 @@ class MLSTM(nn.Module):
         the compute dtype (k scaled by P^-0.5)."""
         cd, (b, s, _) = x.dtype, x.shape
         d, h, p = self.d_inner, self.heads, self.head_dim
-        up = x @ self.w_up.to(cd)
+        (up,) = ws_in(x, self.w_up)  # a weight-stationary decode: summed over data
         u, z = up[..., :d], up[..., d:]
         qkv = u @ self.w_qkv.to(cd)
         q = qkv[..., :d].reshape(b, s, h, p)
@@ -129,9 +130,13 @@ class MLSTM(nn.Module):
         gf = u.float() @ self.w_if + self.b_if
         return gf[..., :self.heads], tF.logsigmoid(gf[..., self.heads:])
 
-    def _out(self, out: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    def _out(self, out: torch.Tensor, z: torch.Tensor, batch: Optional[int] = None) -> torch.Tensor:
+        """The output projection; a weight-stationary decode's data shard of
+        the rows gathered to the step's ``batch`` before ``w_down``."""
         cd = z.dtype
         out = self.norm(out.reshape(*z.shape).to(cd)) * tF.silu(z)
+        if batch is not None and out.shape[0] != batch:
+            out = data_gather(out)
         return out @ self.w_down.to(cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
@@ -153,8 +158,10 @@ class MLSTM(nn.Module):
                           m=torch.zeros(batch, h, device=dev))
 
     def decode(self, x: torch.Tensor, cache: MLSTMCache) -> Tuple[torch.Tensor, MLSTMCache]:
-        """One token: x (B, 1, D) → (y (B, 1, D), new cache)."""
-        u, z, q, k, v = self._project(x)
+        """One token: x (B, 1, D) → (y (B, 1, D), new cache).  A
+        weight-stationary step over a state of its data shard's rows updates
+        those rows."""
+        u, z, q, k, v = (own_rows(t, cache.m.shape[0]) for t in self._project(x))
         q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
         li, lf = (g[:, 0] for g in self._gates(u))
         m_new = torch.maximum(lf + cache.m, li)
@@ -165,7 +172,7 @@ class MLSTM(nn.Module):
         cv = torch.einsum("bhp,bhpo->bho", q, c)
         nq = torch.einsum("bhp,bhp->bh", q, n)
         denom = torch.maximum(nq.abs(), torch.exp(-m_new))
-        return self._out(cv / denom[..., None], z), MLSTMCache(c=c, n=n, m=m_new)
+        return self._out(cv / denom[..., None], z, x.shape[0]), MLSTMCache(c=c, n=n, m=m_new)
 
 
 class SLSTM(nn.Module):
@@ -224,5 +231,9 @@ class SLSTM(nn.Module):
 
     def decode(self, x: torch.Tensor, cache: SLSTMCache) -> Tuple[torch.Tensor, SLSTMCache]:
         """One token: x (B, 1, D) → (y (B, 1, D), new cache)."""
-        state = self._cell(self._in(x[:, 0]), cache, self.w_h.float())
-        return self._out(state.h[:, None], x.dtype), state
+        # A weight-stationary decode gathers the sLSTM whole, the stream
+        # too, and updates its data shard's rows of the state where the
+        # state holds only those.
+        state = self._cell(self._in(own_rows(stream_full(x)[:, 0], cache.c.shape[0])), cache, self.w_h.float())
+        hs = state.h[:, None] if state.h.shape[0] == x.shape[0] else data_gather(state.h[:, None])
+        return stream_slice(self._out(hs, x.dtype)), state

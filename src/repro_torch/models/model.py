@@ -38,7 +38,15 @@ forward (each block's unit gathered per call) and return the full-vocab
 logits of those rows (the vocab slices gathered over ``model``); the
 caches are this rank's: its rows, its kv heads (the kv heads its query
 heads read where the kv heads do not divide ``model``), its spectral
-channels.
+channels.  A batch that does not split over ``data`` is replicated; then
+a cache whose kv heads do not divide ``model`` is split by slots
+(:class:`~repro_torch.models.layers.attention.SeqKVCache`), as the
+reference's ``cache_shardings``.  A model sharded with
+``decode_weight_stationary`` decodes as the reference's FSDP decode: the
+weights stay the training shards (nothing gathered over ``data``), the
+step's batch is replicated over ``data`` (``data_rows(..., decode=True)``)
+and the residual stream is this rank's ``embed`` slice; every data rank
+returns the same logits.
 """
 
 from __future__ import annotations
@@ -148,9 +156,9 @@ class DecoderLM(nn.Module):
         positions; ``mrope_positions`` (B, 3, 1) the step's M-RoPE ids for a
         vision config (standard RoPE at ``t`` without them).  Returns
         (logits (B, vocab), new caches); KV caches are written in place."""
-        with shard.gathered(self):
+        with shard.decoding(self), shard.gathered(self):
             if self.cfg.frontend == "audio" and embeds is not None:
-                x = torch.as_tensor(embeds, device=self.device).to(self.compute_dtype)
+                x = shard.stream_slice(torch.as_tensor(embeds, device=self.device).to(self.compute_dtype))
             else:
                 x = self.embed(self._tokens(tokens)[:, None], self.compute_dtype)
             x, caches = self.stack.decode(x, caches, t, self._ids(mrope_positions))
@@ -159,9 +167,24 @@ class DecoderLM(nn.Module):
     def cache_init(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None) -> List:
         """Empty per-layer decode caches for ``batch`` rows and ``max_len``
         positions (KV in ``dtype``, default the compute dtype); a sharded
-        model's are this rank's shards of them (``batch`` its rows)."""
+        model's are this rank's shards of the global batch's caches
+        (:func:`repro_torch.launch.shardings.local_caches`: its rows, kv
+        heads, channels and, where the spec splits them, slots)."""
+        dtype = dtype or self.compute_dtype
+        if not shard.is_sharded(self):
+            return self.stack.cache_init(batch, max_len, dtype)
+        from repro_torch.launch import shardings
+
+        mine = shardings.local_caches(self, shardings.meta_caches(self.cfg, batch, max_len, dtype))
+        out = []
         with shard.context(self):
-            return self.stack.cache_init(batch, max_len, dtype or self.compute_dtype)
+            for block, cache in zip(self.stack, mine):
+                if isinstance(cache, (attn_lib.KVCache, attn_lib.SeqKVCache)):  # zeros
+                    out.append(type(cache)(*[torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                                             if torch.is_tensor(t) else t for t in cache]))
+                else:
+                    out.append(block.cache_init(cache[0].shape[0], max_len, dtype))
+        return out
 
     @torch.no_grad()
     def prepare_decode_caches(self, caches: List, max_len: int) -> List:

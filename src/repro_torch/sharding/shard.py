@@ -32,15 +32,29 @@ load-balance statistics.  Every rank holds one copy of the global loss, so
 its backward gives its own rows' share of each gradient, and the unit's
 reduce-scatter sums the shares: the one-device step's gradient.
 
+A decode step of a model sharded with ``decode_weight_stationary`` (the
+reference's weight-stationary FSDP decode, :func:`decoding`) gathers
+nothing over ``data``: the weights stay the training shards, the one-token
+batch is replicated over ``data`` and the residual stream is this rank's
+slice of ``embed`` (B, 1, D/data).  A layer contracts that slice against
+its (D/data, out) shard and sums the partial products over ``data``
+(:func:`ws_in`); its output projection's (in, D/data) shard gives the
+rank's slice of the stream (a ``model_sum`` where ``in`` is over
+``model``).  Only the sLSTM's weights and the spectral filter, which no
+layer computes on by ``embed`` slices, are gathered over ``data`` then.
+
 Without a :func:`~repro_torch.sharding.logical.mesh_context` the helpers
 are no-ops and an unsharded model runs as before.  A collective over a
 group of one rank is skipped.  :data:`COUNTS` and :data:`BYTES` count the
-collectives by kind.
+collectives by kind, :data:`BY_AXIS` by kind and the mesh axis they ran
+over (``data``, ``model`` or ``world``; a unit's gathers of its weights
+tagged ``:weights``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -75,14 +89,32 @@ __all__ = [
     "context",
     "model_gather",
     "data_rows",
-    "SequenceShardRefusal",
+    "decoding",
+    "ws",
+    "ws_in",
+    "data_sum_all",
+    "data_rank",
+    "own_rows",
+    "axes_size",
+    "stream_slice",
+    "stream_full",
+    "data_gather",
+    "seq_reduce",
     "COUNTS",
     "BYTES",
+    "BY_AXIS",
 ]
 
-#: Collectives launched, by kind, and the bytes each moved (its input's).
+#: Collectives launched, by kind, and the bytes each moved (its input's);
+#: by ``"kind:axis"``.
 COUNTS: dict = {}
 BYTES: dict = {}
+BY_AXIS: dict = {}
+
+#: The weights a weight-stationary decode still gathers over ``data``:
+#: the sLSTM's (its recurrence runs on the whole state) and the spectral
+#: filter (its rows are the channels of the ``model`` shard).
+WS_GATHERED = {"SLSTM": ("w_x", "w_h", "bias", "w_out"), "SpectralMixer": ("filt",)}
 
 #: The layers that compute on model shards of these weights; every other
 #: parameter sharded over ``model`` is gathered over it for its layer.
@@ -97,28 +129,47 @@ LOCAL_WEIGHTS = {
 
 
 def counts() -> dict:
-    return {"counts": dict(COUNTS), "bytes": dict(BYTES)}
+    return {"counts": dict(COUNTS), "bytes": dict(BYTES), "by_axis": dict(BY_AXIS)}
 
 
 def reset_counts() -> None:
     COUNTS.clear()
     BYTES.clear()
+    BY_AXIS.clear()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _axis_name(group) -> str:
+    """The mesh axis ``group`` spans in the active mesh (``world`` for the
+    process group itself)."""
+    ctx = current_mesh()
+    if group is None or ctx is None:
+        return "world"
+    mesh, par = ctx
+    key = getattr(group, "group_name", id(group))
+    for name in (par.data_axis, par.model_axis):
+        g = mesh.get_group(mesh.mesh_dim_names.index(name))
+        if g is group or getattr(g, "group_name", None) == key:
+            return name
+    return "world"
+
+
+def _count(kind: str, t: torch.Tensor, group=None, weights: bool = False) -> None:
     COUNTS[kind] = COUNTS.get(kind, 0) + 1
     BYTES[kind] = BYTES.get(kind, 0) + t.numel() * t.element_size()
+    key = f"{kind}:{_axis_name(group)}" + (":weights" if weights else "")
+    BY_AXIS[key] = BY_AXIS.get(key, 0) + 1
 
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    _count("all_reduce", t)
+    _count("all_reduce", t, group)
     dist.all_reduce(t, op=op, group=group)
     return t
 
 
-def _all_gather(flat: torch.Tensor, n: int, group) -> torch.Tensor:
-    """(N,) on each of ``n`` ranks → (n, N), rank-major."""
-    _count("all_gather", flat)
+def _all_gather(flat: torch.Tensor, n: int, group, weights: bool = False) -> torch.Tensor:
+    """(N,) on each of ``n`` ranks → (n, N), rank-major (``weights``: a
+    unit's parameters, so counted)."""
+    _count("all_gather", flat, group, weights)
     out = flat.new_empty(n * flat.numel())
     dist.all_gather_into_tensor(out, flat, group=group)
     return out.view(n, -1)
@@ -126,7 +177,7 @@ def _all_gather(flat: torch.Tensor, n: int, group) -> torch.Tensor:
 
 def _reduce_scatter(rows: torch.Tensor, group) -> torch.Tensor:
     """(n, N) on each rank → (N,): this rank's row summed over the ranks."""
-    _count("reduce_scatter", rows)
+    _count("reduce_scatter", rows, group)
     out = rows.new_empty(rows.shape[1])
     dist.reduce_scatter_tensor(out, rows.reshape(-1), group=group)
     return out
@@ -222,6 +273,130 @@ def model_max(x: torch.Tensor) -> torch.Tensor:
     ax = tp()
     return x if ax is None or ax.size == 1 else _all_reduce(x.detach().contiguous().clone(), ax.group,
                                                             dist.ReduceOp.MAX)
+
+
+# --------------------------------------------------------------------------
+# weight-stationary decode and the sequence-sharded cache
+# --------------------------------------------------------------------------
+
+_ws_state = threading.local()
+
+
+def ws() -> bool:
+    """Whether a weight-stationary decode step is in force on this thread."""
+    return getattr(_ws_state, "on", False)
+
+
+@contextlib.contextmanager
+def decoding(model: nn.Module):
+    """``model``'s decode step: weight-stationary for a model sharded with
+    ``decode_weight_stationary`` (the reference's ``par_act``), else as its
+    forward runs."""
+    prev = ws()
+    _ws_state.on = is_sharded(model) and model._sharding[1].decode_weight_stationary
+    try:
+        yield
+    finally:
+        _ws_state.on = prev
+
+
+def data_rank() -> int:
+    """This rank's index on ``data`` (0 without a mesh context)."""
+    ax = _data()
+    return 0 if ax is None else ax.rank
+
+
+def axes_size(axes: tuple) -> int:
+    """The ranks of the active mesh's axes ``axes`` (1 for none, or without
+    a mesh context)."""
+    ctx = current_mesh()
+    if ctx is None:
+        return 1
+    mesh = ctx[0]
+    n = 1
+    for a in axes:
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
+
+
+def _split_like(flat: torch.Tensor, ts) -> tuple:
+    out, at = [], 0
+    for t in ts:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return tuple(out)
+
+
+def data_sum_all(*ts) -> tuple:
+    """Each of ``ts`` (one dtype, no gradient) summed over ``data``: one
+    all-reduce for all of them."""
+    ax = _data()
+    if ax is None or ax.size == 1:
+        return ts
+    return _split_like(_all_reduce(torch.cat([t.reshape(-1) for t in ts]), ax.group), ts)
+
+
+def ws_in(x: torch.Tensor, *weights) -> tuple:
+    """``x`` (..., D) times each of ``weights`` (D, ...) flattened after its
+    first dim, cast to ``x``'s dtype: (..., out) each.  Under a
+    weight-stationary decode ``x`` is this rank's slice of ``embed`` and
+    each weight its (D/data, ...) shard, so the partial products are summed
+    over ``data``, one all-reduce for all of them."""
+    outs = tuple(x @ w.to(x.dtype).flatten(1) for w in weights)
+    return data_sum_all(*outs) if ws() else outs
+
+
+def stream_slice(x: torch.Tensor) -> torch.Tensor:
+    """Under a weight-stationary decode, this rank's ``embed`` slice of the
+    last dim of ``x``; ``x`` otherwise."""
+    ax = _data()
+    if not ws() or ax is None or ax.size == 1:
+        return x
+    n = x.shape[-1] // ax.size
+    return x.narrow(-1, ax.rank * n, n)
+
+
+def stream_full(x: torch.Tensor) -> torch.Tensor:
+    """Under a weight-stationary decode, the whole ``embed`` dim of a slice
+    (..., D/data) of the stream, gathered over ``data``; ``x`` otherwise."""
+    ax = _data()
+    if not ws() or ax is None or ax.size == 1:
+        return x
+    return _gather_dim([x.contiguous()], [x.dim() - 1], ax)[0]
+
+
+def own_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """This rank's ``rows`` rows of a weight-stationary step's replicated
+    batch ``x`` (dim 0), for a decode state that holds its data shard's
+    rows only; ``x`` itself where the state holds all of them."""
+    return x if x.shape[0] == rows else x.narrow(0, data_rank() * rows, rows)
+
+
+def data_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The data ranks' shards of ``x`` (no gradient) along ``dim`` joined in
+    rank order: an all-gather over ``data``."""
+    ax = _data()
+    if ax is None or ax.size == 1:
+        return x
+    return _gather_dim([x.contiguous()], [dim % x.dim()], ax)[0]
+
+
+def seq_reduce(axes: tuple, *ts, op: str = "sum") -> tuple:
+    """Each of ``ts`` (one dtype, no gradient) summed, or its elementwise
+    max for ``op="max"``, over the ranks of the mesh axes ``axes`` (a
+    sequence-sharded cache's group): one all-reduce over the process group
+    where the axes span the whole mesh and world, else one per axis."""
+    ctx = current_mesh()
+    if ctx is None or not axes:
+        return ts
+    groups = _reduce_groups(ctx[0], axes)
+    if not groups:
+        return ts
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    for group in groups:
+        flat = _all_reduce(flat, group, red)
+    return _split_like(flat, ts)
 
 
 # --------------------------------------------------------------------------
@@ -334,13 +509,15 @@ def world_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 class _Slot(NamedTuple):
     """One parameter of a unit: where it lives, the dims its data and model
-    shards split, and whether its layer takes it whole over ``model``."""
+    shards split, whether its layer takes it whole over ``model``, and
+    whether a weight-stationary decode gathers it over ``data``."""
 
     module: nn.Module
     attr: str
     data_dim: Optional[int]
     model_dim: Optional[int]
     gather_model: bool
+    ws_gather: bool = False
 
 
 def _flat(ts, dims) -> torch.Tensor:
@@ -348,10 +525,10 @@ def _flat(ts, dims) -> torch.Tensor:
     return torch.cat([t.movedim(d, 0).reshape(-1) for t, d in zip(ts, dims)])
 
 
-def _gather_dim(ts, dims, ax: _Axis):
+def _gather_dim(ts, dims, ax: _Axis, weights: bool = False):
     """Each local shard gathered along its dim over the axis, one
     collective for all of them (one dtype)."""
-    rows = _all_gather(_flat(ts, dims), ax.size, ax.group)
+    rows = _all_gather(_flat(ts, dims), ax.size, ax.group, weights)
     out, at = [], 0
     for t, d in zip(ts, dims):
         moved = t.movedim(d, 0)
@@ -385,19 +562,23 @@ def _by_dtype(idx, ts):
 
 class _UnitGather(torch.autograd.Function):
     """Local shards → the layer's view of each parameter; the backward
-    reduces the gradients over ``data`` and keeps this rank's shards."""
+    reduces the gradients over ``data`` and keeps this rank's shards.
+    Under a weight-stationary decode (``stationary``) only the slots marked
+    ``ws_gather`` are gathered over ``data``."""
 
     @staticmethod
-    def forward(ctx, slots, data: _Axis, model: _Axis, *shards):
+    def forward(ctx, slots, data: _Axis, model: _Axis, stationary: bool, *shards):
         ctx.slots, ctx.data, ctx.model = slots, data, model
         ctx.shapes = [(s.shape, s.dtype, s.device) for s in shards]
         out = list(shards)
+        over_data = (lambda s: s.ws_gather) if stationary else (lambda s: True)  # noqa: E731
         for step, ax, dim_of in ((0, data, lambda s: s.data_dim), (1, model, lambda s: s.model_dim)):
-            pick = [i for i, s in enumerate(slots) if dim_of(s) is not None and (step == 0 or s.gather_model)]
+            pick = [i for i, s in enumerate(slots)
+                    if dim_of(s) is not None and (s.gather_model if step else over_data(s))]
             if ax.size == 1 or not pick:
                 continue
             for idx in _by_dtype(pick, out):
-                for i, t in zip(idx, _gather_dim([out[i] for i in idx], [dim_of(slots[i]) for i in idx], ax)):
+                for i, t in zip(idx, _gather_dim([out[i] for i in idx], [dim_of(slots[i]) for i in idx], ax, True)):
                     out[i] = t
         return tuple(out)
 
@@ -430,7 +611,7 @@ class _UnitGather(torch.autograd.Function):
                 for i in idx:
                     gs[i] = flat[at:at + gs[i].numel()].view_as(gs[i])
                     at += gs[i].numel()
-        return (None, None, None) + tuple(g.contiguous() for g in gs)
+        return (None, None, None, None) + tuple(g.contiguous() for g in gs)
 
 
 class _Unit:
@@ -451,7 +632,7 @@ class _Unit:
         self.ctx = mesh_context(self.mesh, self.par)
         self.ctx.__enter__()
         params = [s.module._parameters[s.attr] for s in self.slots]
-        views = _UnitGather.apply(self.slots, _data(), tp(), *[local(p) for p in params])
+        views = _UnitGather.apply(self.slots, _data(), tp(), ws(), *[local(p) for p in params])
         self.saved = params
         for s, v in zip(self.slots, views):
             s.module._parameters[s.attr] = None  # keeps the parameters' order
@@ -514,28 +695,22 @@ def context(model: nn.Module):
     return mesh_context(*model._sharding) if is_sharded(model) else contextlib.nullcontext()
 
 
-class SequenceShardRefusal(NotImplementedError):
-    """A batch that does not split over ``data``: serving it needs the
-    sequence-sharded cache, which is not ported (:data:`ROADMAP`)."""
-
-    ROADMAP = "ROADMAP.md A6"
-
-
-def data_rows(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def data_rows(model: nn.Module, x: torch.Tensor, *, decode: bool = False) -> torch.Tensor:
     """This rank's rows of a global batch ``x`` (dim 0 split evenly over
     ``data``, as the train step splits a microbatch); ``x`` itself for an
-    unsharded model or a mesh of one data rank."""
+    unsharded model or a mesh of one data rank.  A batch that does not
+    split evenly is replicated (every data rank takes all of it, as the
+    reference's ``batch_shardings`` leaves it), and so is the batch of a
+    decode step (``decode=True``) of a model sharded with
+    ``decode_weight_stationary`` (the reference's ``tok_sh`` under
+    ``par_act``)."""
     if not is_sharded(model):
         return x
     mesh, par = model._sharding
     dim = mesh.mesh_dim_names.index(par.data_axis)
     n = mesh.size(dim)
-    if n == 1:
+    if n == 1 or x.shape[0] % n or (decode and par.decode_weight_stationary):
         return x
-    if x.shape[0] % n:
-        raise SequenceShardRefusal(
-            f"a batch of {x.shape[0]} rows over {n} data shards: decode with the batch replicated "
-            f"over data needs the sequence-sharded cache, {SequenceShardRefusal.ROADMAP}")
     per = x.shape[0] // n
     return x[mesh.get_local_rank(dim) * per:(mesh.get_local_rank(dim) + 1) * per]
 
@@ -558,6 +733,9 @@ def shard_model(model: nn.Module, mesh, par) -> nn.Module:
                                   f"{par.model_axis!r}); got {names} (the pod axis: the rules only)")
     if is_sharded(model):
         raise ValueError("the model is sharded already")
+    d = mesh.size(names.index(par.data_axis))
+    if par.decode_weight_stationary and model.cfg.d_model % d:
+        raise ValueError(f"a weight-stationary decode splits embed ({model.cfg.d_model}) over {d} data ranks")
     axes = param_axes(model)
     owner = {}
     for prefix, sub in model.named_modules():
@@ -569,11 +747,15 @@ def shard_model(model: nn.Module, mesh, par) -> nn.Module:
         sub, attr = owner[name]
         pl = placements_for(spec_for_shape(axes[name], tuple(p.shape), mesh, par), mesh)
         dims = [x.dim if x.is_shard() else None for x in pl]
-        shard_ = wrap(local_chunk(p.detach(), mesh, pl).contiguous(), (mesh, dims))
+        chunk = local_chunk(p.detach(), mesh, pl)
+        if chunk.untyped_storage().nbytes() != chunk.numel() * chunk.element_size() or not chunk.is_contiguous():
+            chunk = chunk.clone(memory_format=torch.contiguous_format)  # its own storage, not the whole's
+        shard_ = wrap(chunk, (mesh, dims))
         sub._parameters[attr] = nn.Parameter(shard_, requires_grad=p.requires_grad)
         whole = attr not in LOCAL_WEIGHTS.get(type(sub).__name__, ())
         key = name.split(".")[1] if name.startswith("stack.") else ""
-        units.setdefault(key, []).append(_Slot(sub, attr, dims[data_i], dims[model_i], whole))
+        units.setdefault(key, []).append(_Slot(sub, attr, dims[data_i], dims[model_i], whole,
+                                               attr in WS_GATHERED.get(type(sub).__name__, ())))
     for key, slots in units.items():
         _hooks(model.stack.get_submodule(key) if key else model, _Unit(mesh, par, slots))
     model._sharding = (mesh, par)
@@ -650,18 +832,41 @@ def step_collectives(model: nn.Module, seq: int, microbatches: int = 1, compress
     return {k: v for k, v in out.items() if v}
 
 
-def decode_collectives(model: nn.Module) -> dict:
+def _reduce_groups(mesh, axes) -> list:
+    """The process groups :func:`seq_reduce` runs its all-reduces over for
+    the mesh axes ``axes``: the world's (None) where they span the whole
+    mesh and world, else each axis of more than one rank's."""
+    live = [a for a in axes if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+    if len(live) > 1 and set(axes) == set(mesh.mesh_dim_names) and mesh.size() == dist.get_world_size():
+        return [None]
+    return [mesh.get_group(mesh.mesh_dim_names.index(a)) for a in live]
+
+
+def decode_collectives(model: nn.Module, caches=None, batch: Optional[int] = None) -> dict:
     """The collectives one decode step of a sharded ``model`` launches, by
     kind, as the units and the layers schedule them; a prefill launches the
-    same (each is one forward pass without a backward).  Each unit's gather
-    per dtype (over ``data`` for its FSDP shards, over ``model`` for the
-    weights its layer takes whole); each layer on model shards its
-    ``model_sum``; the MoE's two data sums (the dropped count and the aux
-    statistics); the embedding's ``model_sum`` and the logits' gather over
-    ``model`` when the vocab is sharded."""
+    same as a decode step that gathers (each is one forward pass without a
+    backward).  Each unit's gather per dtype (over ``data`` for its FSDP
+    shards, none of them but the ``ws_gather`` ones in a weight-stationary
+    step; over ``model`` for the weights its layer takes whole); each layer
+    on model shards its ``model_sum``; the MoE's two data sums (the dropped
+    count and the aux statistics) when its batch splits over ``data``; the
+    embedding's ``model_sum`` and the logits' gather over ``model`` when the
+    vocab is sharded.  A weight-stationary step over ``data`` adds each
+    norm's, each input projection's (the MoE's router and experts: two) and
+    the head's data sum, and the sLSTM's gather of the stream.  With the
+    step's ``caches`` (and ``batch``, its rows): a sequence-sharded
+    attention layer's gather of q over ``model`` and its three reductions
+    over the slots' axes; a weight-stationary mixer whose state holds its
+    data shard's rows gathers its outputs over ``data``."""
+    from repro_torch.models.blocks import SELF_CONTAINED
+    from repro_torch.models.layers.attention import SeqKVCache
+
     mesh, par = model._sharding
     names = mesh.mesh_dim_names
     d, m = mesh.size(names.index(par.data_axis)), mesh.size(names.index(par.model_axis))
+    stationary = par.decode_weight_stationary
+    ws_d = stationary and d > 1
     cfg = model.cfg
     out = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
 
@@ -669,12 +874,14 @@ def decode_collectives(model: nn.Module) -> dict:
         slots = module._shard_unit.slots
         dtypes = lambda pick: len({s.module._parameters[s.attr].dtype for s in slots if pick(s)})  # noqa: E731
         if d > 1:
-            out["all_gather"] += dtypes(lambda s: s.data_dim is not None)
+            out["all_gather"] += dtypes(lambda s: s.data_dim is not None and (s.ws_gather or not stationary))
         if m > 1:
             out["all_gather"] += dtypes(lambda s: s.gather_model and s.model_dim is not None)
 
-    for block in model.stack:
+    for block, cache in zip(model.stack, caches or [None] * len(model.stack), strict=True):
         unit(block)
+        if ws_d:
+            out["all_reduce"] += 1 if block.kind in SELF_CONTAINED else 2  # the norms
         for layer in block.modules():
             kind = type(layer).__name__
             if m > 1 and (
@@ -684,13 +891,25 @@ def decode_collectives(model: nn.Module) -> dict:
                 or (kind == "MoE" and local(layer.wi_gate).shape[0] != cfg.num_experts)
             ):
                 out["all_reduce"] += 1
-            if kind == "MoE" and d > 1:
+            if kind == "MoE" and d > 1 and not stationary:
                 out["all_reduce"] += 2
+            if ws_d:
+                out["all_reduce"] += {"Attention": 1, "MLP": 1, "SpectralMixer": 1, "Mamba2": 1, "MLSTM": 1,
+                                      "MoE": 2}.get(kind, 0)
+                out["all_gather"] += kind == "SLSTM"
+            if kind == "Attention" and isinstance(cache, SeqKVCache):
+                out["all_gather"] += m > 1 and local(layer.wq).shape[1] != cfg.num_heads
+                out["all_reduce"] += 3 * len(_reduce_groups(mesh, cache.axes))
+            elif layer is getattr(block, "mixer", None) and ws_d and cache is not None and batch \
+                    and next(t for t in cache if torch.is_tensor(t)).shape[0] != batch:
+                out["all_gather"] += 1  # its data shard's rows of the state: the outputs gathered
     unit(model)
     if m > 1 and local(model.embed.table).shape[0] != cfg.vocab_size:
         out["all_reduce"] += 1
+    if ws_d:
+        out["all_reduce"] += 2  # the final norm, the head
     head_sharded = (local(model.embed.table).shape[0] if cfg.tie_embeddings
                     else local(model.head.w).shape[1]) != cfg.vocab_size
     if m > 1 and head_sharded:
         out["all_gather"] += 1
-    return {k: v for k, v in out.items() if v}
+    return {k: int(v) for k, v in out.items() if v}

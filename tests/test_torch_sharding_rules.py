@@ -181,3 +181,27 @@ def test_batch_shardings_equal_reference():
         want = {k: tuple(ref_partition.spec_for_shape(("batch", None), v.shape, mesh, ref_par))
                 for k, v in batch.items()}
         assert sh.batch_shardings(cfg, shape, mesh, par, batch) == want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_weight_stationary_param_specs_are_the_training_shards(arch):
+    """The reference's decode lowering places the weights under
+    ``replace(par, decode_weight_stationary=par.fsdp)`` (its
+    ``_lower_decode``): on every mesh, with and without FSDP, the port's
+    specs under it equal the reference's under it and the training specs
+    under ``par`` themselves, so a model sharded for training decodes
+    weight-stationary with no re-placement."""
+    cfg = base.get_config(arch)
+    ref_cfg = _ref_cfg(cfg)
+    leaves = reference_leaves(_model(cfg))
+    for label, (mesh, kw) in MESHES.items():
+        for fsdp in (False, True):
+            par, ref_par = _pars({**kw, "fsdp": fsdp})
+            act = dataclasses.replace(par, decode_weight_stationary=par.fsdp)
+            ref_act = dataclasses.replace(ref_par, decode_weight_stationary=ref_par.fsdp)
+            ref_params = {k: tuple(v) for k, v in _flat(ref_sh._param_spec_tree(ref_cfg, mesh, ref_act)).items()}
+            specs = sh.param_specs(cfg, mesh, act)
+            assert specs == sh.param_specs(cfg, mesh, par), (label, fsdp)
+            for leaf, (stacked, names) in leaves.items():
+                want = ref_params[leaf][1:] if stacked else ref_params[leaf]
+                assert all(specs[name] == want for name in names), (label, fsdp, leaf)
