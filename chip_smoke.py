@@ -259,14 +259,38 @@ package), in phases, and fails on the first check that does not hold:
    within 1e-4·max|ref|, the decode's launches the trace's flush step's.
    Lines: ``long_reference``, ``long`` per rank (errors, collectives, ms a
    step and the peak a rank on gloo's host wire, the card's name and
-   power limit), then "kernel_check ... long" lines.
+   power limit), then "kernel_check ... long" lines;
+18. the executor's last passes and the examples: (a) ``ops.execute_plan``
+   of ``plan_fft(2^29, fused_max=16384)`` — factors (256, 128, 16384):
+   ``cols_pass`` twice, ``fft4step`` over the pencil-order rows, then the
+   reorder copy — batch 1, forward and inverse, within 1e-3·max|ref| of
+   ``torch.fft.fft`` and back to x, exactly 2 ``cols_pass`` and 1
+   ``fft4step`` a call; its ms, the reorder's own ms and bytes, the peak
+   beyond the input, beside the two-factor program of fused_max 65536 and
+   ``torch.fft.fft``, the planning seconds (the float64 host tables and
+   their upload) apart; (b) ``order="pencil"`` at 2^26 × 2: the k₁-major
+   output transposed within 1e-3·max|ref| of ``torch.fft.fft``, one
+   ``cols_pass`` then one ``fft4step``; (c) ``TuningSpace.for_plan`` at
+   2^29: every candidate (the three-factor ones too) timed by its measure
+   function, the ``measure`` and ``model`` picks and the model's pick
+   without the three-factor candidates; (d) the four examples in this
+   process: quickstart's 16 sections (every yes/no line yes, the injected
+   fault raising ``KernelError``, its one-rank NCCL group ended), the SAR
+   example at the reference's sizes (every target OK) and the stripmap
+   (4096 × 8192, a 1024-sample chirp) and spotlight (4096 × 8192) scenes,
+   every target found and each image within 1e-3·max of the same
+   pipeline through ``torch.fft``, timed beside it; serve_decode (bf16
+   and int8 KV), train_lm 6 steps with a falling loss; then (a) at 2^30
+   while the phase's 120 s and the smoke's first 900 s leave room.
+   Lines: ``executor``, ``executor_pencil``, ``executor_tune``, ``sar``,
+   ``examples``, then "kernel_check ... examples" lines for (a)–(c).
 
-Phases 2–8 and 10–17 run with ``REPRO_FFT_TUNE=off``: their expectations
-(launches, kernels, forms, the overlap-save block) are the heuristic
-plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
+Phases 2–8 and 10–18 run with ``REPRO_FFT_TUNE=off`` (phase 18 (c) names
+its modes): their expectations (launches, kernels, forms, the overlap-save
+block) are the heuristic plans'; phase 9 names each mode itself.  The tuning cache is a throwaway file under
 ``build/`` named through ``REPRO_TUNING_CACHE``.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 each set the launch counts to 0
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 each set the launch counts to 0
 before they start and read them when they end; every kernel of a path must
 have launched in it (phase 12's path has none, and must launch none).  Phases
 3–7 and 9 also run every one of their calls over a batch of 0: the output
@@ -274,8 +298,9 @@ must have np.fft's shape, and the call launches nothing (0 launches, not
 ``len(plan.passes)``).  The script then prints the per-kernel JSON line
 (each kernel's launches per path, ``hybrid_launches`` phase 12's,
 ``frontend_launches`` phase 13's, ``distributed_launches`` phase 14's and
-``sharded_launches`` phase 15's, ``dryrun_launches`` phase 16's and
-``long_launches`` phase 17's, their four ranks' included), the
+``sharded_launches`` phase 15's, ``dryrun_launches`` phase 16's,
+``long_launches`` phase 17's, their four ranks' included, and
+``examples_launches`` phase 18's), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -292,6 +317,7 @@ import multiprocessing
 import os
 import queue
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -389,7 +415,9 @@ ATTRS: dict = {}
 #: phase 15 (sharded training: the mixers' rfft / irfft at 8192, 4096
 #: and 2048 points, forward and backward, on every rank) and phase 16 (the
 #: real runs beside the dry run: phase 10's step, phase 8's prefill and
-#: serving, phase 14 (a)'s transforms, the four ranks' 512-token prompts).
+#: serving, phase 14 (a)'s transforms, the four ranks' 512-token prompts)
+#: and phase 18 (the executor's programs at 2^29, 2^26 and 2^30, the tuner's
+#: candidates and the four examples).
 PATH_KERNELS = {
     "main_path": ("dft_matmul", "fft4step", "cols_pass", "rows_natural"),
     "real2d": ("fft4step", "cols_pass", "rows_natural", "cols_natural", "rfft_recomb",
@@ -410,6 +438,8 @@ PATH_KERNELS = {
     "sharded": ("dft_matmul", "fft4step", "rfft_recomb", "irfft_recomb"),
     "dryrun": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "rfft_recomb", "irfft_recomb"),
     "long": ("dft_matmul", "rfft_recomb", "irfft_recomb"),
+    "examples": ("dft_matmul", "fft4step", "cols_pass", "rows_natural", "rfft_recomb", "irfft_recomb",
+                 "bluestein_fwd", "bluestein_inv"),
 }
 
 #: The kernels phase 14's four ranks must launch between them: the column
@@ -4820,7 +4850,302 @@ def long_path(gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the executor's last passes and the examples
+# ---------------------------------------------------------------------------
+
+EXEC_N, EXEC_FUSED_MAX = 1 << 29, 16384  # (a): factors (256, 128, 16384) + the reorder
+EXEC_BIG = 1 << 30  # (a) when the budget leaves room: (256, 256, 16384) + the reorder
+PENCIL_N, PENCIL_B = 1 << 26, 2  # (b)
+EXAMPLES_BUDGET_S = 120  # seconds: phase 18 as a whole
+#: (a) at 2^30 (about 35 s, most of it its host tables) runs only while the
+#: whole smoke run has taken less than this, keeping it under its 1200 s.
+BIG_BEFORE_S = 900
+#: When the smoke run started (``main``); None when a phase runs alone.
+SMOKE_T0 = None
+SAR_FULL = (4096, 8192, 1024)  # (d) stripmap pulses, range samples, chirp; the spotlight is 4096 x 8192
+
+
+def load_example(name: str):
+    """An example script of the checkout, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed_s(fn):
+    """``fn()`` and its wall seconds (the card synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def reorder_program(n: int, smi: str) -> dict:
+    """(a) at ``n``: the three-factor program of fused_max 16384 with its
+    reorder, forward and inverse, batch 1, against ``torch.fft.fft`` and
+    back to x; exactly two ``cols_pass`` and one ``fft4step`` a call; its
+    ms, the reorder's own ms and bytes, the peak beyond the input, beside
+    the two-factor program at fused_max 65536 and ``torch.fft.fft``.  The
+    planning seconds (the float64 host tables and their upload) apart."""
+    three = plan_lib.plan_fft(n, EXEC_FUSED_MAX)
+    two = plan_lib.plan_fft(n)
+    fs = plan_lib.program_factors(n, EXEC_FUSED_MAX)
+    check(len(fs) == 3 and three.passes[-1].kind == "reorder", f"n={n}: program {fs}")
+    check(ops.plan_kernels(three) == ("cols_pass", "cols_pass", "fft4step", "reorder"),
+          f"n={n}: kernels {ops.plan_kernels(three)}")
+    _, plan_fwd_s = timed_s(lambda: ops.plan_luts(three, False, "cuda"))
+    _, plan_inv_s = timed_s(lambda: ops.plan_luts(three, True, "cuda"))
+    x = torch.complex(*planes(torch.Generator(device="cuda").manual_seed(n.bit_length()), 1, n))
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = kernels.counts()
+    yr, yi = ops.execute_plan(xr, xi, three)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    expect = {"cols_pass": 2, "fft4step": 1}
+    check_launches(f"phase 18 (a) n={n} forward", before, kernels.counts(), expect)
+    ref_y = torch.fft.fft(x)
+    scale = ref_y.abs().max().item()
+    err = max((yr - ref_y.real).abs().max().item(), (yi - ref_y.imag).abs().max().item())
+    del ref_y
+    torch.cuda.empty_cache()
+    check(err <= FFT_TOL * scale, f"phase 18 (a) n={n}: vs torch.fft {err:.3e} > {FFT_TOL}·{scale:.3e}")
+    before = kernels.counts()
+    zr, zi = ops.execute_plan(yr, yi, three, inverse=True)
+    torch.cuda.synchronize()
+    check_launches(f"phase 18 (a) n={n} inverse", before, kernels.counts(), expect)
+    rt = max((zr - xr).abs().max().item(), (zi - xi).abs().max().item())
+    xs = max(xr.abs().max().item(), xi.abs().max().item())
+    check(rt <= FFT_TOL * xs, f"phase 18 (a) n={n}: inverse back to x off by {rt:.3e}")
+    del zr, zi
+    torch.cuda.empty_cache()
+    reps = 3
+    fwd_ms = time_ms(lambda: ops.execute_plan(xr, xi, three), reps=reps)
+    inv_ms = time_ms(lambda: ops.execute_plan(yr, yi, three, inverse=True), reps=reps)
+    reorder_ms = time_ms(lambda: ops._reorder(yr.view(1, n), yi.view(1, n), fs), reps=reps)
+    reorder_bytes = 2 * 2 * n * 4  # each plane read once and written once
+    del yr, yi
+    torch.cuda.empty_cache()
+    _, plan_two_s = timed_s(lambda: ops.plan_luts(two, False, "cuda"))
+    two_ms = time_ms(lambda: ops.execute_plan(xr, xi, two), reps=reps)
+    lib_ms = time_ms(lambda: torch.fft.fft(x), reps=reps)
+    row = {
+        "n": n, "batch": 1, "fused_max": EXEC_FUSED_MAX, "factors": list(fs),
+        "kernels": list(ops.plan_kernels(three)), "fft_rel_err": err / scale, "roundtrip_rel_err": rt / xs,
+        "ms": fwd_ms, "ifft_ms": inv_ms, "reorder_ms": reorder_ms, "reorder_bytes": reorder_bytes,
+        "reorder_bound_ms": bound_ms(reorder_bytes, 0)[0], "peak_bytes_beyond_input": peak,
+        "input_bytes": x.numel() * x.element_size(),
+        "two_factor": {"factors": list(plan_lib.program_factors(n)), "kernels": list(ops.plan_kernels(two)),
+                       "ms": two_ms},
+        "library_ms": lib_ms,
+        "planning_s": {"three_factor_fwd": plan_fwd_s, "three_factor_inv": plan_inv_s, "two_factor_fwd": plan_two_s},
+        "card": smi,
+    }
+    print("executor " + json.dumps(row), flush=True)
+    del x, xr, xi
+    return row
+
+
+def drop_tables() -> None:
+    """Free the big inter-factor grids: the device copies and the host tables."""
+    ops._pass_twiddle_luts.cache_clear()
+    twiddle._twiddle_grid_np.cache_clear()
+    twiddle._grid_cos_sin.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def pencil_order(gen, smi: str) -> None:
+    """(b) ``order="pencil"`` at 2^26 × 2: the k₁-major output transposed
+    equals ``torch.fft.fft`` within 1e-3·max|ref|; #3 then #2, once each."""
+    planned = F.plan(F.FFTSpec(PENCIL_N))
+    program = ops.pencil_passes(planned.fft_plan)
+    f0, f1 = plan_lib.program_factors(PENCIL_N)
+    kinds = ops.plan_kernels(plan_lib.FFTPlan(PENCIL_N, (), (), program))
+    check(kinds == ("cols_pass", "fft4step"), f"phase 18 (b): pencil program {kinds}")
+    xr, xi = planes(gen, PENCIL_B, PENCIL_N)
+    before = kernels.counts()
+    pr, pi = ops.execute_plan(xr, xi, planned.fft_plan, order="pencil", forms=planned.forms)
+    torch.cuda.synchronize()
+    check_launches("phase 18 (b) pencil", before, kernels.counts(), {"cols_pass": 1, "fft4step": 1})
+    ref_y = torch.fft.fft(torch.complex(xr, xi))
+    scale = ref_y.abs().max().item()
+
+    def natural(a):
+        return a.view(PENCIL_B, f0, f1).transpose(1, 2).reshape(PENCIL_B, PENCIL_N)
+
+    err = max((natural(pr) - ref_y.real).abs().max().item(), (natural(pi) - ref_y.imag).abs().max().item())
+    check(err <= FFT_TOL * scale, f"phase 18 (b): pencil order vs torch.fft {err:.3e}")
+    pencil_ms = time_ms(lambda: ops.execute_plan(xr, xi, planned.fft_plan, order="pencil", forms=planned.forms),
+                        reps=3)
+    natural_ms = time_ms(lambda: planned((xr, xi)), reps=3)
+    print("executor_pencil " + json.dumps({
+        "n": PENCIL_N, "batch": PENCIL_B, "factors": [f0, f1], "kernels": list(kinds), "rel_err": err / scale,
+        "pencil_ms": pencil_ms, "natural_ms": natural_ms, "card": smi}), flush=True)
+
+
+def tuner_three_factor(smi: str) -> None:
+    """(c) the tuner at 2^29: every candidate (three-factor ones included)
+    timed by its measure function, with its modelled bytes; the "measure"
+    and "model" picks, and the "model" pick of the candidates without a
+    reorder program (the candidate set before the reorder pass ran)."""
+    from repro_torch.analysis.roofline import prune_candidates
+
+    spec = F.FFTSpec(EXEC_N)
+    space = tuning.TuningSpace.for_plan(spec)
+    rows = []
+    for cfg, nbytes, work in space.candidates:
+        program = plan_lib.plan_fft(EXEC_N, cfg["fused_max"], cfg["direct_max"])
+        rows.append({"config": cfg, "factors": list(plan_lib.program_factors(EXEC_N, cfg["fused_max"])),
+                     "reorder": program.passes[-1].kind == "reorder", "modeled_bytes": nbytes,
+                     "smem_bytes": work, "ms": space.measure_fn(cfg) * 1e3})
+    check(any(r["reorder"] for r in rows), "phase 18 (c): no three-factor candidate")
+    two_only = [c for c, r in zip(space.candidates, rows) if not r["reorder"]]
+    earlier = prune_candidates(two_only, tol=tuning.PRUNE_TOL, vmem_budget=space.budget)[0][0]
+    model = space.decide("model")
+    measured_pick = space.decide("measure")
+    print("executor_tune " + json.dumps({
+        "n": EXEC_N, "candidates": rows, "measure_pick": measured_pick, "model_pick": model,
+        "model_pick_without_three_factor": earlier, "card": smi}), flush=True)
+
+
+def torch_stripmap(raw, matched):
+    """The stripmap pipeline through ``torch.fft``: the same zero-padded
+    linear convolution as ``fft_conv2d``, then the azimuth FFT."""
+    H, W = raw.shape
+    n2, n = next_pow2(H), next_pow2(W + matched.shape[0] - 1)
+    X = torch.fft.rfft2(torch.nn.functional.pad(raw, (0, n - W, 0, n2 - H)))
+    Hf = torch.fft.rfft2(torch.nn.functional.pad(matched[None, :], (0, n - matched.shape[0], 0, n2 - 1)))
+    rc = torch.fft.irfft2(X * Hf, s=(n2, n))[:H, :W]
+    return torch.fft.fft(rc, dim=-2).abs()
+
+
+def sar_full(sar, smi: str) -> None:
+    """(d) the SAR scenes at 4096 × 8192: every target found, each image
+    within 1e-3·max of the same pipeline through ``torch.fft``, each scene's
+    ms beside that pipeline's."""
+    n_az, n_rg, chirp_len = SAR_FULL
+    image, raw, matched, targets = sar.stripmap(n_az, n_rg, chirp_len, device="cuda")
+    hits = sar.stripmap_found(image, targets, chirp_len)
+    check(all(h[0] for h in hits), f"phase 18 (d) stripmap {n_az}x{n_rg}: targets {hits}")
+    ref_img = torch_stripmap(raw, matched)
+    err = ((image - ref_img).abs().max() / ref_img.abs().max()).item()
+    check(err <= FFT_TOL, f"phase 18 (d) stripmap: vs torch.fft {err:.3e}")
+    strip = {"scene": "stripmap", "shape": [n_az, n_rg], "chirp": chirp_len, "targets": hits, "rel_err": err,
+             "ms": time_ms(lambda: sar.stripmap_image(raw, matched), reps=3),
+             "library_ms": time_ms(lambda: torch_stripmap(raw, matched), reps=3)}
+    del image, raw, ref_img
+    image, ph, targets = sar.spotlight(n_az, n_rg, device="cuda")
+    hits = sar.spotlight_found(image, targets)
+    check(all(h[0] for h in hits), f"phase 18 (d) spotlight {n_az}x{n_rg}: targets {hits}")
+    ref_img = torch.fft.fft2(ph).abs() / (n_az * n_rg)
+    err = ((image - ref_img).abs().max() / ref_img.abs().max()).item()
+    check(err <= FFT_TOL, f"phase 18 (d) spotlight: vs torch.fft {err:.3e}")
+    spot = {"scene": "spotlight", "shape": [n_az, n_rg], "targets": hits, "rel_err": err,
+            "ms": time_ms(lambda: sar.spotlight_image(ph), reps=3),
+            "library_ms": time_ms(lambda: torch.fft.fft2(ph).abs() / (n_az * n_rg), reps=3)}
+    for row in (strip, spot):
+        print("sar " + json.dumps({**row, "card": smi}), flush=True)
+    del image, ph, ref_img
+    torch.cuda.empty_cache()
+
+
+def examples_run(smi: str) -> None:
+    """(d) the four examples on the card, in this process: quickstart's
+    sections (every yes/no line it prints says yes, the injected fault
+    raised), the SAR example at the reference's sizes (every target OK) and
+    at the full scene, serve_decode at bf16 and int8 KV, train_lm a few
+    steps with a falling loss."""
+    import io
+
+    check(not dist.is_initialized(), "phase 18 (d): a process group is still initialised")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        load_example("quickstart_torch").main([])
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    check(": False" not in text and "refused" in text and "raises KernelError" in text
+          and "check='parseval' and check='nan' pass" in text, "phase 18 (d): quickstart")
+    check(not dist.is_initialized(), "phase 18 (d): quickstart left its process group initialised")
+    quick_s = time.perf_counter() - t0
+    sar = load_example("sar_imaging_torch")
+    t0 = time.perf_counter()
+    check(sar.main([]), "phase 18 (d): sar_imaging_torch missed a target")
+    sar_full(sar, smi)
+    sar_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = load_example("serve_decode_torch").main([])
+    for kv, out in outs.items():
+        check(tuple(out.shape) == (4, 24) and bool((out >= 0).all()), f"phase 18 (d) serve_decode {kv}: {out}")
+    serve_s = time.perf_counter() - t0
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "train_lm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        losses = load_example("train_lm_torch").main(
+            ["--arch", "h2o-danube-1.8b", "--steps", "6", "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(losses[-1] < losses[0], f"phase 18 (d) train_lm: losses {losses}")
+    print("examples " + json.dumps({"quickstart_s": quick_s, "sar_s": sar_s, "serve_decode_s": serve_s,
+                                    "train_lm_s": time.perf_counter() - t0, "train_losses": losses,
+                                    "card": smi}), flush=True)
+
+
+def examples_path(gen) -> dict:
+    """Phase 18 as one path, with the counts at 0: (a) the reorder program
+    at 2^29, (b) pencil order, (c) the tuner's three-factor candidates,
+    (d) the examples, then (a) at 2^30 where the phase's budget leaves
+    room; every kernel of the path launched and no plain version.  Then
+    each distinct kernel call of (a)–(c) against its plain version,
+    untimed."""
+    t0 = time.perf_counter()
+    seen = {}
+
+    recorded = {}
+
+    def phase(g):
+        smi = card_line()
+        before = kernels.counts()
+        with recorded_calls() as calls:
+            with tune_env("off"):
+                reorder_program(EXEC_N, smi)
+                pencil_order(g, smi)
+            tuner_three_factor(smi)
+        seen.update(calls)
+        recorded.update({k: v - before[k] for k, v in kernels.counts().items()})
+        drop_tables()
+        with tune_env("off"):
+            examples_run(smi)
+            left = EXAMPLES_BUDGET_S - (time.perf_counter() - t0)
+            smoke_s = 0.0 if SMOKE_T0 is None else time.perf_counter() - SMOKE_T0
+            if left >= 45 and smoke_s < BIG_BEFORE_S:
+                reorder_program(EXEC_BIG, smi)
+            else:
+                print(f"executor n={EXEC_BIG}: left out, {left:.0f} s of the phase's budget left, "
+                      f"the smoke run at {smoke_s:.0f} s", flush=True)
+        drop_tables()
+
+    launches = path_launches("examples", phase, gen)
+    took = time.perf_counter() - t0
+    print(f"phase 18: {took:.1f} s, {len(seen)} distinct kernel calls in (a)-(c)", flush=True)
+    check(took <= EXAMPLES_BUDGET_S, f"phase 18 took {took:.1f} s, past its {EXAMPLES_BUDGET_S} s")
+    path_kernel_rows("examples", seen, recorded, gen, timed=False)
+    drop_tables()
+    return launches
+
+
 def main() -> int:
+    global SMOKE_T0
+    SMOKE_T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
         return 2
@@ -4891,9 +5216,11 @@ def main() -> int:
         sharded = sharded_path(gen)
         dryrun = dryrun_path(gen)
         long = long_path(gen)
+        examples = examples_path(gen)
         launches = {name: main[name] + real2d[name] + any_length[name] + convs[name] + served[name]
                     + tuned[name] + trained[name] + moe[name] + hybrid[name] + frontend[name]
-                    + distributed[name] + sharded[name] + dryrun[name] + long[name] for name in SOURCES}
+                    + distributed[name] + sharded[name] + dryrun[name] + long[name] + examples[name]
+                    for name in SOURCES}
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -4906,7 +5233,7 @@ def main() -> int:
             "launches": launches[name], "train_launches": trained[name], "moe_launches": moe[name],
             "hybrid_launches": hybrid[name], "frontend_launches": frontend[name],
             "distributed_launches": distributed[name], "sharded_launches": sharded[name],
-            "dryrun_launches": dryrun[name], "long_launches": long[name],
+            "dryrun_launches": dryrun[name], "long_launches": long[name], "examples_launches": examples[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

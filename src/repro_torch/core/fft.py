@@ -21,7 +21,9 @@ The kinds:
 * ``fft`` / ``ifft`` — one plan over ``axis`` (``-1``; ``-2`` runs a one-pass
   plan as one in-place column pass; any other axis moves to the last);
 * ``fft2`` / ``ifft2`` — ONE joint program over the last two axes: row
-  passes, then the column passes in place (strip-mined for n2 > 65536);
+  passes, then the column passes in place (strip-mined for n2 > 65536;
+  past ``FUSED_MAX²`` the row plan and an ``axis=-2`` column plan,
+  composed, as the reference does);
   :meth:`PlannedFFT.apply_rows` / :meth:`PlannedFFT.apply_cols` run either
   half alone (the distributed ``pfft2d`` runs them around its all-to-all);
 * ``rfft`` / ``irfft`` — the half-length complex child plan of the even/odd
@@ -37,15 +39,20 @@ chirp convolution at a power-of-two pad M ≥ 2n − 1, as in the reference;
 
 ``plan(spec)`` runs on the card.  Without a card it raises: it never picks
 the CPU on its own.  ``plan(spec, device="cpu")`` asks for the plain route.
-Nothing falls back from a kernel to its plain version or from the card to
-the CPU.
+The reference's scope API names a backend (:func:`get_backend`,
+:func:`use_backend`, :func:`default_backend`, the deprecated
+:func:`set_default_backend`, ``REPRO_FFT_BACKEND``, ``backend=`` on
+:func:`plan` and the wrappers), but the device still decides: a backend
+named for another device raises :class:`PlanError`.  Nothing falls back
+from a kernel to its plain version or from the card to the CPU.
 
 Complex kinds take complex tensors or split ``(real, imag)`` float32 planes
 and return whichever form was supplied; ``rfft``/``rfft2`` take a real
 signal and return planes, ``irfft``/``irfft2`` take planes (or a complex
-tensor) and return the real signal, as the reference does.  Transforms
-past 2³² points (or Bluestein pads past 2³²) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` queue item.
+tensor) and return the real signal, as the reference does.  A transform
+past ``FUSED_MAX²`` = 2³² points plans as the reference's program of three
+or more factors with its reorder pass; only a Bluestein pad past
+``fused_max²`` raises ``NotImplementedError``, in the reference's words.
 
 ``plan(spec, tune=)`` takes the reference's modes (:mod:`repro_torch.core.tuning`):
 ``None`` resolves to ``REPRO_FFT_TUNE``, else ``"model"``.  On the card the
@@ -72,9 +79,13 @@ plain differentiable torch.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import threading
+import warnings
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -94,6 +105,10 @@ __all__ = [
     "plan",
     "register_backend",
     "available_backends",
+    "get_backend",
+    "use_backend",
+    "default_backend",
+    "set_default_backend",
     "fft",
     "ifft",
     "rfft",
@@ -102,7 +117,6 @@ __all__ = [
     "ifft2",
     "rfft2",
     "irfft2",
-    "MAX_N",
     "PARSEVAL_RTOL",
     "plan_log",
     "clear_plan_log",
@@ -110,12 +124,7 @@ __all__ = [
 
 KINDS = ("fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2")
 _COMPLEX_KINDS = ("fft", "ifft")
-_REAL_KINDS = ("rfft", "irfft", "rfft2", "irfft2")
 _2D_KINDS = ("fft2", "ifft2", "rfft2", "irfft2")
-
-#: Largest complex transform a two-pass program covers; longer pow2 lengths
-#: need the digit-reversal reorder pass.
-MAX_N = plan_lib.FUSED_MAX**2
 
 #: Relative tolerance of the ``check="parseval"`` energy guard.
 PARSEVAL_RTOL = 1e-2
@@ -210,15 +219,87 @@ def available_backends() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
-def _backend_for(device: torch.device) -> Backend:
-    """The first registered backend that runs on ``device``'s type (under
-    the dry run's fake mode, the card's)."""
-    if fake.active():
-        return _REGISTRY["cuda"]
+def get_backend(name: str) -> Backend:
+    """The registered backend ``name``; :class:`PlanError` for an unknown one."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise PlanError(f"unknown FFT backend {name!r}; registered: {available_backends()}") from None
+
+
+def _backend_for(device: torch.device, name: Optional[str] = None) -> Backend:
+    """Backend ``name`` (None: the first registered one that runs on
+    ``device``'s type), checked against ``device``: no backend runs on a
+    device it was not registered for, so naming one never moves a tensor
+    or picks a plain version.  Under the dry run's fake mode the device is
+    the card."""
+    dtype = "cuda" if fake.active() else device.type
+    if name is not None:
+        entry = get_backend(name)
+        if dtype not in entry.device_types:
+            raise PlanError(
+                f"FFT backend {name!r} runs on {sorted(entry.device_types)}, the plan's device is "
+                f"{'the card' if fake.active() else device}"
+            )
+        return entry
     for entry in _REGISTRY.values():
-        if device.type in entry.device_types:
+        if dtype in entry.device_types:
             return entry
     raise PlanError(f"no registered FFT backend runs on {device}")
+
+
+# ---------------------------------------------------------------------------
+# Default-backend scoping
+# ---------------------------------------------------------------------------
+
+_GLOBAL_DEFAULT: Optional[str] = os.environ.get("REPRO_FFT_BACKEND") or None
+_scope = threading.local()
+
+
+def _scope_stack() -> list:
+    stack = getattr(_scope, "stack", None)
+    if stack is None:
+        stack = _scope.stack = []
+    return stack
+
+
+@contextlib.contextmanager
+def use_backend(name: str):
+    """Scope the default FFT backend: ``with use_backend("torch"): ...``.
+
+    Nested scopes stack; the previous default comes back on exit, also when
+    the body raises.  The name is checked against the registry on entry; a
+    plan made inside the scope on a device the backend does not run on
+    raises :class:`PlanError`."""
+    get_backend(name)
+    stack = _scope_stack()
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def default_backend() -> Optional[str]:
+    """The backend name new plans take absent a per-call ``backend=``: the
+    innermost :func:`use_backend` scope, else ``REPRO_FFT_BACKEND``, else
+    None (the plan's device picks: ``cuda`` on the card, ``torch`` on the
+    CPU)."""
+    stack = _scope_stack()
+    return stack[-1] if stack else _GLOBAL_DEFAULT
+
+
+def set_default_backend(name: str) -> None:
+    """Deprecated: use :func:`use_backend` (scoped) or ``backend=``."""
+    warnings.warn(
+        "set_default_backend is deprecated; use the use_backend() context manager (scoped) "
+        "or pass backend= to plan()",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    global _GLOBAL_DEFAULT
+    get_backend(name)
+    _GLOBAL_DEFAULT = name
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +509,9 @@ class PlannedFFT:
         kind = self.spec.kind
         if kind in ("fft2", "ifft2"):
             self._check_image(xr)
+            if self.fft_plan is None:  # composed: the row plan, then the column plan
+                rows, cols = self.children
+                return cols.apply_planes(*rows.apply_planes(xr, xi))
             return self._run(xr, xi, inverse=kind == "ifft2")
         if kind not in _COMPLEX_KINDS:
             raise PlanError(f"apply_planes on {kind!r} plan; use __call__")
@@ -492,6 +576,8 @@ class PlannedFFT:
         self._check_2d("apply_rows")
         if xr.shape[-1] != self.spec.n:
             raise PlanError(f"plan is for rows of n={self.spec.n}, got {xr.shape[-1]}")
+        if self.fft_plan is None:
+            return self.children[0].apply_planes(xr, xi)
         return self._run_half(xr, xi, self.spec.kind == "ifft2", -1)
 
     def apply_cols(self, xr: torch.Tensor, xi: torch.Tensor) -> Planes:
@@ -501,6 +587,8 @@ class PlannedFFT:
         if xr.ndim < 2 or xr.shape[-2] != self.spec.n2:
             rows = xr.shape[-2] if xr.ndim >= 2 else None
             raise PlanError(f"plan is for n2={self.spec.n2} columns, got {rows}")
+        if self.fft_plan is None:
+            return self.children[1].apply_planes(xr, xi)
         return self._run_half(xr, xi, self.spec.kind == "ifft2", -2)
 
     def _recomb(self, ar, ai, kind: Optional[str] = None, luts: tuple = ()) -> Planes:
@@ -784,34 +872,29 @@ def _resolve_device(device) -> torch.device:
 
 
 def _check_slice(spec: FFTSpec) -> None:
-    """Raise for what the port does not execute yet."""
-    # The complex transforms the plan runs: the half-length packing of an
-    # even real kind (the full length of an odd one), and the column length
-    # of the 2-D kinds; a non-power-of-two one runs at its Bluestein pad.
-    rows = spec.n // 2 if spec.kind in _REAL_KINDS and spec.n % 2 == 0 else spec.n
-    for m in (rows, spec.n2 or 1):
-        size = m if _is_pow2(m) else plan_lib.bluestein_pad(m)
-        if size > MAX_N:
-            what = f"a {m}-point transform" if size == m else f"a {m}-point transform's Bluestein pad {size}"
-            raise NotImplementedError(
-                f"{what} > 2^32 needs the digit-reversal reorder pass: ROADMAP A, pass-program executor"
-            )
+    """Raise for a spec the port does not execute: only float32 is ported.
+    Any length plans, as the reference's: past ``FUSED_MAX²`` the program
+    ends in the reorder pass, and only a Bluestein pad past
+    ``fused_max²`` raises (the planner's own ``NotImplementedError``)."""
     if spec.precision != "float32":
         raise NotImplementedError(f"precision {spec.precision!r}: only float32 is ported")
 
 
-def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None) -> PlannedFFT:
+def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None,
+         backend: Optional[str] = None) -> PlannedFFT:
     """Resolve ``spec`` into an interned :class:`PlannedFFT`.
 
     ``device=None`` means the current CUDA device and raises when there is
-    none; ``device="cpu"`` runs the plain route.  The device picks the
-    backend.  ``tune`` picks how the program's knobs are chosen, as the
-    reference's: ``"off"`` the fixed heuristics, ``"model"`` (the default,
-    also through ``REPRO_FFT_TUNE``) the roofline model's pick with no
-    measurement, ``"measure"`` the winner of the model's survivors timed
-    once on the card and kept in the persistent tuning cache
-    (:mod:`repro_torch.core.tuning`).  Plans are interned per (spec,
-    device, mode).
+    none; ``device="cpu"`` runs the plain route.  ``backend=None`` takes the
+    innermost :func:`use_backend` scope, then ``REPRO_FFT_BACKEND``, then
+    the device's own backend; a backend that does not run on the device
+    raises :class:`PlanError` (there is no fallback).  ``tune`` picks how
+    the program's knobs are chosen, as the reference's: ``"off"`` the fixed
+    heuristics, ``"model"`` (the default, also through ``REPRO_FFT_TUNE``)
+    the roofline model's pick with no measurement, ``"measure"`` the winner
+    of the model's survivors timed once on the card and kept in the
+    persistent tuning cache (:mod:`repro_torch.core.tuning`).  Plans are
+    interned per (spec, device, mode, backend).
     """
     from repro_torch.core import tuning  # lazy: tuning plans through this module
 
@@ -820,7 +903,8 @@ def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None) -> Pla
     mode = tuning.resolve_mode(tune)
     _check_slice(spec)
     dev = _resolve_device(device)
-    return _plan_cached(spec, str(dev), mode)
+    name = backend if backend is not None else default_backend()
+    return _plan_cached(spec, str(dev), mode, _backend_for(dev, name).name)
 
 
 #: Ring-buffer capacity of the plan log.
@@ -847,8 +931,9 @@ def clear_plan_log() -> None:
 
 
 @fake.device_cache(maxsize=256)
-def _plan_cached(spec: FFTSpec, device: str, tune: str = "model") -> PlannedFFT:
-    planned = _build_plan(spec, device, tune)
+def _plan_cached(spec: FFTSpec, device: str, tune: str = "model",
+                 backend: Optional[str] = None) -> PlannedFFT:
+    planned = _build_plan(spec, device, tune, backend)
     _PLAN_LOG.append((spec, planned.backend.name))
     return planned
 
@@ -867,7 +952,7 @@ def _tuned_plan(spec: FFTSpec, entry: Backend, dev: torch.device, tune: str):
     direct_max = knobs.get("direct_max", plan_lib.DIRECT_MAX)
     if spec.n2 is not None:
         # ONE joint program: rows, then the columns in place (strip-mined
-        # beyond the fused regime); every n2 <= 2^32 compiles jointly.
+        # beyond the fused regime, to n2 = FUSED_MAX²).
         fft_plan = plan_lib.plan_fft2(spec.n, spec.n2, fused_max, direct_max)
     else:
         fft_plan = plan_lib.plan_fft(spec.n, fused_max, direct_max, pad=knobs.get("bluestein_pad"))
@@ -877,24 +962,31 @@ def _tuned_plan(spec: FFTSpec, entry: Backend, dev: torch.device, tune: str):
     return fft_plan, cfg
 
 
-def _build_plan(spec: FFTSpec, device: str, tune: str = "model") -> PlannedFFT:
+def _build_plan(spec: FFTSpec, device: str, tune: str = "model",
+                backend: Optional[str] = None) -> PlannedFFT:
     from repro_torch.kernels import ops  # lazy: ops imports the kernels
 
     dev = torch.device(device)
-    entry = _backend_for(dev)
+    entry = _backend_for(dev, backend)
     kind = spec.kind
-    if kind in _COMPLEX_KINDS + ("fft2", "ifft2"):
+    if kind in _COMPLEX_KINDS or (kind in ("fft2", "ifft2") and plan_lib.joint2d_supported(spec.n2)):
         fft_plan, cfg = _tuned_plan(spec, entry, dev, tune)
         inverse = kind in ("ifft", "ifft2")
-        luts = ops.plan_luts(fft_plan, inverse, dev, spec.axis)
+        luts = ops.plan_luts(fft_plan, inverse, dev)
         return PlannedFFT(spec, entry, fft_plan, dev, luts, tuned=cfg)
 
-    inverse = kind in ("irfft", "irfft2")
+    inverse = kind in ("irfft", "irfft2", "ifft2")
 
     def child(n: int, axis: int = -1, batch_hint: Optional[int] = None) -> PlannedFFT:
         return _plan_cached(
-            FFTSpec(n=n, kind="ifft" if inverse else "fft", axis=axis, batch_hint=batch_hint), device, tune
+            FFTSpec(n=n, kind="ifft" if inverse else "fft", axis=axis, batch_hint=batch_hint), device, tune,
+            entry.name,
         )
+
+    if kind in ("fft2", "ifft2"):
+        # Columns past the strip-mined gate (n2 > FUSED_MAX²): the row plan
+        # and the axis=-2 column plan, composed, as the reference does.
+        return PlannedFFT(spec, entry, None, dev, children=(child(spec.n), child(spec.n2, axis=-2)))
 
     if kind in ("rfft", "irfft") and spec.n % 2:
         # Odd length: the even/odd packing needs an even split, so the real
@@ -952,46 +1044,52 @@ def _shape(x) -> tuple:
     return tuple(a.shape) if torch.is_tensor(a) else np.shape(a)
 
 
-def fft(x: ArrayOrPlanes, *, axis: int = -1) -> ArrayOrPlanes:
+def fft(x: ArrayOrPlanes, *, axis: int = -1, backend: Optional[str] = None) -> ArrayOrPlanes:
     """Complex FFT over ``axis`` via a cached plan, on the input tensor's
-    device (host arrays go to the card)."""
-    return plan(FFTSpec(n=int(_shape(x)[axis]), kind="fft", axis=axis), device=_device_of(x))(x)
+    device (host arrays go to the card); ``backend`` as :func:`plan`'s."""
+    spec = FFTSpec(n=int(_shape(x)[axis]), kind="fft", axis=axis)
+    return plan(spec, device=_device_of(x), backend=backend)(x)
 
 
-def ifft(x: ArrayOrPlanes, *, axis: int = -1) -> ArrayOrPlanes:
+def ifft(x: ArrayOrPlanes, *, axis: int = -1, backend: Optional[str] = None) -> ArrayOrPlanes:
     """Inverse of :func:`fft`."""
-    return plan(FFTSpec(n=int(_shape(x)[axis]), kind="ifft", axis=axis), device=_device_of(x))(x)
+    spec = FFTSpec(n=int(_shape(x)[axis]), kind="ifft", axis=axis)
+    return plan(spec, device=_device_of(x), backend=backend)(x)
 
 
-def rfft(x, *, axis: int = -1) -> Planes:
+def rfft(x, *, axis: int = -1, backend: Optional[str] = None) -> Planes:
     """Real FFT: the n//2 + 1 bins over ``axis`` as split planes."""
-    return plan(FFTSpec(n=int(_shape(x)[axis]), kind="rfft", axis=axis), device=_device_of(x))(x)
+    spec = FFTSpec(n=int(_shape(x)[axis]), kind="rfft", axis=axis)
+    return plan(spec, device=_device_of(x), backend=backend)(x)
 
 
-def irfft(x, n: int, *, axis: int = -1) -> torch.Tensor:
+def irfft(x, n: int, *, axis: int = -1, backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of :func:`rfft`; the length-``n`` real signal."""
-    return plan(FFTSpec(n=n, kind="irfft", axis=axis), device=_device_of(x))(x)
+    return plan(FFTSpec(n=n, kind="irfft", axis=axis), device=_device_of(x), backend=backend)(x)
 
 
-def fft2(x: ArrayOrPlanes) -> ArrayOrPlanes:
+def fft2(x: ArrayOrPlanes, *, backend: Optional[str] = None) -> ArrayOrPlanes:
     """2-D FFT over the last two axes: one joint rows + columns program."""
     shape = _shape(x)
-    return plan(FFTSpec(n=int(shape[-1]), kind="fft2", n2=int(shape[-2])), device=_device_of(x))(x)
+    spec = FFTSpec(n=int(shape[-1]), kind="fft2", n2=int(shape[-2]))
+    return plan(spec, device=_device_of(x), backend=backend)(x)
 
 
-def ifft2(x: ArrayOrPlanes) -> ArrayOrPlanes:
+def ifft2(x: ArrayOrPlanes, *, backend: Optional[str] = None) -> ArrayOrPlanes:
     """Inverse of :func:`fft2`."""
     shape = _shape(x)
-    return plan(FFTSpec(n=int(shape[-1]), kind="ifft2", n2=int(shape[-2])), device=_device_of(x))(x)
+    spec = FFTSpec(n=int(shape[-1]), kind="ifft2", n2=int(shape[-2]))
+    return plan(spec, device=_device_of(x), backend=backend)(x)
 
 
-def rfft2(x) -> Planes:
+def rfft2(x, *, backend: Optional[str] = None) -> Planes:
     """Real 2-D FFT of an (..., n2, n) image: (..., n2, n//2 + 1) bins as
     split planes (numpy's ``rfft2`` layout)."""
     shape = _shape(x)
-    return plan(FFTSpec(n=int(shape[-1]), kind="rfft2", n2=int(shape[-2])), device=_device_of(x))(x)
+    spec = FFTSpec(n=int(shape[-1]), kind="rfft2", n2=int(shape[-2]))
+    return plan(spec, device=_device_of(x), backend=backend)(x)
 
 
-def irfft2(x, n: int, n2: int) -> torch.Tensor:
+def irfft2(x, n: int, n2: int, *, backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of :func:`rfft2`; the real (..., n2, n) image."""
-    return plan(FFTSpec(n=n, kind="irfft2", n2=n2), device=_device_of(x))(x)
+    return plan(FFTSpec(n=n, kind="irfft2", n2=n2), device=_device_of(x), backend=backend)(x)

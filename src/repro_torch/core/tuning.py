@@ -438,7 +438,7 @@ class TuningSpace:
         of its passes' forms.  A program whose whole-signal four-step pass
         ``fft4step`` cannot run (a factor below its ``MIN_FACTOR``, which
         the reference's ``direct_max`` alternatives reach below n = 1024) is
-        no candidate, nor is one with a pass the executor does not run yet.
+        no candidate.
         """
         from repro_torch.core import limits
         from repro_torch.core import plan as plan_lib
@@ -461,10 +461,7 @@ class TuningSpace:
             return plan_lib.program_hbm_bytes(plan.passes, spec.batch_hint or 1, shape2d)
 
         def runs(plan) -> bool:
-            try:
-                kernels = ops.plan_kernels(plan, axis)
-            except NotImplementedError:  # a pass the executor does not run yet
-                return False
+            kernels = ops.plan_kernels(plan, axis)
             return all(min(p.n1, p.n2) >= fft4step.MIN_FACTOR
                        for p, k in zip(plan.passes, kernels) if k == "fft4step")
 
@@ -692,14 +689,11 @@ def pencil_config(n: int, d: int, batch: int = 1, tune: Optional[str] = None,
 def _pencil_smem_bytes(m: int, axis: int) -> int:
     """The largest per-block shared memory of the table forms a local
     length-``m`` program over ``axis`` runs its column and row passes in
-    (0: whole-signal passes only, or a length the executor does not run)."""
+    (0: whole-signal passes only)."""
     from repro_torch.core import plan as plan_lib
     from repro_torch.kernels import ops, pencil
 
-    try:
-        takes = ops.form_passes(plan_lib.plan_fft(m), axis)
-    except NotImplementedError:  # a pass the executor does not run yet
-        return 0
+    takes = ops.form_passes(plan_lib.plan_fft(m), axis)
     return max((pencil.form_smem_bytes(pencil.table_form(k, f)) for k, f in takes.values()), default=0)
 
 

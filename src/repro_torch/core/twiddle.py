@@ -19,7 +19,9 @@ differently from torch's).
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
+import os
 
 import numpy as np
 import torch
@@ -63,19 +65,48 @@ def dft_matrix(n: int, inverse: bool = False) -> tuple[np.ndarray, np.ndarray]:
     return _dft_matrix_np(n, inverse)
 
 
+#: Grid entries one worker computes at a time (float64 temporaries of
+#: 8 MiB each, whatever the grid's size), and the most workers.
+_GRID_BLOCK = 1 << 20
+_GRID_WORKERS = 8
+
+
+@functools.lru_cache(maxsize=4)
+def _grid_cos_sin(n1: int, n2: int) -> tuple[np.ndarray, np.ndarray]:
+    """float32(cos θ), float32(sin θ) of θ = 2π·((k1·m2) mod n)/n over the
+    (n1, n2) grid, the float64 math of the reference's table, in blocks of
+    rows on the host's cores (numpy's ufuncs release the GIL), so a grid of
+    2²⁹–2³⁰ entries costs its two float32 planes and seconds, not tens of
+    GiB of temporaries.  Both directions share it: the inverse's imaginary
+    plane is sin, the forward's its negation (exact)."""
+    n = n1 * n2
+    c = np.empty((n1, n2), np.float32)
+    s = np.empty((n1, n2), np.float32)
+    m2 = np.arange(n2, dtype=np.int64)[None, :]
+    rows = max(1, _GRID_BLOCK // n2)
+
+    def block(lo: int) -> None:
+        k1 = np.arange(lo, min(lo + rows, n1), dtype=np.int64)[:, None]
+        ang = (2.0 * np.pi / n) * ((k1 * m2) % n).astype(np.float64)
+        c[lo:lo + rows] = np.cos(ang)
+        s[lo:lo + rows] = np.sin(ang)
+
+    starts = range(0, n1, rows)
+    if len(starts) == 1:
+        block(0)
+    else:
+        workers = min(len(starts), _GRID_WORKERS, len(os.sched_getaffinity(0)))
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            list(pool.map(block, starts))
+    return c, s
+
+
 @functools.lru_cache(maxsize=256)
 def _twiddle_grid_np(
     n1: int, n2: int, inverse: bool
 ) -> tuple[np.ndarray, np.ndarray]:
-    n = n1 * n2
-    k1 = np.arange(n1, dtype=np.int64)[:, None]
-    m2 = np.arange(n2, dtype=np.int64)[None, :]
-    ang = (2.0 * np.pi / n) * ((k1 * m2) % n).astype(np.float64)
-    sign = 1.0 if inverse else -1.0
-    return (
-        np.cos(ang).astype(np.float32),
-        (sign * np.sin(ang)).astype(np.float32),
-    )
+    c, s = _grid_cos_sin(n1, n2)
+    return c, (s if inverse else np.negative(s))
 
 
 def twiddle_grid(

@@ -4,7 +4,9 @@ Port of ``repro/kernels/ops.py``.  Every program pass is exactly one kernel
 call (one HBM round trip):
 
 * whole-signal pass  → :func:`~repro_torch.kernels.dft_matmul.dft_matmul_call`
-  or :func:`~repro_torch.kernels.fft4step.fft4step_call`;
+  or :func:`~repro_torch.kernels.fft4step.fft4step_call`, as is the
+  pencil-order row pass over its contiguous rows (the last factor of a
+  program of three or more factors, or of an ``order="pencil"`` program);
 * strided-column pass → :func:`~repro_torch.kernels.pencil.cols_pass_call`,
   with the inter-factor twiddle in its epilogue;
 * contiguous-row pass with the natural-order transpose fused into its write
@@ -26,11 +28,14 @@ A tuned plan's ``forms`` (pass index → form, :func:`check_forms`) pick the
 column and row passes' on-chip tile or slab on the card.
 
 Between passes there are views only (``Tensor.view``) — no transpose, copy
-or twiddle multiply of its own.  The one exception is the reference's: a
+or twiddle multiply of its own.  The exceptions are the reference's: a
 multi-pass plan run down ``axis=-2`` of a 1-D spec goes through a transpose
-sandwich.  On CUDA tensors each pass launches its kernel; on CPU tensors
-each kernel wrapper takes its plain version, so a CPU run walks the same
-program one plain call per pass.
+sandwich, and a natural-order program of three or more factors (n past
+``FUSED_MAX²``, or a smaller ``fused_max``) ends in the digit-reversal
+``reorder`` pass, the reference's XLA transpose: one round trip as a torch
+copy, no port kernel.  On CUDA tensors each pass launches its kernel; on
+CPU tensors each kernel wrapper takes its plain version, so a CPU run walks
+the same program one plain call per pass.
 
 LUTs are device-resident: the float64 host tables of ``core/twiddle.py``
 are uploaded once per (device, sizes, direction) and kept.  Every kernel
@@ -46,6 +51,7 @@ its store).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -69,6 +75,9 @@ __all__ = [
     "execute_program",
     "execute_program2d",
     "execute_plan",
+    "pencil_passes",
+    "fft",
+    "ifft",
 ]
 
 
@@ -151,23 +160,11 @@ def _pass_inverse(p: plan_lib.Pass, inverse: bool) -> bool:
     return p.inverse if p.inverse is not None else inverse
 
 
-def _check_supported(p: plan_lib.Pass) -> None:
-    if p.kind == "reorder":
-        raise NotImplementedError(
-            "the digit-reversal reorder pass (n > 2^32) is not ported yet: "
-            "ROADMAP A, pass-program executor"
-        )
-    pencils, stride, _f = p.view_in
-    if pencils > 1 and stride == 1 and p.view_out == p.view_in:
-        raise NotImplementedError(
-            "pencil-order row passes (order='pencil' programs) are not ported yet: "
-            "ROADMAP A, pass-program executor"
-        )
-
-
 def pass_kernel(p: plan_lib.Pass) -> str:
-    """Name of the kernel (and ``COUNTS`` key) that executes pass ``p``."""
-    _check_supported(p)
+    """Name of the kernel (and ``COUNTS`` key) that executes pass ``p``;
+    ``"reorder"`` for the digit-reversal pass, which launches none."""
+    if p.kind == "reorder":
+        return "reorder"
     if p.kind == "bluestein":
         return "bluestein_elem" if p.stage in bluestein.STAGES else f"bluestein_{p.stage}"
     pencils, stride, _f = p.view_in
@@ -175,7 +172,8 @@ def pass_kernel(p: plan_lib.Pass) -> str:
         # Whole columns and strided column factors transform in place; the
         # last factor of strip-mined columns writes the n2 axis in order.
         return "cols_natural" if pencils > 1 and stride == 1 else "cols_pass"
-    if pencils == 1:
+    if pencils == 1 or (stride == 1 and p.view_out == p.view_in):
+        # A whole signal, or the contiguous rows of a pencil-order pass.
         return "dft_matmul" if p.kind == "direct" else "fft4step"
     return "rows_natural" if stride == 1 else "cols_pass"
 
@@ -221,16 +219,16 @@ def check_forms(fft_plan: plan_lib.FFTPlan, forms: dict, axis: int = -1, budget=
             )
 
 
-def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device, axis: int = -1) -> tuple:
-    """Upload (or find) every LUT the plan's passes read on ``device`` when
-    it runs over ``axis``: the roots table of a power-of-two pass, the chirp
-    tables and the pad's roots table of a Bluestein pass, and each pass's
-    inter-factor twiddle.  Raises NotImplementedError for a pass the port
-    does not run yet."""
+def plan_luts(fft_plan: plan_lib.FFTPlan, inverse: bool, device) -> tuple:
+    """Upload (or find) every LUT the plan's passes read on ``device``: the
+    roots table of a power-of-two pass, the chirp tables and the pad's
+    roots table of a Bluestein pass, and each pass's inter-factor twiddle
+    (the reorder pass reads none)."""
     dev = device_key(device)
-    plan_kernels(fft_plan, axis)  # raises for a pass the port does not run yet
     luts = []
     for p in fft_plan.passes:
+        if p.kind == "reorder":
+            continue
         eff = _pass_inverse(p, inverse)
         if p.kind == "bluestein":
             luts.extend(_bluestein_luts(dev, p, eff))
@@ -252,11 +250,24 @@ def _bluestein_pass(xr, xi, p: plan_lib.Pass, inverse: bool) -> Planes:
     return call(xr, xi, luts, in1=plan_lib._leaf_pass(p.n1).n1, **kw)
 
 
-def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None) -> Planes:
+def _reorder(xr, xi, fs: Sequence[int]) -> Planes:
+    """The digit-reversal pass of a program of three or more factors: the
+    (B, f0, f1, …) view with its factor axes reversed, as the reference's
+    transpose (one round trip, a torch copy: no port kernel)."""
+    b, n = xr.shape
+    perm = (0,) + tuple(range(len(fs), 0, -1))
+    return (xr.view(b, *fs).permute(perm).contiguous().view(b, n),
+            xi.view(b, *fs).permute(perm).contiguous().view(b, n))
+
+
+def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None, fs: Sequence[int] = ()) -> Planes:
     """One row-axis program pass over (B, width) split planes: exactly one
-    kernel call.  A pass that pins its direction (:attr:`Pass.inverse`, the
-    inner conv of a split-regime Bluestein program) runs in it; ``form`` is
-    a column or row pass's tuned form (None: the table's)."""
+    kernel call, or the reorder's copy over the program's factors ``fs``.
+    A pass that pins its direction (:attr:`Pass.inverse`, the inner conv of
+    a split-regime Bluestein program) runs in it; ``form`` is a column or
+    row pass's tuned form (None: the table's)."""
+    if p.kind == "reorder":
+        return _reorder(xr, xi, fs)
     kernel = pass_kernel(p)
     faults.maybe_fail("kernel.launch", backend=xr.device.type, pass_kind=p.kind)
     inverse = _pass_inverse(p, inverse)
@@ -265,14 +276,17 @@ def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None) -> Planes:
     dev = device_key(xr.device)
     b, n = xr.shape
     pencils, stride, f = p.view_in
-    if kernel == "dft_matmul":
-        return dft_matmul.dft_matmul_call(xr, xi, *_roots_luts(dev, n, inverse), inverse=inverse)
-    if kernel == "fft4step":
-        return fft4step.fft4step_call(
-            xr, xi, *_roots_luts(dev, n, inverse), n1=p.n1, inverse=inverse,
-            natural_order=p.order == "natural",
-        )
     roots = _roots_luts(dev, f, inverse)
+    if kernel in ("dft_matmul", "fft4step"):
+        # The whole signal, or the (b·pencils, f) contiguous rows of a
+        # pencil-order pass, each row in natural order.
+        rows_r, rows_i = xr.view(b * pencils, f), xi.view(b * pencils, f)
+        if kernel == "dft_matmul":
+            yr, yi = dft_matmul.dft_matmul_call(rows_r, rows_i, *roots, inverse=inverse)
+        else:
+            yr, yi = fft4step.fft4step_call(rows_r, rows_i, *roots, n1=p.n1, inverse=inverse,
+                                            natural_order=pencils > 1 or p.order == "natural")
+        return yr.view(b, n), yi.view(b, n)
     if kernel == "rows_natural":
         # (b, p, f) → (b, f, p) flattens to natural order.
         yr, yi = pencil.rows_natural_call(
@@ -336,8 +350,9 @@ def execute_program(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = 
     """Walk a linearized pass program over 2-D (B, n) split planes;
     ``forms`` maps a pass index to its form (see :func:`form_passes`)."""
     forms = forms or {}
+    fs = [q.n for q in passes if q.kind != "reorder"]
     for i, p in enumerate(passes):
-        xr, xi = _apply_pass(xr, xi, p, inverse, forms.get(i))
+        xr, xi = _apply_pass(xr, xi, p, inverse, forms.get(i), fs)
     return xr, xi
 
 
@@ -352,12 +367,13 @@ def execute_program2d(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool 
     is read from each pass's output: a Bluestein row program changes it
     mid-program (n → M → n).  ``forms`` as :func:`execute_program`'s."""
     forms = forms or {}
+    fs = [q.n for q in passes if q.kind != "reorder" and q.axis == -1]
     for i, p in enumerate(passes):
         b, rows, n = xr.shape
         if p.axis == -2:
             xr, xi = _cols_image_pass(xr, xi, p, inverse, forms.get(i))
             continue
-        yr, yi = _apply_pass(xr.view(b * rows, n), xi.view(b * rows, n), p, inverse, forms.get(i))
+        yr, yi = _apply_pass(xr.view(b * rows, n), xi.view(b * rows, n), p, inverse, forms.get(i), fs)
         w = yr.shape[-1]
         xr, xi = yr.view(b, rows, w), yi.view(b, rows, w)
     return xr, xi
@@ -383,24 +399,42 @@ def _lead(shape) -> int:
     return int(np.prod(shape)) if shape else 1
 
 
+def pencil_passes(fft_plan: plan_lib.FFTPlan) -> tuple:
+    """The plan's 1-D program in pencil order: the reference's
+    ``compile_passes(n, order="pencil")`` at the plan's own factors — no
+    reorder pass, and the last pass leaves its pencils where it read them
+    (k₁-major: bin k₀ + f₀·k₁ of a two-factor program at k₀·f₁ + k₁).  A
+    one-pass or Bluestein program is natural order already."""
+    passes = fft_plan.passes
+    if len(passes) < 2 or not plan_lib._is_pow2(fft_plan.n):
+        return passes
+    body = [p for p in passes if p.kind != "reorder"]
+    body[-1] = dataclasses.replace(body[-1], view_out=body[-1].view_in, order="pencil")
+    return tuple(body)
+
+
 def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, axis: int = -1,
-                 forms=None) -> Planes:
+                 forms=None, order: str = "natural") -> Planes:
     """Execute ``fft_plan`` over ``axis`` (-1 or -2) of split float32 planes
     with any leading batch dims.
 
     A multi-axis plan (``fft_plan.n2`` set) takes (..., n2, n) images and
     walks its joint program with :func:`execute_program2d`.  ``axis=-2``
     runs a one-pass plan as one in-place column pass and a longer plan
-    through the reference's transpose sandwich.  ``forms`` (pass index →
+    through the reference's transpose sandwich.  ``order="pencil"`` leaves
+    a 1-D spectrum in k₁-major pencil layout (:func:`pencil_passes`: the
+    fft → pointwise → ifft fast path, no reorder).  ``forms`` (pass index →
     form, :func:`check_forms`) picks the column and row passes' forms on
     the card; the plain versions have none, so the CPU route ignores it."""
     # The planes go to the first pass as contiguous temporaries (no name
     # here keeps them alive past it).
     if xi.shape != xr.shape:
         raise faults.PlanError(f"real plane {tuple(xr.shape)} and imaginary {tuple(xi.shape)} differ")
+    if order not in ("natural", "pencil"):
+        raise faults.PlanError(f"order must be 'natural' or 'pencil', got {order!r}")
     if fft_plan.n2 is not None:
-        if axis != -1:
-            raise faults.PlanError("multi-axis plans always transform the last two axes")
+        if axis != -1 or order != "natural":
+            raise faults.PlanError("multi-axis plans always transform the last two axes, in natural order")
         rows, n = xr.shape[-2:]
         if (rows, n) != (fft_plan.n2, fft_plan.n):
             raise faults.PlanError(
@@ -426,7 +460,7 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
             )
             return yr.view(*lead, n, q), yi.view(*lead, n, q)
         yr, yi = execute_plan(xr.transpose(-1, -2), xi.transpose(-1, -2), fft_plan, inverse=inverse,
-                              forms=forms)
+                              forms=forms, order=order)
         return yr.transpose(-1, -2).contiguous(), yi.transpose(-1, -2).contiguous()
     if axis != -1:
         raise faults.PlanError(f"execute_plan handles axis -1 or -2, got {axis}")
@@ -435,8 +469,20 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
         raise faults.PlanError(f"plan is for n={fft_plan.n}, input has n={n}")
     lead = xr.shape[:-1]
     b = _lead(lead)
+    passes = fft_plan.passes if order == "natural" else pencil_passes(fft_plan)
     yr, yi = execute_program(
-        xr.contiguous().view(b, n), xi.contiguous().view(b, n), fft_plan.passes, inverse=inverse,
-        forms=forms,
+        xr.contiguous().view(b, n), xi.contiguous().view(b, n), passes, inverse=inverse, forms=forms,
     )
     return yr.view(*lead, n), yi.view(*lead, n)
+
+
+def fft(xr, xi, *, inverse: bool = False) -> Planes:
+    """Plan-deriving convenience: the heuristic program of the last axis's
+    length (:func:`~repro_torch.core.plan.plan_fft`; non-power-of-two
+    lengths through the Bluestein passes) run by :func:`execute_plan`."""
+    return execute_plan(xr, xi, plan_lib.plan_fft(xr.shape[-1]), inverse=inverse)
+
+
+def ifft(xr, xi) -> Planes:
+    """Inverse of :func:`fft`."""
+    return fft(xr, xi, inverse=True)

@@ -5,7 +5,9 @@ the reference's ``plan(..., backend="pallas")`` (Pallas interpret mode), and
 both are held to ``np.fft`` at the reference's own 1e-3·max|ref|.
 """
 
+import dataclasses
 import os
+import re
 import stat
 
 import numpy as np
@@ -13,9 +15,11 @@ import pytest
 import torch
 
 from repro.core import fft as ref_fft
+from repro.core import plan as ref_plan
 from repro_torch import kernels
 from repro_torch.core import faults
 from repro_torch.core import fft as F
+from repro_torch.core import plan as plan_lib
 from repro_torch.kernels import build, ref
 
 SIZES = [2, 16, 1024, 2048, 65536, 1 << 17, 1 << 18, 1 << 20]
@@ -76,27 +80,59 @@ def test_plans_are_interned_and_describe_their_kernels():
     assert "2 HBM round trip" in text and "pass 0 cols_pass" in text and "pass 1 rows_natural" in text
 
 
-#: The queue item that the reorder pass (n > 2^32) waits for.
-EXECUTOR = "A, pass-program executor"
+def _programs(lib, spec):
+    """The pass programs a plan of ``spec`` holds, through the planner
+    ``lib`` alone (the reference's or the port's ``core.plan``): no LUT is
+    built, so a spec past 2^32 plans here in microseconds."""
+    kind, n, n2 = spec.kind, spec.n, spec.n2
+    if kind in ("fft", "ifft"):
+        programs = [lib.plan_fft(n)]
+    elif kind in ("fft2", "ifft2"):
+        joint = lib.joint2d_supported(n2)
+        programs = [lib.plan_fft2(n, n2)] if joint else [lib.plan_fft(n), lib.plan_fft(n2)]
+    elif kind in ("rfft", "irfft"):
+        programs = [lib.plan_fft(n if n % 2 else n // 2)]
+    else:
+        programs = [lib.plan_fft(n // 2), lib.plan_fft(n2)]
+    return [[dataclasses.asdict(p) for p in prog.passes] for prog in programs]
 
 
 @pytest.mark.parametrize(
-    "spec,item",
+    "spec",
     [
-        # Non-power-of-two lengths whose Bluestein pad passes 2^32.
-        (F.FFTSpec((1 << 32) + 1, kind="rfft"), EXECUTOR),
-        (F.FFTSpec((1 << 32) + 1, kind="irfft"), EXECUTOR),
-        (F.FFTSpec((1 << 31) + 1, kind="fft2", n2=8), EXECUTOR),
-        (F.FFTSpec(16, kind="irfft2", n2=1 << 33), EXECUTOR),
-        (F.FFTSpec(1 << 34, kind="rfft"), EXECUTOR),
-        (F.FFTSpec((1 << 31) + 1), EXECUTOR),
-        (F.FFTSpec(1 << 33), EXECUTOR),
-        (F.FFTSpec((1 << 31) + 1, axis=-2), EXECUTOR),
+        # Non-power-of-two lengths whose Bluestein pad passes 2^32 (here
+        # and at (1 << 31) + 1 below): the reference raises, and so does
+        # the port.
+        F.FFTSpec((1 << 32) + 1, kind="rfft"),
+        F.FFTSpec((1 << 32) + 1, kind="irfft"),
+        F.FFTSpec((1 << 31) + 1, kind="fft2", n2=8),
+        # Powers of two past 2^32: three factors and the reorder pass.
+        F.FFTSpec(16, kind="irfft2", n2=1 << 33),
+        F.FFTSpec(1 << 34, kind="rfft"),
+        F.FFTSpec((1 << 31) + 1),  # a pad of 2^33: raises
+        F.FFTSpec(1 << 33),
+        F.FFTSpec((1 << 31) + 1, axis=-2),  # a pad of 2^33: raises
     ],
 )
-def test_unported_specs_raise(spec, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        F.plan(spec, device="cpu")
+def test_unported_specs_raise(spec):
+    """Past 2^32 the port raises exactly where the reference does (a
+    Bluestein pad past fused_max², the reference's words); elsewhere its
+    spec check accepts the spec and its planner emits the reference's
+    programs, pass for pass."""
+    ref_spec = ref_fft.FFTSpec(spec.n, kind=spec.kind, axis=spec.axis, n2=spec.n2)
+    try:
+        want = _programs(ref_plan, ref_spec)
+    except NotImplementedError as err:
+        words = re.escape(str(err))
+        with pytest.raises(NotImplementedError, match=words):
+            _programs(plan_lib, spec)
+        with pytest.raises(NotImplementedError, match=words):
+            F.plan(spec, device="cpu")
+        return
+    F._check_slice(spec)
+    got = _programs(plan_lib, spec)
+    assert got == want
+    assert any(p["kind"] == "reorder" for prog in got for p in prog)
 
 
 def test_numerics_guards_and_tuning_raise():

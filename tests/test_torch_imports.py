@@ -1,4 +1,4 @@
-"""The port and chip_smoke.py never import JAX or the JAX package, and the
+"""The port, its examples and chip_smoke.py never import JAX or the JAX package, and the
 port never calls the library FFT."""
 
 import os
@@ -8,6 +8,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
+#: The port's examples, beside the reference's.
+EXAMPLES = ("quickstart_torch", "sar_imaging_torch", "serve_decode_torch", "train_lm_torch")
 
 GUARD = """
 import sys
@@ -37,6 +39,10 @@ import repro_torch.launch.mesh, repro_torch.launch.shardings
 import repro_torch.configs.fftbench, repro_torch.configs.specs, repro_torch.core.fake
 import repro_torch.analysis.trace, repro_torch.analysis.report, repro_torch.analysis.fill_experiments
 import repro_torch.launch.dryrun
+import importlib.util
+for name in {examples!r}:
+    spec = importlib.util.spec_from_file_location(name, {repo!r} + "/examples/" + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("clean")
@@ -46,7 +52,7 @@ print("clean")
 def test_port_and_smoke_import_no_jax_and_no_reference():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
-        [sys.executable, "-c", GUARD.format(repo=REPO, src=os.path.join(REPO, "src"))],
+        [sys.executable, "-c", GUARD.format(repo=REPO, src=os.path.join(REPO, "src"), examples=EXAMPLES)],
         capture_output=True, text=True, env=env, timeout=120,
     )
     assert out.returncode == 0, out.stderr
@@ -65,6 +71,7 @@ IMPORT_REF = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M
 
 def test_source_scan():
     files = list(_py_files()) + [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "examples", f"{name}.py") for name in EXAMPLES]
     assert len(files) > 10
     for path in files:
         text = open(path, encoding="utf-8").read()

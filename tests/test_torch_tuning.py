@@ -185,6 +185,31 @@ def test_every_form_candidate_fits(n, n2, kind):
     assert len(seen) == len(space.candidates)
 
 
+@pytest.mark.parametrize("n", [1 << 29, 1 << 30])
+def test_three_factor_candidates_are_the_reference_ones(n):
+    """Past 2^28 the reference's fused_max alternatives give programs of
+    three factors and a reorder; the port's candidate programs (fused_max,
+    direct_max, the pass list) are the same set.  Planning only: no LUT."""
+    spec = F.FFTSpec(n)
+    space = tuning.TuningSpace.for_plan(spec, "cpu", 227 * 1024)
+    ref_space = ref_tuning.TuningSpace.for_plan(ref_fft.FFTSpec(n), "pallas")
+
+    def programs(candidates):
+        out = set()
+        for cfg, *_ in candidates:
+            passes = _build(spec, {"direct_max": plan_lib.DIRECT_MAX, **cfg}).passes
+            out.add((cfg["fused_max"], cfg.get("direct_max", plan_lib.DIRECT_MAX),
+                     json.dumps([plan_lib.pass_record(p) for p in passes])))
+        return out
+
+    got = programs(space.candidates)
+    assert got == programs(ref_space.candidates)
+    by_fm = {fm: json.loads(rec) for fm, _dm, rec in got}
+    assert set(by_fm) == {plan_lib.FUSED_MAX, plan_lib.FUSED_MAX // 4}
+    assert [p["kind"] for p in by_fm[plan_lib.FUSED_MAX // 4]][-1] == "reorder"
+    assert len(by_fm[plan_lib.FUSED_MAX // 4]) == 4
+
+
 def test_forms_refused_at_plan_time():
     program = plan_lib.plan_fft(1 << 20)  # cols_pass and rows_natural at f = 1024
     ops.check_forms(program, {0: 12, 1: pencil.SLAB})

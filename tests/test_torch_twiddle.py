@@ -20,7 +20,7 @@ def test_dft_matrix(n, inverse):
     _same(tw.dft_matrix(n, inverse), ref_tw.dft_matrix(n, inverse))
 
 
-@pytest.mark.parametrize("n1,n2", [(64, 32), (256, 256), (512, 256), (2048, 2048)])
+@pytest.mark.parametrize("n1,n2", [(64, 32), (256, 256), (512, 256), (2048, 2048), (2, 1 << 21)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_twiddle_and_pass_grids(n1, n2, inverse):
     _same(tw.twiddle_grid(n1, n2, inverse), ref_tw.twiddle_grid(n1, n2, inverse))
