@@ -1,0 +1,12 @@
+"""attn_ms_per_ktok.prefill (ms): the profiler's device time of the
+operations launched inside the attention mixers' forward
+(``models/layers/attention.py``, ranges ``pb.attn``) in the traced slice,
+per 1000 prompt tokens prefilled in it."""
+
+
+def read(record):
+    trace = record.trace
+    tokens = sum(r["tokens"] for r in record.requests if r.get("in_slice"))
+    if trace is None or not tokens:
+        return None
+    return trace.under_prefix("pb.attn") * 1e3 / (tokens / 1e3)
