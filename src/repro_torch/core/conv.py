@@ -23,6 +23,7 @@ from repro_torch.core import fft as fft_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.fft_torch import cmul
 from repro_torch.core.limits import next_pow2
+from repro_torch.runtime import tracing
 
 __all__ = [
     "fft_conv",
@@ -70,6 +71,7 @@ def empty_result(x: torch.Tensor, h: torch.Tensor, length: int, dtype) -> torch.
     return torch.zeros((*lead, length), dtype=dtype, device=x.device)
 
 
+@tracing.span("conv.fft_conv")
 def fft_conv(
     x,
     h,
@@ -143,6 +145,7 @@ def toeplitz_conv_ref(x: np.ndarray, h: np.ndarray) -> np.ndarray:
     return np.stack(rows).reshape(x.shape)
 
 
+@tracing.span("conv.fft_conv2d")
 def fft_conv2d(x, h, *, mode: str = "same", device=None) -> torch.Tensor:
     """2-D linear convolution of real images: the SAR matched-filter path.
 
@@ -179,6 +182,7 @@ def fft_conv2d(x, h, *, mode: str = "same", device=None) -> torch.Tensor:
     return y[..., :rows, :cols].contiguous().to(out_dtype)
 
 
+@tracing.span("conv.fft_conv_packed")
 def fft_conv_packed(x, h, *, causal: bool = True, device=None) -> torch.Tensor:
     """Real-filter convolution with complex batch packing.
 

@@ -94,6 +94,8 @@ import torch
 from repro_torch.core import fake
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.faults import NumericsError, PlanError
+from repro_torch.core.fft_torch import contiguous, copied
+from repro_torch.runtime import tracing
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 ArrayOrPlanes = Union[torch.Tensor, Planes]
@@ -307,11 +309,16 @@ def set_default_backend(name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _float32(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as float32, the copy counted where one is made."""
+    return a if a.dtype == torch.float32 else copied(a.to(torch.float32))
+
+
 def _plane(a, device: torch.device) -> torch.Tensor:
     if torch.is_tensor(a):
         if a.device != device:
             raise PlanError(f"input is on {a.device}, the plan runs on {device}")
-        return a.to(torch.float32)
+        return _float32(a)
     return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
 
 
@@ -325,13 +332,13 @@ def _split(x: ArrayOrPlanes, device: torch.device) -> tuple:
     if x.device != device:
         raise PlanError(f"input is on {x.device}, the plan runs on {device}")
     if x.is_complex():
-        return x.real.to(torch.float32), x.imag.to(torch.float32), True
-    xr = x.to(torch.float32)
+        return _float32(x.real), _float32(x.imag), True
+    xr = _float32(x)
     return xr, torch.zeros_like(xr), True
 
 
 def _join(yr, yi, was_complex: bool) -> ArrayOrPlanes:
-    return torch.complex(yr, yi) if was_complex else (yr, yi)
+    return copied(torch.complex(yr, yi)) if was_complex else (yr, yi)
 
 
 def _real(x, device: torch.device, kind: str) -> torch.Tensor:
@@ -500,6 +507,7 @@ class PlannedFFT:
             raise PlanError(f"axis {self.spec.axis} out of range for a {ndim}-D input")
         return None if ax == ndim - 1 else ax
 
+    @tracing.span("fft.apply_planes")
     def apply_planes(self, xr: torch.Tensor, xi: torch.Tensor) -> Planes:
         """Run a complex plan (``fft`` … ``ifft2``) on split float32 planes.
 
@@ -558,14 +566,14 @@ class PlannedFFT:
         if axis == -1:
             lead, n = xr.shape[:-1], xr.shape[-1]
             b = math.prod(lead)
-            yr, yi = ops.execute_program(xr.contiguous().view(b, n), xi.contiguous().view(b, n), passes,
+            yr, yi = ops.execute_program(contiguous(xr).view(b, n), contiguous(xi).view(b, n), passes,
                                          inverse=inverse, forms=forms)
             return yr.view(*lead, n), yi.view(*lead, n)
         if not passes:
             return xr, xi
         lead, (rows, w) = xr.shape[:-2], xr.shape[-2:]
         b = math.prod(lead)
-        yr, yi = ops.execute_program2d(xr.contiguous().view(b, rows, w), xi.contiguous().view(b, rows, w),
+        yr, yi = ops.execute_program2d(contiguous(xr).view(b, rows, w), contiguous(xi).view(b, rows, w),
                                        passes, inverse=inverse, forms=forms)
         return yr.view(*lead, rows, w), yi.view(*lead, rows, w)
 
@@ -615,7 +623,7 @@ class PlannedFFT:
         lead, width = ar.shape[:-1], ar.shape[-1]
         b = int(np.prod(lead)) if lead else 1
         call = pencil.rfft_recomb_call if kind == "rfft_recomb" else pencil.irfft_recomb_call
-        yr, yi = call(ar.contiguous().view(b, width), ai.contiguous().view(b, width), *luts)
+        yr, yi = call(contiguous(ar).view(b, width), contiguous(ai).view(b, width), *luts)
         return yr.view(*lead, yr.shape[-1]), yi.view(*lead, yi.shape[-1])
 
     def _recomb_adjoint(self, kind: str, gr, gi) -> Planes:
@@ -652,11 +660,11 @@ class PlannedFFT:
     @staticmethod
     def _pack(x) -> Planes:
         """Even samples to the real plane, odd to the imaginary."""
-        return x[..., 0::2].contiguous(), x[..., 1::2].contiguous()
+        return contiguous(x[..., 0::2]), contiguous(x[..., 1::2])
 
     @staticmethod
     def _interleave(zr, zi) -> torch.Tensor:
-        return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], 2 * zr.shape[-1])
+        return copied(torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], 2 * zr.shape[-1]))
 
     def _rfft(self, x) -> Planes:
         n = self.spec.n
@@ -671,7 +679,7 @@ class PlannedFFT:
             # Odd length: the full complex transform (a Bluestein child),
             # sliced to the n//2 + 1 Hermitian bins.
             zr, zi = inner.apply_planes(x, torch.zeros_like(x))
-            xr, xi = zr[..., : n // 2 + 1].contiguous(), zi[..., : n // 2 + 1].contiguous()
+            xr, xi = contiguous(zr[..., : n // 2 + 1]), contiguous(zi[..., : n // 2 + 1])
         else:
             zr, zi = inner.apply_planes(*self._pack(x))
             xr, xi = self._recomb(zr, zi)
@@ -722,6 +730,7 @@ class PlannedFFT:
         zr, zi = inner.apply_planes(*self._recomb(xr, xi))
         return self._interleave(zr, zi)
 
+    @tracing.span("fft.call")
     def __call__(self, x, check: Optional[str] = None):
         """Execute the planned transform.
 
@@ -880,6 +889,7 @@ def _check_slice(spec: FFTSpec) -> None:
         raise NotImplementedError(f"precision {spec.precision!r}: only float32 is ported")
 
 
+@tracing.span("fft.plan")
 def plan(spec: FFTSpec | int, *, device=None, tune: Optional[str] = None,
          backend: Optional[str] = None) -> PlannedFFT:
     """Resolve ``spec`` into an interned :class:`PlannedFFT`.

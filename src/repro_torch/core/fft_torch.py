@@ -15,7 +15,10 @@ whatever device the tensors live on:
 * :func:`bluestein_fft` — any length through Bluestein's chirp
   convolution at a power-of-two pad;
 * :func:`rfft_recomb` / :func:`irfft_recomb` — the Hermitian even/odd
-  recombination of the real-FFT packing (flip and roll, no gather).
+  recombination of the real-FFT packing (flip and roll, no gather);
+* :func:`contiguous` / :func:`copied` — the copies the FFT API and the
+  executor make of planes, counted (``plane_copy.count``,
+  ``plane_copy.bytes`` written) while tracing is on.
 
 Apart from :func:`stockham_fft`, it shares no code with the kernels' plain
 versions (``kernels/*.py``) beyond :func:`cmul` and the LUT tables, which
@@ -32,13 +35,27 @@ import torch
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import twiddle as tw
+from repro_torch.runtime import tracing
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
 __all__ = [
     "cmul", "cmatmul", "stockham_fft", "direct_dft", "four_step_fft", "bluestein_fft",
-    "rfft_recomb", "irfft_recomb",
+    "rfft_recomb", "irfft_recomb", "contiguous", "copied",
 ]
+
+
+def copied(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a copy just made of planes (a layout, a dtype, a join),
+    counted as one plane copy of its bytes."""
+    tracing.count("plane_copy.count")
+    tracing.count("plane_copy.bytes", t.numel() * t.element_size())
+    return t
+
+
+def contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t.contiguous()``, the copy counted where one is made."""
+    return t if t.is_contiguous() else copied(t.contiguous())
 
 
 def cmul(ar, ai, br, bi) -> Planes:

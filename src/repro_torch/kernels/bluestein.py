@@ -51,6 +51,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build, dft_matmul, fft4step
+from repro_torch.runtime import tracing
 
 __all__ = [
     "COUNTS",
@@ -162,6 +163,7 @@ def bluestein_fwd_call(xr, xi, luts, *, n: int, m_pad: int, in1: int = 0):
     return _launch_fwd(xr, xi, luts, n, m_pad, in1)
 
 
+@tracing.span("kernel.bluestein_fwd")
 @build.on_device
 def _launch_fwd(xr, xi, luts, n, m_pad, in1=0):
     b = xr.shape[0]
@@ -203,6 +205,7 @@ def bluestein_inv_call(xr, xi, luts, *, n: int, m_pad: int, in1: int = 0):
     return _launch_inv(xr, xi, luts, n, m_pad, in1)
 
 
+@tracing.span("kernel.bluestein_inv")
 @build.on_device
 def _launch_inv(xr, xi, luts, n, m_pad, in1=0):
     b = xr.shape[0]
@@ -258,6 +261,7 @@ def bluestein_elem_call(xr, xi, planes, *, stage: str, n: int, m_pad: int):
     return _launch_elem(xr, xi, planes, w_in, w_out)
 
 
+@tracing.span("kernel.bluestein_elem")
 @build.on_device
 def _launch_elem(xr, xi, planes, w_in, w_out):
     b = xr.shape[0]

@@ -26,6 +26,7 @@ from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core import fake
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
+from repro_torch.runtime import tracing
 
 __all__ = ["COUNTS", "MAX_N", "dft_matmul_plain", "dft_matmul_call"]
 
@@ -79,6 +80,7 @@ def dft_matmul_call(xr, xi, rr, ri, *, inverse=False, twiddle=None):
     return _launch(xr, xi, rr, ri, er, ei, inverse)
 
 
+@tracing.span("kernel.dft_matmul")
 @build.on_device
 def _launch(xr, xi, rr, ri, er, ei, inverse):
     b, n = xr.shape

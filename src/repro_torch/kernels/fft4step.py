@@ -32,6 +32,7 @@ from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
 from repro_torch.kernels.dft_matmul import check_length
+from repro_torch.runtime import tracing
 
 __all__ = [
     "COUNTS",
@@ -115,6 +116,7 @@ def smem_bytes(n: int) -> int:
     return 2 * (m + (m >> 5)) * 4
 
 
+@tracing.span("kernel.fft4step")
 @build.on_device
 def _launch(xr, xi, rr, ri, er, ei, n1, inverse, natural_order):
     b, n = xr.shape

@@ -60,7 +60,9 @@ import torch
 from repro_torch.core import fake, faults
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import twiddle as tw
+from repro_torch.core.fft_torch import contiguous
 from repro_torch.kernels import bluestein, dft_matmul, fft4step, pencil
+from repro_torch.runtime import tracing
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -256,8 +258,8 @@ def _reorder(xr, xi, fs: Sequence[int]) -> Planes:
     transpose (one round trip, a torch copy: no port kernel)."""
     b, n = xr.shape
     perm = (0,) + tuple(range(len(fs), 0, -1))
-    return (xr.view(b, *fs).permute(perm).contiguous().view(b, n),
-            xi.view(b, *fs).permute(perm).contiguous().view(b, n))
+    return (contiguous(xr.view(b, *fs).permute(perm)).view(b, n),
+            contiguous(xi.view(b, *fs).permute(perm)).view(b, n))
 
 
 def _apply_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None, fs: Sequence[int] = ()) -> Planes:
@@ -345,6 +347,7 @@ def _cols_image_pass(xr, xi, p: plan_lib.Pass, inverse: bool, form=None) -> Plan
     return yr.view(b, rows, w), yi.view(b, rows, w)
 
 
+@tracing.span("exec.plan")
 def execute_program(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False,
                     forms=None) -> Planes:
     """Walk a linearized pass program over 2-D (B, n) split planes;
@@ -356,6 +359,7 @@ def execute_program(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = 
     return xr, xi
 
 
+@tracing.span("exec.plan")
 def execute_program2d(xr, xi, passes: Sequence[plan_lib.Pass], *, inverse: bool = False,
                       forms=None) -> Planes:
     """Walk a mixed-axis pass program over 3-D (B, n2, n) image planes.
@@ -413,6 +417,7 @@ def pencil_passes(fft_plan: plan_lib.FFTPlan) -> tuple:
     return tuple(body)
 
 
+@tracing.span("exec.plan")
 def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, axis: int = -1,
                  forms=None, order: str = "natural") -> Planes:
     """Execute ``fft_plan`` over ``axis`` (-1 or -2) of split float32 planes
@@ -443,7 +448,7 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
         lead = xr.shape[:-2]
         b = _lead(lead)
         yr, yi = execute_program2d(
-            xr.contiguous().view(b, rows, n), xi.contiguous().view(b, rows, n),
+            contiguous(xr).view(b, rows, n), contiguous(xi).view(b, rows, n),
             fft_plan.passes, inverse=inverse, forms=forms,
         )
         return yr.view(*lead, rows, n), yi.view(*lead, rows, n)
@@ -455,13 +460,13 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
         if len(fft_plan.passes) == 1:
             b = _lead(lead)
             yr, yi = _cols_image_pass(
-                xr.contiguous().view(b, n, q), xi.contiguous().view(b, n, q),
+                contiguous(xr).view(b, n, q), contiguous(xi).view(b, n, q),
                 _cols_plan_pass(fft_plan, q), inverse, (forms or {}).get(0),
             )
             return yr.view(*lead, n, q), yi.view(*lead, n, q)
         yr, yi = execute_plan(xr.transpose(-1, -2), xi.transpose(-1, -2), fft_plan, inverse=inverse,
                               forms=forms, order=order)
-        return yr.transpose(-1, -2).contiguous(), yi.transpose(-1, -2).contiguous()
+        return contiguous(yr.transpose(-1, -2)), contiguous(yi.transpose(-1, -2))
     if axis != -1:
         raise faults.PlanError(f"execute_plan handles axis -1 or -2, got {axis}")
     n = xr.shape[-1]
@@ -471,7 +476,7 @@ def execute_plan(xr, xi, fft_plan: plan_lib.FFTPlan, *, inverse: bool = False, a
     b = _lead(lead)
     passes = fft_plan.passes if order == "natural" else pencil_passes(fft_plan)
     yr, yi = execute_program(
-        xr.contiguous().view(b, n), xi.contiguous().view(b, n), passes, inverse=inverse, forms=forms,
+        contiguous(xr).view(b, n), contiguous(xi).view(b, n), passes, inverse=inverse, forms=forms,
     )
     return yr.view(*lead, n), yi.view(*lead, n)
 

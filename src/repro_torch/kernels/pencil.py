@@ -59,6 +59,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.fft_torch import cmul, stockham_fft
 from repro_torch.core.faults import PlanError
 from repro_torch.kernels import build
+from repro_torch.runtime import tracing
 
 __all__ = [
     "COUNTS",
@@ -239,6 +240,7 @@ def cols_pass_call(xr, xi, rr, ri, twiddle=None, *, n1: int = 0, inverse=False,
     return _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1, tw_every, tile)
 
 
+@tracing.span("kernel.cols_pass")
 @build.on_device
 def _launch_cols(xr, xi, rr, ri, twiddle, inverse, n1=0, tw_every=1, tile=None):
     """The launch; ``tile`` (12, 13, 14: the on-chip tile's log2 points, or
@@ -301,6 +303,7 @@ def cols_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False, tile=None):
     return _launch_cols_natural(xr, xi, rr, ri, inverse, n1, tile)
 
 
+@tracing.span("kernel.cols_natural")
 @build.on_device
 def _launch_cols_natural(xr, xi, rr, ri, inverse, n1=0, tile=None):
     """The launch; ``tile`` as :func:`_launch_cols`' (:data:`COLS_TILE`)."""
@@ -351,6 +354,7 @@ def rows_natural_call(xr, xi, rr, ri, *, n1: int = 0, inverse=False, tile=None):
     return _launch_rows(xr, xi, rr, ri, inverse, n1, tile)
 
 
+@tracing.span("kernel.rows_natural")
 @build.on_device
 def _launch_rows(xr, xi, rr, ri, inverse, n1=0, tile=None):
     """The launch; ``tile`` as :func:`_launch_cols`' (:data:`ROWS_TILE`)."""
@@ -405,7 +409,8 @@ def rfft_recomb_call(zr, zi, wr, wi):
     _check_recomb("rfft_recomb", zr, zi, wr, wi, m)
     if zr.device.type == "cpu" and not fake.is_fake(zr):
         return rfft_recomb_plain(zr, zi, wr, wi)
-    return _launch_recomb(zr, zi, wr, wi, "rfft_recomb", m, m + 1)
+    with tracing.span("kernel.rfft_recomb"):
+        return _launch_recomb(zr, zi, wr, wi, "rfft_recomb", m, m + 1)
 
 
 def irfft_recomb_plain(xr, xi, wr, wi):
@@ -422,7 +427,8 @@ def irfft_recomb_call(xr, xi, wr, wi):
     _check_recomb("irfft_recomb", xr, xi, wr, wi, m)
     if xr.device.type == "cpu" and not fake.is_fake(xr):
         return irfft_recomb_plain(xr, xi, wr, wi)
-    return _launch_recomb(xr, xi, wr, wi, "irfft_recomb", m, m)
+    with tracing.span("kernel.irfft_recomb"):
+        return _launch_recomb(xr, xi, wr, wi, "irfft_recomb", m, m)
 
 
 @build.on_device

@@ -35,6 +35,7 @@ from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.layers.spectral import SpectralMixer, SpectralStreamCache
 from repro_torch.models.layers.ssm import Mamba2
 from repro_torch.models.layers.xlstm import MLSTM, SLSTM
+from repro_torch.runtime import tracing
 
 __all__ = ["Block", "KINDS", "ATTN_KINDS"]
 
@@ -62,6 +63,10 @@ class Block(nn.Module):
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
         self.kind, self.cfg = kind, cfg
+        # The spans of the two branches: block.attn for every attention
+        # kind, block.<kind> for the others; block.mlp or block.moe.
+        self._mixer_span = "block.attn" if kind in ATTN_KINDS else f"block.{kind}"
+        self._ffn_span = "block.moe" if kind == "moe" else "block.mlp"
         d = cfg.d_model
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.norm1 = RMSNorm(d, eps=cfg.norm_eps, device=device)
@@ -89,18 +94,20 @@ class Block(nn.Module):
         if self.kind in SELF_CONTAINED:
             return x, None
         h = self.norm2(x)
-        if self.kind == "moe":
-            y, aux = self.moe(h)
-            return x + y, aux
-        return x + self.mlp(h), None
+        with tracing.span(self._ffn_span):
+            if self.kind == "moe":
+                y, aux = self.moe(h)
+                return x + y, aux
+            return x + self.mlp(h), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False,
                 mrope_positions: Optional[torch.Tensor] = None):
         h = self.norm1(x)
-        if self.kind in ATTN_KINDS:
-            res = self.mixer(h, positions, return_cache=return_cache, mrope_positions=mrope_positions)
-        else:
-            res = self.mixer(h, return_cache=return_cache)
+        with tracing.span(self._mixer_span):
+            if self.kind in ATTN_KINDS:
+                res = self.mixer(h, positions, return_cache=return_cache, mrope_positions=mrope_positions)
+            else:
+                res = self.mixer(h, return_cache=return_cache)
         res, cache = res if return_cache else (res, None)
         x, aux = self._ffn(x + res)
         return x, cache, (x.new_zeros((), dtype=torch.float32) if aux is None else aux)
@@ -109,14 +116,15 @@ class Block(nn.Module):
         """One token, x (B, 1, D), at position ``t`` (an int or (B,)); an
         attention kind rotates by ``mrope_positions`` (B, 3, 1) where given."""
         h = self.norm1(x)
-        if self.kind in ATTN_KINDS:
-            res, cache = self.mixer.decode(h, cache, t, mrope_positions)
-        elif isinstance(cache, SpectralStreamCache):
-            # Dispatch on the cache's layout, not the config: a prepared cache
-            # of either mode decodes (the ring is the exactness oracle).
-            res, cache = self.mixer.stream_decode(h, cache)
-        else:
-            res, cache = self.mixer.decode(h, cache)
+        with tracing.span(self._mixer_span):
+            if self.kind in ATTN_KINDS:
+                res, cache = self.mixer.decode(h, cache, t, mrope_positions)
+            elif isinstance(cache, SpectralStreamCache):
+                # Dispatch on the cache's layout, not the config: a prepared
+                # cache of either mode decodes (the ring is the exactness oracle).
+                res, cache = self.mixer.stream_decode(h, cache)
+            else:
+                res, cache = self.mixer.decode(h, cache)
         return self._ffn(x + res)[0], cache
 
     def cache_init(self, batch: int, max_len: int, dtype: torch.dtype):

@@ -53,7 +53,7 @@ from torch import nn
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.sharding import shard
 from repro_torch.sharding.shard import local, model_copy, model_sum, tp
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = ["Attention", "KVCache", "SeqKVCache", "init_kv_cache", "slot_index", "quant_tok"]
 
@@ -150,8 +150,8 @@ class Attention(nn.Module):
         else:
             xq = model_copy(x) if self._sharded() else x
             xkv = xq if self.wk.shape[1] != self.cfg.num_kv_heads else x
-            q = xq @ self.wq.to(cd).flatten(1)
-            k, v = (xkv @ w.to(cd).flatten(1) for w in (self.wk, self.wv))
+            q = xq @ cast(self.wq, cd).flatten(1)
+            k, v = (xkv @ cast(w, cd).flatten(1) for w in (self.wk, self.wv))
         q, k, v = (t.unflatten(-1, w.shape[1:]) for t, w in ((q, self.wq), (k, self.wk), (v, self.wv)))
         cfg = self.cfg
         if cfg.rope_kind == "mrope" and mrope_positions is not None:
@@ -213,7 +213,7 @@ class Attention(nn.Module):
         return torch.einsum("bhqk,bkhd->bqhd", probs.to(v_full.dtype), v_full)
 
     def _out(self, out: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-        y = out.flatten(2) @ self.wo.to(cd).flatten(0, 1)
+        y = out.flatten(2) @ cast(self.wo, cd).flatten(0, 1)
         return model_sum(y) if self._sharded() else y
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, return_cache: bool = False,

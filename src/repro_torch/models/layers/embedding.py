@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.sharding.shard import data_sum, model_copy, model_sum, tp
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = ["Embedding", "Head"]
 
@@ -60,7 +60,7 @@ class Head(nn.Module):
             self.w = normal((cfg.d_model, cfg.vocab_size), dtype=dtype, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-        w = table.float().T if self.tied else self.w.float()
+        w = cast(table, torch.float32).T if self.tied else cast(self.w, torch.float32)
         if w.shape[1] != self.vocab:  # this rank's vocab slice
             x = model_copy(x)
         logits = x.float() @ w

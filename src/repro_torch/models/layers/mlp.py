@@ -21,7 +21,7 @@ import torch.nn.functional as tF
 from torch import nn
 
 from repro_torch.sharding.shard import model_copy, model_sum, ws, ws_in
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = ["MLP", "ACTIVATIONS"]
 
@@ -54,7 +54,7 @@ class MLP(nn.Module):
         else:
             if sharded:
                 x = model_copy(x)
-            g = x @ self.wi_gate.to(cd)
-            u = x @ self.wi_up.to(cd)
-        y = (ACTIVATIONS[self.act](g) * u) @ self.wo.to(cd)
+            g = x @ cast(self.wi_gate, cd)
+            u = x @ cast(self.wi_up, cd)
+        y = (ACTIVATIONS[self.act](g) * u) @ cast(self.wo, cd)
         return model_sum(y) if sharded else y

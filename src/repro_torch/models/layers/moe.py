@@ -41,7 +41,7 @@ from torch import nn
 from repro_torch.models.layers.mlp import ACTIVATIONS, MLP
 from repro_torch.sharding.logical import data_shard_count
 from repro_torch.sharding.shard import data_sum, data_sum_all, model_copy, model_sum, tp, ws, ws_in
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = ["MoE", "Routing"]
 
@@ -144,11 +144,11 @@ class MoE(nn.Module):
         """The expert FFN over the buffer (E, C, D), each weight cast to the
         buffer's dtype at its use."""
         cd = h.dtype
-        gate, up = torch.bmm(h, self.wi_gate.to(cd)), torch.bmm(h, self.wi_up.to(cd))
+        gate, up = torch.bmm(h, cast(self.wi_gate, cd)), torch.bmm(h, cast(self.wi_up, cd))
         if ws():
             gate, up = data_sum_all(gate, up)
         act = ACTIVATIONS[self.cfg.act](gate) * up
-        return torch.bmm(act, self.wo.to(cd))
+        return torch.bmm(act, cast(self.wo, cd))
 
     def combine(self, y_e: torch.Tensor, rows: torch.Tensor, mine: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,9 @@ from repro_torch.core import fft as fft_lib
 from repro_torch.core import overlap as ov_lib
 from repro_torch.core.conv import fft_conv
 from repro_torch.core.limits import next_pow2
+from repro_torch.runtime import tracing
 from repro_torch.sharding.shard import data_gather, local, model_copy, model_sum, own_rows, tp, ws_in
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = [
     "SpectralMixer",
@@ -179,7 +180,7 @@ class SpectralMixer(nn.Module):
         h = y.to(cd) * own_rows(g, y.shape[0])
         if h.shape[0] != g.shape[0]:
             h = data_gather(h)
-        return h @ self.w_out.to(cd)
+        return h @ cast(self.w_out, cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
         """x: (B, S, D) → (B, S, D), differentiable in ``x``, ``filt`` and
@@ -201,7 +202,7 @@ class SpectralMixer(nn.Module):
             out = self._out(y, g)
         if not return_cache:
             return out
-        with torch.no_grad():  # decode states carry no graph
+        with torch.no_grad(), tracing.span("spectral.decode_state"):  # decode states carry no graph
             u32 = u.to(torch.float32)
             if self.decode_mode == "ring":
                 return out, self._ring_state(u32)

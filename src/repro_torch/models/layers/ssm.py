@@ -39,7 +39,7 @@ from torch import nn
 
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.sharding.shard import data_gather, own_rows, ws_in
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = ["Mamba2", "SSMCache", "chunks", "causal_decay", "carry_chunks", "ssd_chunked"]
 
@@ -184,7 +184,7 @@ class Mamba2(nn.Module):
         y = self.norm(y.to(cd) * tF.silu(z))
         if batch is not None and y.shape[0] != batch:
             y = data_gather(y)
-        return y @ self.w_out.to(cd)
+        return y @ cast(self.w_out, cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
         """x (B, S, D) → y (B, S, D) [, :class:`SSMCache`]."""

@@ -38,7 +38,7 @@ from torch import nn
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.layers.ssm import carry_chunks, causal_decay, chunks
 from repro_torch.sharding.shard import data_gather, own_rows, stream_full, stream_slice, ws_in
-from repro_torch.utils.params import normal
+from repro_torch.utils.params import cast, normal
 
 __all__ = ["MLSTM", "SLSTM", "MLSTMCache", "SLSTMCache", "stab_scan"]
 
@@ -120,7 +120,7 @@ class MLSTM(nn.Module):
         d, h, p = self.d_inner, self.heads, self.head_dim
         (up,) = ws_in(x, self.w_up)  # a weight-stationary decode: summed over data
         u, z = up[..., :d], up[..., d:]
-        qkv = u @ self.w_qkv.to(cd)
+        qkv = u @ cast(self.w_qkv, cd)
         q = qkv[..., :d].reshape(b, s, h, p)
         k = qkv[..., d:2 * d].reshape(b, s, h, p) * p**-0.5
         return u, z, q, k, qkv[..., 2 * d:].reshape(b, s, h, p)
@@ -137,7 +137,7 @@ class MLSTM(nn.Module):
         out = self.norm(out.reshape(*z.shape).to(cd)) * tF.silu(z)
         if batch is not None and out.shape[0] != batch:
             out = data_gather(out)
-        return out @ self.w_down.to(cd)
+        return out @ cast(self.w_down, cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
         """x (B, S, D) → y (B, S, D) [, :class:`MLSTMCache`]."""
@@ -208,15 +208,15 @@ class SLSTM(nn.Module):
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:
         """The input's contribution to the gates, (..., 4D) float32."""
-        return x.float() @ self.w_x.float()
+        return x.float() @ cast(self.w_x, torch.float32)
 
     def _out(self, hs: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-        return self.norm(hs.to(cd)) @ self.w_out.to(cd)
+        return self.norm(hs.to(cd)) @ cast(self.w_out, cd)
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
         """x (B, S, D) → y (B, S, D) [, :class:`SLSTMCache`]."""
         xg = self._in(x)  # (B, S, 4D), hoisted out of the loop
-        state, w_h = self.init_cache(x.shape[0]), self.w_h.float()
+        state, w_h = self.init_cache(x.shape[0]), cast(self.w_h, torch.float32)
         hs = []
         for t in range(x.shape[1]):
             state = self._cell(xg[:, t], state, w_h)
@@ -234,6 +234,6 @@ class SLSTM(nn.Module):
         # A weight-stationary decode gathers the sLSTM whole, the stream
         # too, and updates its data shard's rows of the state where the
         # state holds only those.
-        state = self._cell(self._in(own_rows(stream_full(x)[:, 0], cache.c.shape[0])), cache, self.w_h.float())
+        state = self._cell(self._in(own_rows(stream_full(x)[:, 0], cache.c.shape[0])), cache, cast(self.w_h, torch.float32))
         hs = state.h[:, None] if state.h.shape[0] == x.shape[0] else data_gather(state.h[:, None])
         return stream_slice(self._out(hs, x.dtype)), state

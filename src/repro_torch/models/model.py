@@ -62,6 +62,7 @@ from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.embedding import Embedding, Head
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.models.stack import Stack
+from repro_torch.runtime import tracing
 from repro_torch.sharding import shard
 
 __all__ = ["DecoderLM", "loss_fn"]
@@ -134,6 +135,7 @@ class DecoderLM(nn.Module):
             return self.head(self(tokens, positions, **inputs)[0], self.embed.table)
 
     @torch.no_grad()
+    @tracing.span("model.prefill")
     def prefill(self, tokens=None, *, frame_embeds=None, vision_embeds=None,
                 mrope_positions=None) -> Tuple[torch.Tensor, List]:
         """The prompt's last-position logits (B, vocab) and the per-layer

@@ -52,6 +52,7 @@ from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.spectral import SpectralCache, SpectralStreamCache
 from repro_torch.models.layers.ssm import SSMCache
 from repro_torch.models.layers.xlstm import MLSTMCache, SLSTMCache
+from repro_torch.runtime import tracing
 from repro_torch.serving.sampling import sample
 
 __all__ = ["ServeConfig", "Engine", "DecodeState", "PrefillResult", "require_token_prompts"]
@@ -153,13 +154,18 @@ class Engine:
         require_token_prompts(self.cfg)
         prompts = torch.as_tensor(prompts, dtype=torch.long, device=self.model.device)
         b, s = prompts.shape
-        logits, caches = self.model.prefill(prompts)
-        caches = self.model.prepare_decode_caches(caches, max_len)
-        return PrefillResult(
-            caches=caches,
-            token=self._sample(logits, generator),
-            length=torch.full((b,), s, dtype=torch.long, device=prompts.device),
-        )
+        # The request's root span: every span inside carries its id.
+        with tracing.request(), tracing.span("serve.prefill", prompt_len=s):
+            logits, caches = self.model.prefill(prompts)
+            with tracing.span("serve.decode_layout"):
+                caches = self.model.prepare_decode_caches(caches, max_len)
+            with tracing.span("serve.sample"):
+                token = self._sample(logits, generator)
+            return PrefillResult(
+                caches=caches,
+                token=token,
+                length=torch.full((b,), s, dtype=torch.long, device=prompts.device),
+            )
 
     # -- batch state -------------------------------------------------------
 

@@ -63,6 +63,7 @@ from torch import nn
 
 from repro_torch.sharding.logical import current_mesh, mesh_context
 from repro_torch.sharding.partition import placements_for, spec_for_shape
+from repro_torch.utils.params import cast
 
 __all__ = [
     "shard_model",
@@ -342,7 +343,7 @@ def ws_in(x: torch.Tensor, *weights) -> tuple:
     weight-stationary decode ``x`` is this rank's slice of ``embed`` and
     each weight its (D/data, ...) shard, so the partial products are summed
     over ``data``, one all-reduce for all of them."""
-    outs = tuple(x @ w.to(x.dtype).flatten(1) for w in weights)
+    outs = tuple(x @ cast(w, x.dtype).flatten(1) for w in weights)
     return data_sum_all(*outs) if ws() else outs
 
 

@@ -6,7 +6,8 @@ The reference keeps parameters as a pytree of ``Param`` leaves;
 module fills a ``torch.nn.Module`` from such a dict, name for name, in the
 reference's layouts (a projection ``w`` of shape (in, out) is applied as
 ``x @ w`` on both sides, so nothing is transposed).  :func:`normal` draws a
-parameter at the reference's law (``repro/utils/params.py:92``).
+parameter at the reference's law (``repro/utils/params.py:92``); :func:`cast`
+is a parameter at its use in the compute dtype.
 """
 
 from __future__ import annotations
@@ -17,8 +18,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.runtime import tracing
+
 __all__ = [
     "normal",
+    "cast",
     "load_reference_params",
     "load_reference_model",
     "load_reference_train_state",
@@ -44,6 +48,17 @@ def normal(
     at = generator.device if generator is not None else device
     v = torch.randn(tuple(shape), generator=generator, device=at) * scale
     return nn.Parameter(v.to(device, dtype))
+
+
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w.to(dtype)``: a parameter cast at its use, as the reference writes
+    ``params[...].astype(cd)``.  A cast that copies (``w`` in another dtype)
+    counts ``weight_cast.count`` and ``weight_cast.bytes``, the bytes of
+    ``w``, while tracing is on."""
+    if w.dtype != dtype:
+        tracing.count("weight_cast.count")
+        tracing.count("weight_cast.bytes", w.numel() * w.element_size())
+    return w.to(dtype)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
